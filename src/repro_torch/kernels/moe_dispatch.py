@@ -1,0 +1,305 @@
+"""Fused device-initiated MoE dispatch/combine — the DeepEP analogue — as a
+hand-written Hopper kernel (``repro_torch/csrc/moe_dispatch.cu``).
+
+Port of ``repro/kernels/moe_dispatch.py``. One cooperative launch runs all
+``n`` ranks as partitions of the card: each rank stages its tokens into
+``block_tokens``-row microblocks per expert, stores them into the owning
+expert's receive slab in the ``(off, j)`` rounds of
+:class:`~repro_torch.core.schedule.DispatchSchedule` (dummy rounds always
+elided), runs the expert SwiGLU FFN over the arrivals and stores the rows
+back (combine). BARRIER, SIGNAL (pipelined) and COUNTER (tile-fused)
+completions, the int8 wire and the shared-expert second stream are flags
+of the one kernel; the source's header says how each is realized.
+
+:func:`moe_dispatch_combine` launches the kernel for CUDA tensors and
+raises when it cannot; for CPU tensors it computes
+:func:`moe_dispatch_combine_ref`, the plain version the tests and
+``chip_smoke.py`` hold the kernel against. ``LAUNCHES`` counts kernel
+launches, keyed by variant and shape; ``VARIANTS`` names the knob sets
+the main path launches.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+# The schedule machinery is defined once, in repro_torch.core.schedule;
+# re-exported here for the kernel's callers.
+from repro_torch.core.schedule import (DispatchSchedule,  # noqa: F401
+                                       make_schedule, sanitize_combine_tile)
+
+MAX_RANKS = 8                 # MOE_MAXN in the CUDA source
+TILE = 64                     # BN: d, f and fs must be multiples of it
+TIMEOUT_MS = 20_000           # a spin-wait traps after this long
+
+# (variant, n, T, d, f) -> kernel launches; read by chip_smoke.py
+LAUNCHES = collections.Counter()
+
+
+def reset_launches():
+    LAUNCHES.clear()
+
+
+def launches():
+    """Kernel launches so far, all variants."""
+    return sum(LAUNCHES.values())
+
+
+# ------------------------------------------------------------ plain version
+
+
+def quant_i8(x):
+    """int8 wire quantization with per-row scales (the one copy of the
+    formula; the XLA-style host build uses it too). ``torch.round`` rounds
+    half to even, like ``jnp.round``."""
+    s = x.abs().amax(dim=-1, keepdim=True) / 127.0 + 1e-12
+    return torch.clamp(torch.round(x / s), -127, 127).to(torch.int8), s
+
+
+def swiglu_ffn(x, w1, w2):
+    """The expert FFN: GEMM1 (2f, gate+up) -> SwiGLU -> GEMM2."""
+    g, u = torch.chunk(x @ w1, 2, dim=-1)
+    return (F.silu(g) * u) @ w2
+
+
+def _offsets(counts):
+    offs, acc = [], 0
+    for c in counts:
+        offs.append(acc)
+        acc += int(c)
+    return offs
+
+
+def moe_dispatch_combine_ref(x, w1, w2, *, counts, block_tokens=64, tight=True,
+                             wire_i8=False, shared=None):
+    """Plain-torch version of the kernel on the stacked layout: x (n, T, d),
+    w1 (n, d, 2f), w2 (n, f, d); rank r's rows ``[off_e, off_e+counts[e])``
+    go to expert e. Each row crosses the wire alone (per-row int8 scales),
+    so the microblock layout (``block_tokens``, ``tight``) changes where
+    rows travel, never what comes back. ``shared=(xs, s1, s2)`` adds the
+    second stream and returns ``(y, ys)``."""
+    n, T, _ = x.shape
+    sched = make_schedule(counts, block_tokens, tight)
+    if sched.n != n or sum(sched.counts) != T:
+        raise ValueError(f"counts {counts} do not route {n} ranks x {T} tokens")
+    y = torch.zeros_like(x)
+    for e, (off, c) in enumerate(zip(_offsets(counts), sched.counts)):
+        if c == 0:
+            continue
+        rows = x[:, off:off + c]
+        if wire_i8:
+            q, s = quant_i8(rows)
+            rows = q.to(torch.float32) * s
+        y[:, off:off + c] = swiglu_ffn(rows, w1[e], w2[e])
+    if shared is None:
+        return y
+    xs, s1, s2 = shared
+    return y, swiglu_ffn(xs, s1, s2)
+
+
+# ------------------------------------------------------------ the kernel
+
+
+class _Params(ctypes.Structure):
+    """``MoeParams`` of ``csrc/moe_dispatch.cu``, field for field."""
+    _fields_ = (
+        [(k, ctypes.c_int) for k in ("n", "T", "Ts", "d", "f", "fs", "B",
+                                     "b_max", "stride", "ct")]
+        + [(k, ctypes.c_int * MAX_RANKS)
+           for k in ("counts", "blocks", "offsets")]
+        + [(k, ctypes.c_int) for k in ("barrier", "pipelined", "tile_fused",
+                                       "shared", "wire_i8", "timeout_ms")]
+        + [(k, ctypes.c_void_p) for k in (
+            "x", "w1", "w2", "xs", "s1", "s2", "y", "ys", "recv", "recv_s",
+            "ffn_out", "comb", "h", "hs", "disp_flag", "comb_flag", "bar")])
+
+
+_GRIDS = {}                   # (device, n, shared, wire_i8) -> (grid, per_sm)
+
+
+def load_kernel():
+    """Build (if needed) and load the kernel without running it — the
+    fast path's stage A and the cascade's l1."""
+    from repro_torch.kernels.build import load
+    lib = load("moe_dispatch")
+    if not getattr(lib, "_typed", False):
+        lib.moe_dispatch_grid.argtypes = [ctypes.c_int] * 3 + [
+            ctypes.POINTER(ctypes.c_int)] * 2
+        lib.moe_dispatch_grid.restype = ctypes.c_int
+        lib.moe_dispatch_launch.argtypes = [ctypes.POINTER(_Params),
+                                            ctypes.c_int, ctypes.c_void_p]
+        lib.moe_dispatch_launch.restype = ctypes.c_int
+        lib.moe_dispatch_error.argtypes = [ctypes.c_int]
+        lib.moe_dispatch_error.restype = ctypes.c_char_p
+        lib.moe_dispatch_params_size.argtypes = []
+        lib.moe_dispatch_params_size.restype = ctypes.c_int
+        if lib.moe_dispatch_params_size() != ctypes.sizeof(_Params):
+            raise RuntimeError("MoeParams layout differs between "
+                               "moe_dispatch.cu and the ctypes mirror")
+        lib._typed = True
+    return lib
+
+
+def _check(lib, code, what):
+    if code:
+        raise RuntimeError(f"moe_dispatch {what} failed: "
+                           f"{lib.moe_dispatch_error(code).decode()}")
+
+
+def grid_for(device, n, shared, wire_i8):
+    """The co-resident grid the launch uses: CTAs per SM x SMs, rounded
+    down to a multiple of ``n``. Raises when it cannot hold the ranks."""
+    key = (torch.device(device).index, n, bool(shared), bool(wire_i8))
+    if key not in _GRIDS:
+        lib = load_kernel()
+        grid, per_sm = ctypes.c_int(0), ctypes.c_int(0)
+        with torch.cuda.device(device):
+            _check(lib, lib.moe_dispatch_grid(n, int(shared), int(wire_i8),
+                                              ctypes.byref(grid),
+                                              ctypes.byref(per_sm)), "grid")
+        _GRIDS[key] = (grid.value, per_sm.value)
+    return _GRIDS[key]
+
+
+# Knobs of each variant the main path launches, as
+# MoEDispatch.kernel_knobs resolves its directives (block_tokens 64, tight
+# wire); the shared-expert stream comes with the workload, not the knobs.
+VARIANTS = {
+    "barrier": dict(barrier=True, pipelined=False),
+    "deferred_signal": dict(pipelined=False),
+    "pipelined_signal": dict(pipelined=True),
+    "tile_fused": dict(tile_fused=True),
+    "tile_fused+int8": dict(tile_fused=True, wire_i8=True),
+    "tile_fused_ct16": dict(tile_fused=True, combine_tile=16),
+}
+
+
+def variant_name(*, barrier, pipelined, tile_fused, wire_i8, shared,
+                 combine_tile, block_tokens):
+    if tile_fused:
+        name = "tile_fused"
+        if sanitize_combine_tile(combine_tile, block_tokens) != block_tokens:
+            name += f"_ct{sanitize_combine_tile(combine_tile, block_tokens)}"
+    elif barrier:
+        name = "barrier"
+    else:
+        name = "pipelined_signal" if pipelined else "deferred_signal"
+    if shared:
+        name += "+shared"
+    if wire_i8:
+        name += "+int8"
+    return name
+
+
+def _launch(x, w1, w2, sched, *, barrier, pipelined, tile_fused, wire_i8,
+            combine_tile, shared):
+    n, T, d = x.shape
+    f = w2.shape[1]
+    B = sched.block_tokens
+    tensors = [x, w1, w2] + (list(shared) if shared is not None else [])
+    for t in tensors:
+        if t.device != x.device or t.dtype != torch.float32 \
+                or not t.is_contiguous():
+            raise ValueError("moe_dispatch wants contiguous float32 tensors "
+                             f"on {x.device}; got {t.dtype} on {t.device}")
+    if not 1 <= n <= MAX_RANKS:
+        raise ValueError(f"moe_dispatch runs 1..{MAX_RANKS} ranks, got {n}")
+    if w1.shape != (n, d, 2 * f) or w2.shape != (n, f, d):
+        raise ValueError(f"expert weights {tuple(w1.shape)}, "
+                         f"{tuple(w2.shape)} do not match x {tuple(x.shape)}")
+    if shared is not None:
+        xs, s1, s2 = shared
+        Ts, fs = xs.shape[1], s2.shape[0]
+        if xs.shape != (n, Ts, d) or s1.shape != (d, 2 * fs) \
+                or s2.shape != (fs, d):
+            raise ValueError("shared-expert operands do not match x")
+    else:
+        Ts, fs = 0, TILE
+    if d % TILE or f % TILE or fs % TILE:
+        raise ValueError(f"d={d}, f={f}, fs={fs} must be multiples of {TILE}")
+    grid, _ = grid_for(x.device, n, shared is not None, wire_i8)
+    dev = x.device
+    stride = sched.b_max * B
+    slab = n * stride
+    wire_dt = torch.int8 if wire_i8 else torch.float32
+    recv = torch.empty((n, slab, d), dtype=wire_dt, device=dev)
+    recv_s = torch.empty((n, slab), dtype=torch.float32, device=dev)
+    ffn_out = torch.empty((n, slab, d), dtype=torch.float32, device=dev)
+    comb = torch.empty((n, slab, d), dtype=torch.float32, device=dev)
+    h = torch.empty((n, slab, f), dtype=torch.float32, device=dev)
+    y = torch.empty_like(x)
+    if shared is not None:
+        hs = torch.empty((n, Ts, fs), dtype=torch.float32, device=dev)
+        ys = torch.empty((n, Ts, d), dtype=torch.float32, device=dev)
+    # flags and barrier counters, zeroed on the launch stream
+    n_disp = n * n * sched.b_max
+    flags = torch.zeros(n_disp + n * n + 2 * n, dtype=torch.int32, device=dev)
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    p = _Params(n=n, T=T, Ts=Ts, d=d, f=f, fs=fs, B=B, b_max=sched.b_max,
+                stride=stride, ct=sanitize_combine_tile(combine_tile, B),
+                barrier=int(barrier), pipelined=int(pipelined),
+                tile_fused=int(tile_fused), shared=int(shared is not None),
+                wire_i8=int(wire_i8), timeout_ms=TIMEOUT_MS)
+    for k in ("counts", "blocks"):
+        getattr(p, k)[:n] = getattr(sched, k)
+    p.offsets[:n] = _offsets(sched.counts)
+    p.x, p.w1, p.w2, p.y = ptr(x), ptr(w1), ptr(w2), ptr(y)
+    if shared is not None:
+        p.xs, p.s1, p.s2, p.ys, p.hs = (ptr(xs), ptr(s1), ptr(s2), ptr(ys),
+                                        ptr(hs))
+    p.recv, p.recv_s, p.ffn_out, p.comb, p.h = (ptr(recv), ptr(recv_s),
+                                                ptr(ffn_out), ptr(comb), ptr(h))
+    base = flags.data_ptr()
+    p.disp_flag = base
+    p.comb_flag = base + 4 * n_disp
+    p.bar = base + 4 * (n_disp + n * n)
+    lib = load_kernel()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        _check(lib, lib.moe_dispatch_launch(ctypes.byref(p), grid, stream),
+               "launch")
+    LAUNCHES[(variant_name(barrier=barrier, pipelined=pipelined,
+                           tile_fused=tile_fused, wire_i8=wire_i8,
+                           shared=shared is not None,
+                           combine_tile=combine_tile, block_tokens=B),
+              n, T, d, f)] += 1
+    # the scratch is freed here; the caching allocator reuses it only in
+    # this stream's order, after the launch
+    if shared is not None:
+        return y, ys
+    return y
+
+
+def moe_dispatch_combine(x, w1, w2, *, counts, block_tokens=64, tight=True,
+                         pipelined=True, barrier=False, wire_i8=False,
+                         tile_fused=False, combine_tile=None, shared=None):
+    """Global entry, the JAX package's layout: x (n, T, d) with each rank's
+    rows sorted into contiguous per-expert blocks by ``counts``; w1
+    (n, d, 2f), w2 (n, f, d) — expert e's weights on rank e. Returns
+    (n, T, d), or ``(y, ys)`` with ``shared=(xs, s1, s2)`` — xs (n, Ts, d),
+    s1 (d, 2fs), s2 (fs, d) replicated.
+
+    The ranks are the leading axis of ``x`` (no mesh argument). The
+    reference's ``contexts`` send window has no counterpart: a
+    store-and-flag round retires as it issues, so the in-flight depth is
+    1 under every cap. CUDA tensors launch the kernel (or raise); CPU
+    tensors compute the plain version."""
+    if tile_fused and barrier:
+        raise ValueError("tile_fused (COUNTER completion) excludes a "
+                         "BARRIER rendezvous")
+    if x.device.type == "cpu":
+        return moe_dispatch_combine_ref(x, w1, w2, counts=counts,
+                                        block_tokens=block_tokens,
+                                        tight=tight, wire_i8=wire_i8,
+                                        shared=shared)
+    if x.device.type != "cuda":
+        raise ValueError(f"moe_dispatch runs on cuda or cpu, not {x.device}")
+    sched = make_schedule(counts, block_tokens, tight)
+    if sched.n != x.shape[0] or sum(sched.counts) != x.shape[1]:
+        raise ValueError(f"counts {counts} do not route x {tuple(x.shape)}")
+    return _launch(x, w1, w2, sched, barrier=barrier, pipelined=pipelined,
+                   tile_fused=tile_fused, wire_i8=wire_i8,
+                   combine_tile=combine_tile, shared=shared)

@@ -1,0 +1,258 @@
+"""The port's cascade, fast path and chip smoke phases on the CPU.
+
+Held against the reference where the reference runs here: the JAX cascade
+reaches level 3 for the XLA directives at n=1, so their EvalRecords'
+deterministic fields must be equal. Kernel directives stop at ``l1:build``
+in the reference on this JAX version (its Pallas kernel does not trace),
+so for them the port's l0 report and l3 model are compared with the
+reference's ``verify_directive`` and ``cost_breakdown`` directly, and l2
+is the port's plain version against the oracle.
+"""
+import os
+import shutil
+import subprocess
+import sys
+import time
+
+import pytest
+import torch
+
+import jax.numpy as jnp
+from repro.compat import make_mesh
+from repro.core import cascade as jcas
+from repro.core import design_space as jds
+from repro.core import verify as jver
+from repro.core.hardware import V5E as JV5E
+from repro.core.hardware import HardwareContext as JHW
+from repro.workloads.moe_dispatch import MoEDispatch as JMoE
+from repro.workloads.serving import ServingStep as JServing
+from repro_torch.core import design_space as tds
+from repro_torch.core import verify as tver
+from repro_torch.core.cascade import Candidate, CascadeEvaluator
+from repro_torch.core.fast_path import DEVICE_CONSERVATIVE, fast_path
+from repro_torch.core.hardware import V5E, HardwareContext
+from repro_torch.core.telemetry import EvalRecord, MetricsRegistry, wallclock_us
+from repro_torch.dist.mesh import VirtualMesh
+from repro_torch.kernels import moe_dispatch as kern
+from repro_torch.workloads.moe_dispatch import MoEDispatch as TMoE
+from repro_torch.workloads.moe_dispatch import inputs_from_numpy
+from repro_torch.workloads.serving import ServingStep as TServing
+from torch_port_helpers import numpy_inputs
+
+ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+sys.path.insert(0, ROOT)
+import chip_smoke  # noqa: E402
+
+
+def ctx(chip_cls, spec, n):
+    return chip_cls(chip=spec, mesh_shape=(n,), mesh_axes=("x",),
+                    chips_per_pod=n, n_chips=n, has_dcn=False)
+
+
+def pair(serving, n, T=64, d=64, f=64):
+    if serving:
+        return (JServing(n_dev=n, tokens_per_rank=T, d=d, f=f, f_shared=f),
+                TServing(n_dev=n, tokens_per_rank=T, d=d, f=f, f_shared=f))
+    return (JMoE(n_dev=n, tokens_per_rank=T, d=d, f=f),
+            TMoE(n_dev=n, tokens_per_rank=T, d=d, f=f))
+
+
+def evaluators(serving, n, **kw):
+    jw, tw = pair(serving, n)
+    arrs = numpy_inputs(n, 64, 64, 64, 64 if serving else 0, seed=n)
+    jev = jcas.CascadeEvaluator(
+        jw, make_mesh((1,), ("x",)), ctx(JHW, JV5E, n),
+        verify_inputs=tuple(jnp.asarray(a) for a in arrs), **kw)
+    tev = CascadeEvaluator(tw, VirtualMesh(n, device="cpu"),
+                           ctx(HardwareContext, V5E, n),
+                           verify_inputs=inputs_from_numpy(*arrs,
+                                                           device="cpu"),
+                           **kw)
+    return jev, tev
+
+
+XLA_POINTS = [jds.CONSERVATIVE, jds.EXPERT_SYSTEMS["TokenWeave"],
+              jds.CONSERVATIVE.with_tunable("wire_i8", 1),
+              jds.Directive("XLA_COLLECTIVE", "SIGNAL", "DEFERRED")]
+
+
+@pytest.mark.parametrize("serving", [False, True])
+def test_eval_records_equal_reference_for_xla_points_at_one_rank(serving):
+    jev, tev = evaluators(serving, 1)
+    for i, d in enumerate(XLA_POINTS):
+        jr = jev.evaluate(jcas.Candidate(d, cid=i, mutation="m"))
+        tr = tev.evaluate(Candidate(tds.directive_from_dict(d.as_dict()),
+                                    cid=i, mutation="m"))
+        want = jr.record.deterministic_dict()
+        got = tr.record.deterministic_dict()
+        assert got.pop("device") == "cpu"
+        assert got == want, d
+        assert (tr.level, tr.rejection) == (jr.level, jr.rejection)
+    assert tev.records[-1].rejection == "invalid"
+
+
+@pytest.mark.parametrize("serving", [False, True])
+def test_kernel_points_l0_and_l3_equal_reference_and_l2_holds(serving):
+    jw, tw = pair(serving, 4, T=256)
+    arrs = numpy_inputs(4, 256, 64, 64, 64 if serving else 0, seed=3)
+    tev = CascadeEvaluator(tw, VirtualMesh(4, device="cpu"),
+                           ctx(HardwareContext, V5E, 4),
+                           verify_inputs=inputs_from_numpy(*arrs,
+                                                           device="cpu"))
+    points = list(jds.EXPERT_SYSTEMS.values()) + [
+        jds.Directive("PALLAS_RDMA", "SIGNAL", "TILE_PIPELINED", "LOCAL",
+                      "GRID_STEP", "PER_PEER", "ACQUIRE", 2),
+        jds.EXPERT_SYSTEMS["FLUX"].with_tunable("wire_i8", 1),
+        jds.EXPERT_SYSTEMS["FLUX"].with_tunable("combine_tile", 16)]
+    for d in points:
+        td = tds.directive_from_dict(d.as_dict())
+        jrep, trep = jver.verify_directive(jw, d), tver.verify_directive(tw, td)
+        assert (trep is None) == (jrep is None)
+        if jrep is not None:
+            assert (trep.ok, trep.subject, trep.checked) \
+                == (jrep.ok, jrep.subject, jrep.checked)
+        r = tev.evaluate(Candidate(td))
+        assert r.level == 3, r.diagnostic
+        want_ms = jw.cost_breakdown(d, ctx(JHW, JV5E, 4)).total * 1e3
+        assert r.t_model_ms == want_ms
+        assert r.score == 10000.0 / (1.0 + want_ms)
+
+
+def test_l2_rejects_wrong_numbers_and_retries_flaky_runs():
+    _, tev = evaluators(False, 4)
+    calls = []
+
+    def wrong(fn):
+        return fn(*tev.inputs) * 1.01
+
+    tev._run_l2 = wrong
+    r = tev.evaluate(Candidate(DEVICE_CONSERVATIVE))
+    assert (r.level, r.rejection) == (1, "l2:mismatch")
+
+    def flaky(fn):
+        calls.append(1)
+        if len(calls) == 1:
+            raise RuntimeError("transient")
+        return fn(*tev.inputs)
+
+    tev._run_l2 = flaky
+    tev.backoff_s = 0.0
+    r = tev.evaluate(Candidate(DEVICE_CONSERVATIVE))
+    assert (r.level, r.retries) == (3, 1)
+
+    def nonfinite(fn):
+        return fn(*tev.inputs) * float("nan")
+
+    tev._run_l2 = nonfinite
+    r = tev.evaluate(Candidate(DEVICE_CONSERVATIVE))
+    assert r.rejection == "l2:nonfinite"
+
+
+def test_timeout_quarantines_a_wedged_candidate():
+    _, tev = evaluators(False, 4, timeout_s=0.3)
+
+    def wedge(fn):
+        time.sleep(2.0)
+        return fn(*tev.inputs)
+
+    tev._run_l2 = wedge
+    r = tev.evaluate(Candidate(DEVICE_CONSERVATIVE, cid=7))
+    assert r.quarantined and r.rejection == "quarantine"
+    assert tev.quarantine_report()[0]["cid"] == 7
+
+
+def test_evaluate_batch_equals_sequential():
+    cands = lambda: [Candidate(tds.directive_from_dict(d.as_dict()), cid=i)  # noqa: E731
+                     for i, d in enumerate(list(jds.EXPERT_SYSTEMS.values())
+                                           + XLA_POINTS)]
+    _, seq = evaluators(True, 4)
+    _, bat = evaluators(True, 4, batch_workers=3)
+    want = [seq.evaluate(c) for c in cands()]
+    got = bat.evaluate_batch(cands())
+    assert [r.record.deterministic_dict() for r in got] \
+        == [r.record.deterministic_dict() for r in want]
+    assert [r.deterministic_dict() for r in bat.records] \
+        == [r.deterministic_dict() for r in seq.records]
+
+
+@pytest.mark.parametrize("serving", [False, True])
+def test_fast_path_seeds_the_kernel_directive(serving):
+    _, tw = pair(serving, 4, T=256)
+    mesh = VirtualMesh(4, device="cpu")
+    seed = fast_path(tw, mesh, ctx(HardwareContext, V5E, 4))
+    assert seed.directive.backend == "PALLAS_RDMA"
+    assert seed.candidate.result.level == 3
+    assert [n.kind for n in seed.graph.nodes] == ["all-to-all"] * 2
+    assert seed.evolve_dims == tw.evolve_dims
+    assert "stage B verified" in seed.log[-1]
+
+
+def test_full_f32_is_scoped_to_the_card_and_restored():
+    """The cascade turns TF32 off only around its own matmuls on a card,
+    and leaves the process's setting as it found it."""
+    from repro_torch.core.cascade import _full_f32
+    prev = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        with _full_f32(torch.device("cuda")):
+            assert not torch.backends.cuda.matmul.allow_tf32
+        assert torch.backends.cuda.matmul.allow_tf32
+        with _full_f32(torch.device("cpu")):
+            assert torch.backends.cuda.matmul.allow_tf32
+        evaluators(False, 1)
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def test_telemetry_round_trip_and_wallclock():
+    rec = EvalRecord(cid=1, level=3, score=2.0, t_model_ms=float("inf"),
+                     device="cpu", levels_s={"l0": 0.1})
+    back = EvalRecord.from_json(rec.to_json())
+    assert back.t_model_ms is None and back.device == "cpu"
+    assert "device" in back.deterministic_dict()
+    reg = MetricsRegistry()
+    reg.counter("launches").inc()
+    reg.histogram("ms").observe(2.0)
+    assert reg.snapshot()["counters"]["launches"] == 1.0
+    us = wallclock_us(lambda a: a + 1, (torch.zeros(4),), iters=2)
+    assert us > 0
+
+
+# ------------------------------------------------------------- chip_smoke
+
+
+def test_chip_smoke_phases_on_the_cpu():
+    """The smoke's phases run end to end at a tiny size on the CPU (where
+    the wrapper computes the plain version, so every error is 0)."""
+    assert chip_smoke.phase_device("cpu")["platform"] == "cpu"
+    chip_smoke.phase_build("cpu")
+    small = chip_smoke.main_path_workloads(small=True)
+    recs = chip_smoke.phase_kernels("cpu", small, iters=1)
+    assert len(recs) == 2 * len(kern.VARIANTS)
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    for rec in recs:
+        assert keys <= set(rec) and rec["max_abs_err"] == 0.0
+        assert rec["bound_by"] == "operations"
+        assert os.path.exists(os.path.join(ROOT, rec["source"]))
+    counts = chip_smoke.phase_main("cpu", small)
+    assert counts == {}                          # no kernel on the CPU
+
+
+def test_chip_smoke_bound_counts_routed_tokens():
+    ms, by, flops = chip_smoke.bound(TServing(n_dev=4), [64, 64, 64, 64])
+    assert flops == 2 * 6 * 4 * 256 * 7168 * 2048
+    assert by == "operations" and abs(ms - flops / 67e12 * 1e3) < 1e-12
+
+
+def test_chip_smoke_fails_without_a_card_or_a_checkout(tmp_path):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120, env=env)
+    assert out.returncode != 0 and '"ok"' not in out.stdout
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), tmp_path)
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=120, env=env)
+    assert out.returncode != 0 and '"ok"' not in out.stdout
