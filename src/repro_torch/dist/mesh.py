@@ -1,9 +1,10 @@
 """The virtual mesh: ``n`` ranks on one device as a leading rank axis.
 
 Port of ``launch/mesh.py`` plus the collectives the host builds use
-(``jax.lax.all_to_all`` under ``shard_map``). Every per-rank tensor is
-stacked on axis 0 (``(n, ...)``, the JAX package's global layout), so a
-collective is an exact permutation of that axis. The host baseline and the
+(``jax.lax.all_to_all`` and ``jax.lax.ppermute`` under ``shard_map``).
+Every per-rank tensor is stacked on axis 0 (``(n, ...)``, the JAX
+package's global layout), so a collective is an exact permutation of
+that axis. The host baseline and the
 STREAM_SPLIT / TokenWeave builds run through it; the device-initiated
 kernels address the ranks' slabs directly and do not.
 
@@ -104,4 +105,23 @@ class VirtualMesh:
         with _inside():
             out = t.transpose(0, 1).contiguous()
             _log("all-to-all", self.axis, t, out)
+        return out
+
+    def ppermute(self, t, pairs):
+        """``jax.lax.ppermute`` over the rank axis: ``out[dst] = t[src]``
+        for each ``(src, dst)`` pair; a rank no pair targets gets zeros."""
+        if t.shape[0] != self.n:
+            raise ValueError(f"ppermute wants (n, ...) with n={self.n}, "
+                             f"got {tuple(t.shape)}")
+        pairs = [(int(s), int(d)) for s, d in pairs]
+        srcs, dsts = [s for s, _ in pairs], [d for _, d in pairs]
+        if len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts) \
+                or not all(0 <= r < self.n for r in srcs + dsts):
+            raise ValueError(f"ppermute pairs {pairs} are not a partial "
+                             f"permutation of {self.n} ranks")
+        with _inside():
+            out = torch.zeros_like(t)
+            if pairs:
+                out[dsts] = t[srcs]
+            _log("collective-permute", self.axis, t, out)
         return out

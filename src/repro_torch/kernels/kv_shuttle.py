@@ -1,0 +1,277 @@
+"""KV-cache shuttle for disaggregated prefill->decode serving (paper
+workload 3, Table 4 row 3) as a hand-written Hopper kernel
+(``repro_torch/csrc/kv_shuttle.cu``).
+
+Port of ``repro/kernels/kv_shuttle.py``: the ``n = 2`` degenerate ring of
+:class:`~repro_torch.core.schedule.RingSchedule`. The prefill rank (rank 0)
+computes K = x@Wk, sends it, computes V = x@Wv while K is on the wire and
+sends V (``chained``); the sequential shape drains K's send before the V
+GEMM starts. TILE_FUSED (``fused``) runs the projections as
+``kv_chunk``-row tiles, each sent as soon as it is done, and the decode
+rank (rank 1) ticks arrivals off one chunk at a time (``counter``) or
+drains every chunk per edge (SIGNAL). ``pure`` mode ships finished
+``[K; V]`` cache rows verbatim — the engine's cache handoff.
+
+Every entry takes and returns the JAX package's stacked layout, ranks on
+axis 0 (no mesh argument): outputs ``(2, rows, w)`` whose row 0 (the
+prefill rank's, never written by the kernel) is zeros, as the JAX entry
+points mask it. CUDA tensors launch the kernel or raise; CPU tensors
+compute :func:`kv_shuttle_plain`, the plain version the tests and
+``chip_smoke.py`` hold the kernel against. The reference's ``contexts``
+send window is accepted and has no counterpart on the card (a store and
+its flag retire as they issue). ``LAUNCHES`` counts launches keyed by
+variant and shape; ``VARIANTS`` / ``PURE_VARIANTS`` name the knob sets the
+main path launches.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+
+import torch
+
+# The schedule machinery is defined once, in repro_torch.core.schedule;
+# re-exported here for the kernel's callers.
+from repro_torch.core.schedule import (RingSchedule,  # noqa: F401
+                                       make_ring_schedule)
+
+TIMEOUT_MS = 20_000           # a spin-wait traps after this long
+COPY_UNIT_BYTES = 32 * 1024   # pure mode: bytes one CTA copies per unit
+DEFAULT_CHUNK = 64            # fused kv_chunk when none is given
+
+# (variant, rows, width, dtype) -> kernel launches; read by chip_smoke.py
+LAUNCHES = collections.Counter()
+
+# Knobs of each variant the main path launches: the KVTransfer search's
+# directives (GEMM variants) and the engine's two cache handoffs (pure).
+VARIANTS = {
+    "sequential": dict(chained=False),
+    "chained": dict(chained=True),
+    "fused_signal": dict(fused=True, counter=False, kv_chunk=64),
+    "fused_counter": dict(fused=True, counter=True, kv_chunk=64),
+    "fused_counter_kc32": dict(fused=True, counter=True, kv_chunk=32),
+}
+PURE_VARIANTS = {
+    "pure_chained": dict(chained=True),
+    "pure_fused_counter_kc1024": dict(fused=True, counter=True,
+                                      kv_chunk=1024),
+}
+
+
+def reset_launches():
+    LAUNCHES.clear()
+
+
+def launches():
+    """Kernel launches so far, all variants."""
+    return sum(LAUNCHES.values())
+
+
+def _schedule(rows, fused, kv_chunk):
+    return make_ring_schedule(
+        2, rows, kv_chunk or (DEFAULT_CHUNK if fused else rows), fused)
+
+
+def variant_name(*, chained=True, fused=False, counter=False, kv_chunk=None,
+                 pure=False, rows):
+    """The variant a call launches: the realization, plus ``_kc<rows>``
+    for a fused chunk other than 64 rows (after sanitizing against
+    ``rows``)."""
+    if fused:
+        name = "fused_counter" if counter else "fused_signal"
+        kc = _schedule(rows, True, kv_chunk).kv_chunk
+        if kc != DEFAULT_CHUNK:
+            name += f"_kc{kc}"
+    else:
+        name = "chained" if chained else "sequential"
+    return ("pure_" if pure else "") + name
+
+
+def _shape(x, wk, *, pure, fused, kv_chunk, contexts):
+    """Check the layout and the knobs; ``(rows, width, schedule)``."""
+    if x.dim() != 3 or x.shape[0] != 2:
+        raise ValueError(f"the shuttle wants the stacked (2, rows, w) layout, "
+                         f"got {tuple(x.shape)}")
+    if int(contexts) < 1:
+        raise ValueError(f"contexts must be >= 1, got {contexts}")
+    if pure:
+        if x.shape[1] % 2:
+            raise ValueError("pure shuttle wants stacked [K; V] rows, got "
+                             f"{x.shape[1]} rows")
+        rows, width = x.shape[1] // 2, x.shape[2]
+    else:
+        rows, width = x.shape[1], wk.shape[1]
+    return rows, width, _schedule(rows, fused, kv_chunk)
+
+
+# ------------------------------------------------------------ plain version
+
+
+def kv_shuttle_plain(x, wk=None, wv=None, *, chained=True, fused=False,
+                     counter=False, kv_chunk=None, contexts=2, pure=False):
+    """Plain-torch version of the kernel on the stacked layout. x (2, T, d)
+    (rank 0's rows are the prefill activations), wk/wv (d, dk) -> K, V each
+    (2, T, dk) in x's dtype, f32 accumulation; ``pure``: x is the stacked
+    cache (2, 2N, w) -> K, V each (2, N, w), copied verbatim. Row 0 of
+    each output is zeros. The realization knobs change when rows move,
+    never what lands, so they are only checked here."""
+    rows, width, _ = _shape(x, wk, pure=pure, fused=fused, kv_chunk=kv_chunk,
+                            contexts=contexts)
+    if pure:
+        k, v = x[0, :rows], x[0, rows:]
+    else:
+        src = x[0].to(torch.float32)
+        k = (src @ wk.to(torch.float32)).to(x.dtype)
+        v = (src @ wv.to(torch.float32)).to(x.dtype)
+    ko = x.new_zeros((2, rows, width))
+    vo = x.new_zeros((2, rows, width))
+    ko[1], vo[1] = k, v
+    return ko, vo
+
+
+# ------------------------------------------------------------ the kernel
+
+
+class _Params(ctypes.Structure):
+    """``ShuttleParams`` of ``csrc/kv_shuttle.cu``, field for field."""
+    _fields_ = (
+        [(k, ctypes.c_int) for k in (
+            "rows", "d", "dk", "chunk_rows", "nchunks", "fused", "chained",
+            "counter", "pure", "vec", "esize", "unit_rows", "timeout_ms")]
+        + [(k, ctypes.c_void_p) for k in ("x", "wk", "wv", "ko", "vo",
+                                          "flag")])
+
+
+_GRIDS = {}                   # device index -> (grid, per_sm)
+
+
+def load_kernel():
+    """Build (if needed) and load the kernel without running it — the
+    fast path's stage A and the cascade's l1."""
+    from repro_torch.kernels.build import load
+    lib = load("kv_shuttle")
+    if not getattr(lib, "_typed", False):
+        lib.kv_shuttle_grid.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+        lib.kv_shuttle_grid.restype = ctypes.c_int
+        lib.kv_shuttle_launch.argtypes = [ctypes.POINTER(_Params),
+                                          ctypes.c_int, ctypes.c_void_p]
+        lib.kv_shuttle_launch.restype = ctypes.c_int
+        lib.kv_shuttle_error.argtypes = [ctypes.c_int]
+        lib.kv_shuttle_error.restype = ctypes.c_char_p
+        lib.kv_shuttle_params_size.argtypes = []
+        lib.kv_shuttle_params_size.restype = ctypes.c_int
+        if lib.kv_shuttle_params_size() != ctypes.sizeof(_Params):
+            raise RuntimeError("ShuttleParams layout differs between "
+                               "kv_shuttle.cu and the ctypes mirror")
+        lib._typed = True
+    return lib
+
+
+def _check(lib, code, what):
+    if code:
+        raise RuntimeError(f"kv_shuttle {what} failed: "
+                           f"{lib.kv_shuttle_error(code).decode()}")
+
+
+def grid_for(device):
+    """The co-resident grid the launch uses: CTAs per SM x SMs, one of
+    them the decode rank's. Raises when fewer than two CTAs fit."""
+    key = torch.device(device).index
+    if key not in _GRIDS:
+        lib = load_kernel()
+        grid, per_sm = ctypes.c_int(0), ctypes.c_int(0)
+        with torch.cuda.device(device):
+            _check(lib, lib.kv_shuttle_grid(ctypes.byref(grid),
+                                            ctypes.byref(per_sm)), "grid")
+        _GRIDS[key] = (grid.value, per_sm.value)
+    return _GRIDS[key]
+
+
+def _aligned(*tensors):
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _launch(x, wk, wv, *, chained, fused, counter, kv_chunk, contexts, pure):
+    rows, width, sched = _shape(x, wk, pure=pure, fused=fused,
+                                kv_chunk=kv_chunk, contexts=contexts)
+    chunk_rows = sched.kv_chunk if fused else rows
+    operands = [x] if pure else [x, wk, wv]
+    for t in operands:
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"kv_shuttle wants contiguous tensors on "
+                             f"{x.device}; got one on {t.device}")
+    if not pure:
+        if any(t.dtype != torch.float32 for t in operands):
+            raise ValueError("kv_shuttle's projections take float32 x, wk "
+                             "and wv; got "
+                             + ", ".join(str(t.dtype) for t in operands))
+        if wk.shape != (x.shape[2], width) or wv.shape != wk.shape:
+            raise ValueError(f"wk {tuple(wk.shape)}, wv {tuple(wv.shape)} do "
+                             f"not project x {tuple(x.shape)}")
+    if chunk_rows * width >= 2**32:
+        raise ValueError(f"a chunk of {chunk_rows} x {width} elements "
+                         "overflows its 32-bit flag")
+    grid, _ = grid_for(x.device)
+    ko = torch.empty((2, rows, width), dtype=x.dtype, device=x.device)
+    vo = torch.empty_like(ko)
+    ko[0].zero_()                 # the prefill rank's rows: never written
+    vo[0].zero_()
+    nchunks = rows // chunk_rows
+    flags = torch.zeros(2 * nchunks, dtype=torch.int32, device=x.device)
+    esize = x.element_size()
+    if pure:
+        vec = (width * esize) % 16 == 0 and _aligned(x, ko[1], vo[1])
+    else:
+        vec = x.shape[2] % 4 == 0 and width % 4 == 0 \
+            and _aligned(x, wk, wv, ko[1], vo[1])
+    p = _Params(rows=rows, d=0 if pure else x.shape[2], dk=width,
+                chunk_rows=chunk_rows, nchunks=nchunks, fused=int(fused),
+                chained=int(chained), counter=int(counter), pure=int(pure),
+                vec=int(vec), esize=esize,
+                unit_rows=max(1, COPY_UNIT_BYTES // (width * esize)),
+                timeout_ms=TIMEOUT_MS,
+                x=x.data_ptr(), wk=None if pure else wk.data_ptr(),
+                wv=None if pure else wv.data_ptr(), ko=ko[1].data_ptr(),
+                vo=vo[1].data_ptr(), flag=flags.data_ptr())
+    lib = load_kernel()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        _check(lib, lib.kv_shuttle_launch(ctypes.byref(p), grid, stream),
+               "launch")
+    LAUNCHES[(variant_name(chained=chained, fused=fused, counter=counter,
+                           kv_chunk=kv_chunk, pure=pure, rows=rows),
+              rows, width, str(x.dtype).replace("torch.", ""))] += 1
+    # the flags are freed here; the caching allocator reuses them only in
+    # this stream's order, after the launch
+    return ko, vo
+
+
+def _entry(x, wk, wv, *, chained, fused, counter, kv_chunk, contexts, pure):
+    if x.device.type == "cpu":
+        return kv_shuttle_plain(x, wk, wv, chained=chained, fused=fused,
+                                counter=counter, kv_chunk=kv_chunk,
+                                contexts=contexts, pure=pure)
+    if x.device.type != "cuda":
+        raise ValueError(f"kv_shuttle runs on cuda or cpu, not {x.device}")
+    return _launch(x, wk, wv, chained=chained, fused=fused, counter=counter,
+                   kv_chunk=kv_chunk, contexts=contexts, pure=pure)
+
+
+def kv_shuttle(x, wk, wv, *, chained=True, fused=False, counter=False,
+               kv_chunk=None, contexts=2):
+    """Global entry, the JAX package's layout: x (2, T, d), rank 0 holding
+    the prefill activations; wk/wv (d, dk) replicated. Returns K, V each
+    (2, T, dk); row 1 (the decode rank) holds the shuttled projections."""
+    return _entry(x, wk, wv, chained=chained, fused=fused, counter=counter,
+                  kv_chunk=kv_chunk, contexts=contexts, pure=False)
+
+
+def kv_cache_shuttle(kv, *, chained=True, fused=False, counter=False,
+                     kv_chunk=None, contexts=2):
+    """Global cache-handoff entry (``serve/engine.py::prefill_remote``).
+    kv: (2, 2N, w) — rank 0's row holds the finished cache stacked
+    ``[K; V]``, rank 1's is zeros. Returns K, V each (2, N, w); row 1 (the
+    decode rank) holds the shuttled cache, bit for bit."""
+    return _entry(kv, None, None, chained=chained, fused=fused,
+                  counter=counter, kv_chunk=kv_chunk, contexts=contexts,
+                  pure=True)

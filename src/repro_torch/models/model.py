@@ -1,0 +1,222 @@
+"""Model assembly: init / prefill / decode (port of
+``repro/models/model.py`` for the attention architectures).
+
+Layers are stacked over *repeat units* (the lcm of the block pattern and
+the MoE interleave): every parameter and cache leaf carries the repeat
+axis first, ``(R, ...)``, as in the reference, and :func:`apply_blocks`
+loops over it where the reference runs ``jax.lax.scan``. Parameters are
+nested dicts of tensors with the reference's keys, so
+:func:`params_from_numpy` carries the JAX package's weights across leaf
+for leaf.
+
+Not ported yet (each raises ``NotImplementedError``): the recurrent block
+kinds (xLSTM, RG-LRU), the encoder-decoder (whisper) and MoE layers
+(ROADMAP queue 1, items 9 and 14); training (``train_loss``, remat) and
+the sharding rules, which run on one device here.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import RECURRENT_KINDS
+from repro_torch.models.layers import apply_norm, dense_init, norm_init
+from repro_torch.models.transformer import (EMPTY, attn_block_apply,
+                                            attn_block_init, cache_size)
+
+F32 = torch.float32
+MAX_LEARNED_POS = 32768
+
+
+@dataclass(frozen=True)
+class StepOptions:
+    """Step-level knobs of the reference's ``StepOptions`` that the port's
+    attention reads (the MoE, remat and sharding knobs arrive with their
+    slices)."""
+    kv_block: int = 1024             # flash KV block
+    flash_threshold: int = 8192
+
+
+def _dtype(cfg):
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def _check_supported(cfg):
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.name}: the encoder-decoder is not ported yet (ROADMAP "
+            "queue 1, item 14)")
+    kinds = [k for k in cfg.block_pattern if k in RECURRENT_KINDS]
+    if kinds:
+        raise NotImplementedError(
+            f"{cfg.name}: recurrent blocks {kinds} are not ported yet "
+            "(ROADMAP queue 1, item 14)")
+
+
+def _stack(trees):
+    """Stack a list of same-shaped nested dicts leaf by leaf on a new
+    leading axis."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+# =============================================================== param init
+
+def init_params(gen, cfg, device="cuda"):
+    """Random weights of the reference's shapes and scales, drawn from the
+    ``torch.Generator`` ``gen`` on its device and placed on ``device``.
+    (The numbers differ from the reference's ``jax.random`` draws; tests
+    carry the reference's weights over with :func:`params_from_numpy`.)"""
+    _check_supported(cfg)
+    dtype = _dtype(cfg)
+    Vp, d = cfg.vocab_padded, cfg.d_model
+    params = {"embed": dense_init(gen, Vp, d, dtype, scale=0.02,
+                                  device=device)}
+    if cfg.learned_pos:
+        params["pos"] = dense_init(gen, MAX_LEARNED_POS, d, dtype, scale=0.02,
+                                   device=device)
+    R = cfg.num_repeats
+    params["blocks"] = {
+        f"s{i}": _stack([attn_block_init(gen, cfg, i, dtype, device)
+                         for _ in range(R)])
+        for i in range(cfg.repeat_unit)}
+    params["final_norm"] = norm_init(d, cfg.norm, dtype, device)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(gen, d, Vp, dtype, device=device)
+    return params
+
+
+def params_from_numpy(tree, cfg, device="cuda"):
+    """The reference's ``init_params`` tree, as numpy arrays (same
+    nesting, stacked ``(R, ...)`` leaves), as the port's params on
+    ``device``. bf16 leaves arrive as ``ml_dtypes.bfloat16``, which
+    ``torch.from_numpy`` refuses: they cross as float32 (bf16 -> f32 ->
+    bf16 is exact)."""
+    _check_supported(cfg)
+    dtype = _dtype(cfg)
+
+    def leaf(a):
+        t = torch.from_numpy(np.array(a, dtype=np.float32))
+        return t.to(device=device, dtype=dtype)
+
+    return _map(leaf, tree)
+
+
+# ============================================================ embed / logits
+
+def embed_lookup(embed, ids):
+    """Embedding lookup (the reference's ``rules=None`` path)."""
+    return embed[ids]
+
+
+def lm_logits(params, x, cfg):
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = (x @ w.to(x.dtype)).to(F32)
+    Vp = logits.shape[-1]
+    if Vp > cfg.vocab_size:
+        valid = torch.arange(Vp, device=logits.device) < cfg.vocab_size
+        logits = torch.where(valid, logits, torch.full_like(logits, -1e30))
+    return logits
+
+
+# ================================================================== caches
+
+def init_cache(cfg, B, seq_len, dtype=None, device="cuda"):
+    """Decode cache: per repeat slot ``{"k", "v"}`` of (R, B, Sc, Hkv, hd)
+    and ``"kpos"`` (R, Sc), every slot empty."""
+    _check_supported(cfg)
+    dtype = dtype or _dtype(cfg)
+    R, Hkv, hd = cfg.num_repeats, cfg.num_kv_heads, cfg.hd
+    out = {}
+    for i in range(cfg.repeat_unit):
+        Sc = cache_size(cfg, cfg.block_kind(i), seq_len)
+        out[f"s{i}"] = {
+            "k": torch.zeros((R, B, Sc, Hkv, hd), dtype=dtype, device=device),
+            "v": torch.zeros((R, B, Sc, Hkv, hd), dtype=dtype, device=device),
+            "kpos": torch.full((R, Sc), EMPTY, dtype=torch.int32,
+                               device=device)}
+    return out
+
+
+# ================================================================ forward
+
+def apply_blocks(params_blocks, x, cfg, positions, *, causal=True,
+                 cache=None, pos=None, opts=None, return_cache=False):
+    """Every layer in order: repeat ``r`` applies slot ``s0..s{unit-1}``
+    with their ``[r]`` parameters (and cache). Returns ``(x, caches)``,
+    caches stacked ``(R, ...)`` like the input (``None`` unless
+    ``return_cache``)."""
+    opts = opts or StepOptions()
+    unit, R = cfg.repeat_unit, cfg.num_repeats
+    per_r = []
+    for r in range(R):
+        new = {}
+        for i in range(unit):
+            key = f"s{i}"
+            p = _map(lambda a: a[r], params_blocks[key])
+            c = _map(lambda a: a[r], cache[key]) if cache is not None \
+                else None
+            x, new[key] = attn_block_apply(p, x, cfg, cfg.block_kind(i),
+                                           positions, causal=causal, cache=c,
+                                           pos=pos, opts=opts)
+        per_r.append(new)
+    if not return_cache or per_r[0]["s0"] is None:
+        return x, None
+    return x, {key: _stack([c[key] for c in per_r]) for key in per_r[0]}
+
+
+def forward(params, batch, cfg, opts=None, return_cache=False, cache=None):
+    """Prefill forward (the reference's, ``rules=None``). batch:
+    ``{"tokens"[, "patches"]}``. Returns the final-normed hidden states and
+    the filled cache."""
+    _check_supported(cfg)
+    opts = opts or StepOptions()
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = embed_lookup(params["embed"], tokens).to(_dtype(cfg))
+    if cfg.num_patch_tokens and "patches" in batch:
+        Pn = batch["patches"].shape[1]
+        x = torch.cat([batch["patches"].to(x.dtype), x[:, Pn:]], dim=1)
+    if cfg.learned_pos:
+        x = x + params["pos"][:S][None].to(x.dtype)
+    positions = torch.arange(S, device=tokens.device)
+    x, new_cache = apply_blocks(params["blocks"], x, cfg, positions,
+                                causal=True, cache=cache, opts=opts,
+                                return_cache=return_cache)
+    return apply_norm(params["final_norm"], x, cfg.norm), new_cache
+
+
+def prefill_step(params, batch, cfg, seq_len=None, opts=None):
+    """Prefill: build the decode cache + last-position logits."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    cache = init_cache(cfg, B, seq_len or S, device=tokens.device)
+    x, new_cache = forward(params, batch, cfg, opts, return_cache=True,
+                           cache=cache)
+    return lm_logits(params, x[:, -1:], cfg), new_cache
+
+
+def decode_step(params, cache, token, pos, cfg, opts=None):
+    """One decode step. token: (B, 1) int; pos: int. The cache passed in
+    is left unchanged."""
+    _check_supported(cfg)
+    pos = int(pos)
+    x = embed_lookup(params["embed"], token).to(_dtype(cfg))
+    if cfg.learned_pos:
+        p = pos % MAX_LEARNED_POS
+        x = x + params["pos"][p:p + 1][None].to(x.dtype)
+    positions = torch.tensor([pos], device=token.device)
+    x, new_cache = apply_blocks(params["blocks"], x, cfg, positions,
+                                causal=True, cache=cache, pos=pos, opts=opts,
+                                return_cache=True)
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    return lm_logits(params, x, cfg), new_cache

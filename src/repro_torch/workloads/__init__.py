@@ -1,4 +1,5 @@
 from repro_torch.workloads.base import Workload, WORKLOADS, get_workload
-from repro_torch.workloads import moe_dispatch, serving  # noqa: F401  (registration)
+from repro_torch.workloads import (kv_transfer, moe_dispatch,  # noqa: F401
+                                   serving)  # (registration)
 
 __all__ = ["Workload", "WORKLOADS", "get_workload"]

@@ -28,6 +28,9 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
+import torch
+
 from repro_torch.core.design_space import Directive, violations
 
 WORKLOADS = {}
@@ -40,6 +43,14 @@ def register(cls):
 
 def get_workload(name: str, **kw):
     return WORKLOADS[name](**kw)
+
+
+def inputs_from_numpy(*arrays, device="cuda"):
+    """A JAX workload's inputs, as numpy arrays in its layout, as float32
+    tensors on ``device`` — how the tests hand one set of inputs to both
+    packages."""
+    return tuple(torch.from_numpy(np.ascontiguousarray(a, np.float32))
+                 .to(device) for a in arrays)
 
 
 # rough per-event overheads (seconds) used by the analytic l3 model

@@ -36,14 +36,7 @@ from repro_torch.kernels.moe_dispatch import (make_schedule, quant_i8,
 from repro_torch.workloads.base import (BARRIER_OVERHEAD, KERNEL_LAUNCH,
                                         SIGNAL_OVERHEAD, TILE_SYNC, Workload,
                                         register)
-
-
-def inputs_from_numpy(*arrays, device="cuda"):
-    """The JAX workload's inputs, as numpy arrays in its layout ((n, T, d),
-    (n, d, 2f), (n, f, d)[, (d, 2fs), (fs, d)]), as float32 tensors on
-    ``device`` — how the tests hand one set of inputs to both packages."""
-    return tuple(torch.from_numpy(np.ascontiguousarray(a, np.float32))
-                 .to(device) for a in arrays)
+from repro_torch.workloads.base import inputs_from_numpy  # noqa: F401
 
 
 @register
