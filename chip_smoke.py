@@ -9,9 +9,10 @@ Phases (each a function a test can call with ``device="cpu"`` at tiny
 sizes; every run runs all of them, and any failure exits non-zero):
 
 1. ``device``  — the card's name and power limit (``nvidia-smi``).
-2. ``build``   — build both Hopper kernels from ``src/repro_torch/csrc``
-   (one ``nvcc`` per source, started together) and print ptxas's
-   register / shared-memory / spill lines and each launch's grid.
+2. ``build``   — build the five Hopper kernels from
+   ``src/repro_torch/csrc`` (one ``nvcc`` per source, started together)
+   and print ptxas's register / shared-memory / spill lines and each
+   launch's grid.
 3. ``kernels`` — every moe_dispatch variant the main path runs
    (``kernels.moe_dispatch.VARIANTS``), on the inputs of the main path's
    two workloads (serving width and the skewed MoEDispatch shape): the
@@ -20,7 +21,8 @@ sizes; every run runs all of them, and any failure exits non-zero):
    kernel's, the plain version's and the same GEMMs' ``torch.matmul`` time
    (CUDA events, warmed, L2 flushed before each launch, the host's
    enqueue hidden behind a device spin; the kernel's call is also timed
-   with the host's time exposed) beside the bound.
+   with the host's time exposed) beside the bound. Every kernel phase
+   checks, times and logs through ``Bench.record``.
 4. ``kv_kernels`` — every kv_shuttle variant: the GEMM variants
    (``kernels.kv_shuttle.VARIANTS``) at ``KVTransfer``'s full width
    (T = d = 4096, dk = 512, f32) within 1e-4 of the plain version, and
@@ -45,17 +47,42 @@ sizes; every run runs all of them, and any failure exits non-zero):
    ``generate``'s, the first decode step's logits within 5e-2
    (max-abs-normalised, bf16) of ``forward`` over the 513 tokens; then
    ``serve`` answers 4 requests of mixed prompt lengths.
+8. ``ga_kernels`` — every gemm_allgather variant
+   (``kernels.gemm_allgather.VARIANTS``) at ``GemmAllGather``'s defaults
+   (n=4, M=K=N=4096, f32) within 1e-4 of the plain version, timed as in
+   phase 3 beside one ``torch.matmul`` of the gathered A plus the copy
+   into the n outputs.
+9. ``attn_kernels`` — every flash_attention variant over the ring's
+   whole sequence (BH 8, S 4096, hd 64; f32 within 1e-4; bf16 each
+   element within one bf16 step of the plain version plus 1e-4, both
+   sides rounding an f32 result) and every ring_attention variant at
+   ``RingAttention``'s defaults within 1e-4; timed beside
+   ``scaled_dot_product_attention``.
+10. ``ga_main`` — the GEMM+AllGather search, counted like ``kv_main``:
+    ``fast_path`` on ``GemmAllGather()`` with full-width verification
+    inputs, then nine more directives, each to level 3.
+11. ``ring_main`` — the ring-attention search, counted the same way
+    (fast_path, then eleven directives), then ``kernels/ops.py``'s
+    wrappers at work: the FLUX ring against flash attention over the
+    gathered sequence and the oracle, bf16 flash against the oracle on
+    its bf16 inputs, non-causal flash against the oracle, and at fig3's
+    largest row (BH 96, seq 8192) the pipelined and FLUX rings and flash.
+    The counters are read there; each deployment ring's output is then
+    held against its plain version, flash (1e-4) and, on two heads, the
+    oracle, and timed: the records of fig3's row.
 
 ``--iters`` sets the timed launches per kernel (1 for a quick check after
 a kernel change). The line before the last is the ``kernels`` JSON
 record (launches from the counted paths: moe records from ``main``, the
-kv GEMM records from ``kv_main``, the pure records from ``serve``); the
+kv GEMM records from ``kv_main``, the pure records from ``serve``,
+gemm_allgather from ``ga_main``, flash and ring from ``ring_main``); the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 outside a checkout, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -68,11 +95,18 @@ sys.path.insert(0, str(ROOT / "src"))
 import torch  # noqa: E402
 
 F32_FLOPS = 67e12          # H100 SXM f32 outside the tensor cores (data sheet)
+BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor cores (data sheet)
 HBM_BYTES_S = 3.35e12      # H100 SXM HBM3 (data sheet)
 SOURCE = "src/repro_torch/csrc/moe_dispatch.cu"
 REPLACES = "src/repro/kernels/moe_dispatch.py:415"
 KV_SOURCE = "src/repro_torch/csrc/kv_shuttle.cu"
 KV_REPLACES = "src/repro/kernels/kv_shuttle.py:163"
+GA_SOURCE = "src/repro_torch/csrc/gemm_allgather.cu"
+GA_REPLACES = "src/repro/kernels/gemm_allgather.py:193"
+FA_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
+FA_REPLACES = "src/repro/kernels/flash_attention.py:72"
+RING_SOURCE = "src/repro_torch/csrc/ring_attention.cu"
+RING_REPLACES = "src/repro/kernels/ring_attention.py:197"
 LOGIT_TOL = 5e-2           # bf16 decode step vs forward, max-abs-normalised
 
 def log(*a):
@@ -101,20 +135,27 @@ def phase_device(device="cuda"):
     return {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}
 
 
+KERNELS = ("moe_dispatch", "kv_shuttle", "gemm_allgather", "flash_attention",
+           "ring_attention")
+
+
 def phase_build(device="cuda"):
-    """Build and load both kernels (one ``nvcc`` per source, started
+    """Build and load every kernel (one ``nvcc`` per source, started
     together) and print ptxas's resource lines and the co-resident grid
     of each launch shape."""
-    from repro_torch.kernels import build, kv_shuttle, moe_dispatch
+    from repro_torch.kernels import (build, flash_attention, gemm_allgather,
+                                     kv_shuttle, moe_dispatch, ring_attention)
     if torch.device(device).type != "cuda":
         log("build: skipped on the cpu (kernels need nvcc and a card)")
         return
     t0 = time.perf_counter()
-    build.build(["moe_dispatch", "kv_shuttle"])
-    libs = [moe_dispatch.load_kernel(), kv_shuttle.load_kernel()]
-    log(f"build: moe_dispatch + kv_shuttle in {time.perf_counter() - t0:.1f} s "
+    build.build(KERNELS)
+    libs = [m.load_kernel() for m in (moe_dispatch, kv_shuttle,
+                                      gemm_allgather, flash_attention,
+                                      ring_attention)]
+    log(f"build: {' + '.join(KERNELS)} in {time.perf_counter() - t0:.1f} s "
         f"({', '.join(lib._name for lib in libs)})")
-    for name in ("moe_dispatch", "kv_shuttle"):
+    for name in KERNELS:
         for line in build.ptxas_log(name):
             log(f"ptxas {name}: {line.strip()}")
     for shared in (False, True):
@@ -125,6 +166,13 @@ def phase_build(device="cuda"):
     grid, per_sm = kv_shuttle.grid_for(device)
     log(f"grid: kv_shuttle: {grid} CTAs ({per_sm} per SM), {grid - 1} "
         "prefill + 1 decode")
+    grid, per_sm = gemm_allgather.grid_for(device, 4)
+    log(f"grid: gemm_allgather n=4: {grid} CTAs ({per_sm} per SM), "
+        f"{grid // 4} per rank")
+    for hd in (64, 128):
+        grid, per_sm = ring_attention.grid_for(device, 4, hd)
+        log(f"grid: ring_attention n=4 hd<={hd}: {grid} CTAs ({per_sm} per "
+            f"SM), {grid // 4} per rank")
 
 
 HIDE_CYCLES = 5_000_000    # ~2.5 ms of device spin ahead of each timed call
@@ -158,6 +206,102 @@ def time_ms(fn, device, iters, flush, hide_host=True):
     return total / iters
 
 
+BF16_ULP = 2.0 ** -7       # one bf16 step is at most 2^-7 of the value
+BF16_FLOOR = 1e-4          # beside it: the f32 noise of values near 0
+
+
+def _close(name, got, want, tol):
+    """Hold ``got`` to ``want`` (tensors, or tuples of them) and exit when
+    they disagree. ``tol`` is a float, the max-abs-normalised error
+    allowed (and ``got`` must be finite); ``"bf16"``, each element within
+    one bf16 step of ``want`` plus 1e-4 (where both sides round an f32
+    result to bf16, a right kernel is at most one rounding step off); or
+    ``"exact"``, bit for bit. Returns (reading, max abs err): the
+    max-abs-normalised error, or for ``"bf16"`` the largest
+    ``|got - want| / (2^-7 |want| + 1e-4)``, which must stay <= 1."""
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    want = want if isinstance(want, (tuple, list)) else (want,)
+    reading = abs_err = 0.0
+    ok = len(got) == len(want)
+    for g, w in zip(got, want):
+        if g.shape != w.shape:
+            raise SystemExit(f"{name}: shape {tuple(g.shape)}, want "
+                             f"{tuple(w.shape)}")
+        diff = (g.float() - w.float()).abs()
+        abs_err = max(abs_err, float(diff.max()))
+        if tol == "exact":
+            ok = ok and torch.equal(g, w)
+            reading = max(reading, float(diff.max() / (w.float().abs().max()
+                                                       + 1e-9)))
+            continue
+        if tol == "bf16":
+            r = float((diff / (BF16_ULP * w.float().abs() + BF16_FLOOR)).max())
+        else:
+            r = float(diff.max() / (w.float().abs().max() + 1e-9))
+        reading = max(reading, r)
+        ok = ok and bool(torch.isfinite(g).all()) and r <= (
+            1.0 if tol == "bf16" else tol)
+    if not ok:
+        raise SystemExit(f"{name} disagrees: {_reading(reading, tol)}")
+    return reading, abs_err
+
+
+def _reading(reading, tol):
+    if tol == "exact":
+        return f"rel err {reading:.3e} (bit-exact)"
+    if tol == "bf16":
+        return (f"bf16 step ratio {reading:.3e} (tol 1: |got - want| <= "
+                f"2^-7 |want| + {BF16_FLOOR:.0e})")
+    return f"rel err {reading:.3e} (tol {tol:.0e})"
+
+
+class Bench:
+    """Checks and times kernels on one device: ``iters`` timed calls of
+    each (:func:`time_ms`, the L2 flushed before each), one record of the
+    ``kernels`` line per kernel and shape."""
+
+    def __init__(self, device, iters):
+        self.device, self.iters = device, iters
+        self.cuda = torch.device(device).type == "cuda"
+        self.flush = torch.empty(64 * 2**20, dtype=torch.int32,
+                                 device=device) if self.cuda else None
+
+    def ms(self, fn, hide_host=True):
+        return time_ms(fn, self.device, self.iters, self.flush, hide_host)
+
+    def record(self, name, shape_txt, run, plain, tol, bnd, lib, source,
+               replaces, key, path, got=None):
+        """Hold ``run()`` (or ``got``, the output of a counted run) against
+        ``plain()`` within ``tol`` (:func:`_close`), time the kernel (with
+        and without the host's time), the plain version, and log them
+        beside ``lib`` (its name and ms) and ``bnd`` (ms, bound by, flops,
+        bytes or None). ``key`` and ``path`` name the launch count the
+        record takes from the counted run of ``path``."""
+        with torch.no_grad():
+            got = run() if got is None else got
+            want = plain()
+        if self.cuda:
+            torch.cuda.synchronize(self.device)
+        reading, abs_err = _close(f"kernel {name}", got, want, tol)
+        del got, want
+        k_ms = self.ms(run)
+        call_ms = self.ms(run, hide_host=False)
+        p_ms = self.ms(plain)
+        b_ms, b_by, flops, nbytes = bnd
+        lib_name, lib_ms = lib
+        work = f"{flops / 1e9:.1f} GFLOP" + (
+            "" if nbytes is None else f", {nbytes / 1e6:.1f} MB")
+        log(f"kernel {name} {shape_txt}: {_reading(reading, tol)}, max abs "
+            f"err {abs_err:.3e}; kernel {k_ms:.3f} ms (call {call_ms:.3f} ms "
+            f"with the host's time), plain {p_ms:.3f} ms, {lib_name} "
+            f"{lib_ms:.3f} ms, bound {b_ms:.3f} ms by {b_by} ({work}) -> ok")
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": None, "max_abs_err": abs_err,
+                "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": lib_ms, "_key": key,
+                "_path": path}
+
+
 def bound(w, counts):
     """Least time of one call of ``w``'s kernel on an H100: f32 operations
     over the f32 rate, or bytes (each input read once, each output written
@@ -177,14 +321,13 @@ def bound(w, counts):
 def phase_kernels(device="cuda", workloads=None, iters=5):
     """Hold every variant against its plain version on each workload's
     inputs. Returns one record per (variant, workload) for the ``kernels``
-    line, keyed by ``_key``; ``main`` fills in ``launches``."""
+    line; ``main`` fills in ``launches``."""
     from repro_torch.dist.mesh import VirtualMesh
     from repro_torch.kernels.moe_dispatch import (VARIANTS,
                                                   moe_dispatch_combine,
                                                   moe_dispatch_combine_ref,
                                                   variant_name)
-    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=device) \
-        if torch.device(device).type == "cuda" else None
+    bench = Bench(device, iters)
     out = []
     for w in workloads or main_path_workloads():
         ins = w.example_inputs(0, VirtualMesh(w.n_dev, device=device))
@@ -193,7 +336,6 @@ def phase_kernels(device="cuda", workloads=None, iters=5):
         n, T, d = x.shape
         f, fs = w.f, (w.f_shared if shared else 0)
         counts = [int(c) for c in w._counts(T)]
-        b_ms, b_by, flops = bound(w, counts)
         offs = [sum(counts[:e]) for e in range(n)]
 
         def library():
@@ -205,58 +347,27 @@ def phase_kernels(device="cuda", workloads=None, iters=5):
                 h = torch.matmul(x, shared[1])
                 torch.matmul(h[..., :fs], shared[2])
 
-        lib_ms = time_ms(library, device, iters, flush)
+        lib = ("matmul", bench.ms(library))
         for knobs in VARIANTS.values():
             wire_i8 = knobs.get("wire_i8", False)
             kw = dict(counts=counts, block_tokens=64, tight=True, **knobs)
-            with torch.no_grad():
-                got = moe_dispatch_combine(x, w1, w2, shared=shared, **kw)
-                want = moe_dispatch_combine_ref(
-                    x, w1, w2, counts=counts, block_tokens=64, tight=True,
-                    wire_i8=wire_i8, shared=shared)
-            if torch.device(device).type == "cuda":
-                torch.cuda.synchronize(device)
-            got = got if isinstance(got, tuple) else (got,)
-            want = want if isinstance(want, tuple) else (want,)
-            abs_err = max(float((a - b).abs().max()) for a, b in zip(got, want))
-            rel = max(float((a - b).abs().max() / (b.abs().max() + 1e-9))
-                      for a, b in zip(got, want))
-            tol = 1e-3 if wire_i8 else 1e-4
-            finite = all(bool(torch.isfinite(a).all()) for a in got)
-            ok = finite and rel <= tol
-            call = lambda: moe_dispatch_combine(x, w1, w2,  # noqa: E731
-                                                shared=shared, **kw)
-            k_ms = time_ms(call, device, iters, flush)
-            call_ms = time_ms(call, device, iters, flush, hide_host=False)
-            p_ms = time_ms(lambda: moe_dispatch_combine_ref(
-                x, w1, w2, counts=counts, block_tokens=64, tight=True,
-                wire_i8=wire_i8, shared=shared), device, iters, flush)
             key = variant_name(
                 barrier=knobs.get("barrier", False),
                 pipelined=knobs.get("pipelined", True),
                 tile_fused=knobs.get("tile_fused", False), wire_i8=wire_i8,
                 shared=shared is not None,
                 combine_tile=knobs.get("combine_tile"), block_tokens=64)
-            log(f"kernel {key} @{w.name} n={n} T={T} d={d} f={f} fs={fs} "
-                f"counts={counts}: rel err {rel:.3e} (tol {tol:.0e}), "
-                f"max abs err {abs_err:.3e}; kernel {k_ms:.3f} ms (call "
-                f"{call_ms:.3f} ms with the host's time), "
-                f"plain {p_ms:.3f} ms, matmul {lib_ms:.3f} ms, bound "
-                f"{b_ms:.3f} ms by {b_by} ({flops / 1e9:.1f} GFLOP) -> "
-                f"{'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise SystemExit(f"kernel {key} @{w.name} disagrees with its "
-                                 f"plain version: rel err {rel:.3e} > {tol:.0e}"
-                                 f" (finite={finite})")
-            out.append({"name": f"moe_dispatch/{key}@{w.name}", "route": "cuda",
-                        "source": SOURCE, "replaces": REPLACES,
-                        "launches": None, "max_abs_err": abs_err, "ms": k_ms,
-                        "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-                        "library_ms": lib_ms,
-                        "_key": (key, n, T, d, f)})
+            out.append(bench.record(
+                f"moe_dispatch/{key}@{w.name}",
+                f"n={n} T={T} d={d} f={f} fs={fs} counts={counts}",
+                lambda: moe_dispatch_combine(x, w1, w2, shared=shared, **kw),
+                lambda: moe_dispatch_combine_ref(
+                    x, w1, w2, counts=counts, block_tokens=64, tight=True,
+                    wire_i8=wire_i8, shared=shared),
+                1e-3 if wire_i8 else 1e-4, (*bound(w, counts), None), lib,
+                SOURCE, REPLACES, (key, n, T, d, f), "main"))
         del x, w1, w2, shared, ins
     return out
-
 
 def main_path_workloads(small=False):
     """The slice's two workloads at their defaults (``small``: test size)."""
@@ -287,42 +398,11 @@ def main_path_directives():
 def phase_main(device="cuda", workloads=None):
     """The main path, counted: fast_path then the directives through the
     same evaluator, for each workload. Returns the launch counter."""
-    from repro_torch.core.cascade import Candidate, CascadeEvaluator
-    from repro_torch.core.design_space import directive_key
-    from repro_torch.core.fast_path import fast_path
-    from repro_torch.core.hardware import H100, extract_hardware_context
-    from repro_torch.dist.mesh import VirtualMesh
     from repro_torch.kernels import moe_dispatch as kern
     kern.reset_launches()
     for w in workloads or main_path_workloads():
-        mesh = VirtualMesh(w.n_dev, device=device)
-        hw = extract_hardware_context(mesh, H100)
-        log(f"context {w.name}: {hw.topology_summary}; device "
-            f"{hw.device_name or mesh.device} ({hw.sm_count} SMs)")
-        ev = CascadeEvaluator(w, mesh, hw, wallclock=True)
-        before = kern.launches()
-        t0 = time.perf_counter()
-        seed = fast_path(w, mesh, hw, evaluator=ev)
-        res = seed.candidate.result
-        log(f"fast_path {w.name}: {seed.directive.backend} level {res.level} "
-            f"score {res.score:.2f} in {time.perf_counter() - t0:.1f} s; "
-            f"kernel launches {kern.launches() - before}")
-        for line in seed.log:
-            log(f"  {line}")
-        if seed.directive.backend != "PALLAS_RDMA" or res.level != 3:
-            raise SystemExit(f"fast path on {w.name} fell back to "
-                             f"{seed.directive.backend}")
-        if torch.device(device).type == "cuda" and kern.launches() == before:
-            raise SystemExit(f"fast path on {w.name} launched no kernel")
-        for name, d in main_path_directives().items():
-            r = ev.evaluate(Candidate(d, mutation=name))
-            log(f"cascade {w.name} {name}: level {r.level} score "
-                f"{r.score:.3f} t_model_ms {r.t_model_ms:.4f} (H100 model) "
-                f"t_wall_ms {r.t_wall_ms:.4f} ({ev.device}) "
-                f"key {directive_key(d)}")
-            if r.level != 3:
-                raise SystemExit(f"{name} on {w.name} stopped at level "
-                                 f"{r.level}: {r.diagnostic}")
+        _search(device, w, None, main_path_directives(), kern,
+                f"n={w.n_dev} d={w.d} f={w.f}")
     return dict(kern.LAUNCHES)
 
 
@@ -398,9 +478,7 @@ def phase_kv_kernels(device="cuda", workload=None, cfg=None, shape=None,
                                                 kv_cache_shuttle, kv_shuttle,
                                                 kv_shuttle_plain,
                                                 variant_name)
-    cuda = torch.device(device).type == "cuda"
-    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=device) \
-        if cuda else None
+    bench = Bench(device, iters)
     w = workload or kv_workload()
     cfg = cfg or engine_config()
     batch, prompt, new = shape or serve_shape()
@@ -413,10 +491,9 @@ def phase_kv_kernels(device="cuda", workload=None, cfg=None, shape=None,
     sink = torch.empty_like(kv[0])
     cases = [(False, knobs) for knobs in VARIANTS.values()] \
         + [(True, knobs) for knobs in PURE_VARIANTS.values()]
-    lib_ms = {False: time_ms(lambda: (torch.matmul(x[0], wk),
-                                      torch.matmul(x[0], wv)),
-                             device, iters, flush),
-              True: time_ms(lambda: sink.copy_(kv[0]), device, iters, flush)}
+    lib = {False: ("matmul", bench.ms(lambda: (torch.matmul(x[0], wk),
+                                               torch.matmul(x[0], wv)))),
+           True: ("copy_", bench.ms(lambda: sink.copy_(kv[0])))}
     out = []
     for pure, knobs in cases:
         if pure:
@@ -428,50 +505,16 @@ def phase_kv_kernels(device="cuda", workload=None, cfg=None, shape=None,
             plain = lambda: kv_shuttle_plain(x, wk, wv, **knobs)  # noqa: E731
             n_rows, width, esize, d = w.T, w.dk, 4, w.d
         key = variant_name(pure=pure, rows=n_rows, **knobs)
-        with torch.no_grad():
-            got, want = run(), plain()
-        if cuda:
-            torch.cuda.synchronize(device)
-        abs_err = max(float((a.float() - b.float()).abs().max())
-                      for a, b in zip(got, want))
-        rel = max(float((a.float() - b.float()).abs().max()
-                        / (b.float().abs().max() + 1e-9))
-                  for a, b in zip(got, want))
-        if pure:
-            ok, tol = all(torch.equal(a, b) for a, b in zip(got, want)), \
-                "bit-exact"
-        else:
-            ok = rel <= 1e-4 and all(bool(torch.isfinite(a).all())
-                                     for a in got)
-            tol = "1e-04"
-        del got, want
-        k_ms = time_ms(run, device, iters, flush)
-        call_ms = time_ms(run, device, iters, flush, hide_host=False)
-        p_ms = time_ms(plain, device, iters, flush)
-        b_ms, b_by, flops, nbytes = kv_bound(pure=pure, rows=n_rows,
-                                             width=width, d=d, esize=esize)
-        lib = "copy_" if pure else "matmul"
-        log(f"kernel kv_shuttle/{key} rows={n_rows} width={width} d={d} "
-            f"{'bf16' if pure else 'f32'}: rel err {rel:.3e} (tol {tol}), "
-            f"max abs err {abs_err:.3e}; kernel {k_ms:.3f} ms (call "
-            f"{call_ms:.3f} ms with the host's time), plain {p_ms:.3f} ms, "
-            f"{lib} {lib_ms[pure]:.3f} ms, bound {b_ms:.3f} ms "
-            f"by {b_by} ({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB) -> "
-            f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise SystemExit(f"kernel kv_shuttle/{key} disagrees with its "
-                             f"plain version: rel err {rel:.3e}")
-        out.append({"name": f"kv_shuttle/{key}", "route": "cuda",
-                    "source": KV_SOURCE, "replaces": KV_REPLACES,
-                    "launches": None, "max_abs_err": abs_err, "ms": k_ms,
-                    "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-                    "library_ms": lib_ms[pure],
-                    "_key": (key, n_rows, width,
-                             "bfloat16" if pure else "float32"),
-                    "_path": "serve" if pure else "kv_main"})
+        out.append(bench.record(
+            f"kv_shuttle/{key}",
+            f"rows={n_rows} width={width} d={d} {'bf16' if pure else 'f32'}",
+            run, plain, "exact" if pure else 1e-4,
+            kv_bound(pure=pure, rows=n_rows, width=width, d=d, esize=esize),
+            lib[pure], KV_SOURCE, KV_REPLACES,
+            (key, n_rows, width, "bfloat16" if pure else "float32"),
+            "serve" if pure else "kv_main"))
     del x, wk, wv, kv, sink
     return out
-
 
 def kv_directives():
     """Table 3's points, the chained and fused-SIGNAL shuttles, FLUX at
@@ -493,47 +536,12 @@ def phase_kv_main(device="cuda", workload=None):
     """The KV-transfer search, counted: fast_path, then every directive
     of :func:`kv_directives` through the same evaluator, on full-width
     verification inputs. Returns the kv_shuttle launch counter."""
-    from repro_torch.core.cascade import Candidate, CascadeEvaluator
-    from repro_torch.core.design_space import directive_key
-    from repro_torch.core.fast_path import fast_path
-    from repro_torch.core.hardware import H100, extract_hardware_context
-    from repro_torch.dist.mesh import VirtualMesh
     from repro_torch.kernels import kv_shuttle as kern
     w = workload or kv_workload()
-    mesh = VirtualMesh(2, device=device)
-    hw = extract_hardware_context(mesh, H100)
-    ev = CascadeEvaluator(w, mesh, hw, wallclock=True,
-                          verify_inputs=kv_inputs(w, device, seed=2))
-    log(f"context {w.name} T={w.T} d={w.d} dk={w.dk}: {hw.topology_summary}")
     kern.reset_launches()
-    t0 = time.perf_counter()
-    seed = fast_path(w, mesh, hw, evaluator=ev)
-    res = seed.candidate.result
-    log(f"fast_path {w.name}: {seed.directive.backend} level {res.level} "
-        f"score {res.score:.2f} in {time.perf_counter() - t0:.1f} s; "
-        f"kernel launches {kern.launches()}")
-    for line in seed.log:
-        log(f"  {line}")
-    if seed.directive.backend != "PALLAS_RDMA" or res.level != 3:
-        raise SystemExit(f"fast path on {w.name} fell back to "
-                         f"{seed.directive.backend}")
-    if torch.device(device).type == "cuda" and kern.launches() == 0:
-        raise SystemExit(f"fast path on {w.name} launched no kernel")
-    for name, d in kv_directives().items():
-        r = ev.evaluate(Candidate(d, mutation=name))
-        log(f"cascade {w.name} {name}: level {r.level} score {r.score:.3f} "
-            f"t_model_ms {r.t_model_ms:.4f} (H100 model) t_wall_ms "
-            f"{r.t_wall_ms:.4f} ({ev.device}) knobs {r.record.knobs} "
-            f"key {directive_key(d)}")
-        if r.level != 3:
-            raise SystemExit(f"{name} on {w.name} stopped at level "
-                             f"{r.level}: {r.diagnostic}")
+    _search(device, w, kv_inputs(w, device, seed=2), kv_directives(), kern,
+            f"T={w.T} d={w.d} dk={w.dk}")
     return dict(kern.LAUNCHES)
-
-
-def _rel(a, b):
-    a, b = a.float(), b.float()
-    return float((a - b).abs().max() / (b.abs().max() + 1e-9))
 
 
 def phase_serve(device="cuda", cfg=None, shape=None):
@@ -603,13 +611,9 @@ def phase_serve(device="cuda", cfg=None, shape=None):
         grown = torch.cat([tokens, direct["first_token"][:, None].long()], 1)
         x, _ = forward(params, {"tokens": grown}, cfg)
         fl = lm_logits(params, x[:, -1:], cfg)
-    rel = _rel(dl, fl)
-    finite = bool(torch.isfinite(dl).all())
+    rel, _ = _close("decode logits vs forward", dl, fl, LOGIT_TOL)
     log(f"serve decode step vs forward over {prompt + 1} tokens: logits "
-        f"{tuple(dl.shape)}, rel err {rel:.3e} (tol {LOGIT_TOL:.0e}), "
-        f"finite {finite}")
-    if not (finite and dl.shape == fl.shape and rel <= LOGIT_TOL):
-        raise SystemExit("decode logits disagree with forward")
+        f"{tuple(dl.shape)}, {_reading(rel, LOGIT_TOL)}")
     lens = [prompt // 8, prompt // 4, prompt // 2 + 3, prompt]
     sched = Scheduler(token_budget=2 * prompt, max_batch=4,
                       metrics=eng.metrics)
@@ -630,6 +634,364 @@ def phase_serve(device="cuda", cfg=None, shape=None):
     return dict(kern.LAUNCHES)
 
 
+# --------------------------------------------------------- gemm_allgather
+
+
+def ga_workload(small=False):
+    """GemmAllGather at its defaults (n=4, M=K=N=4096, M_l=1024, f32;
+    ``small``: test size)."""
+    from repro_torch.workloads.gemm_allgather import GemmAllGather
+    return GemmAllGather(M=256, K=64, N=48) if small else GemmAllGather()
+
+
+def ga_inputs(w, device, seed=0):
+    """Full-width inputs of ``w`` from ``seed``: a (n, M_l, K), b (K, N) /
+    sqrt(K). (``example_inputs`` stays at the reference's verification
+    size, M_l 128, K and N at most 128.)"""
+    g = torch.Generator(device=device).manual_seed(seed)
+    kw = dict(generator=g, device=device, dtype=torch.float32)
+    a = torch.randn((w.n_dev, w.M // w.n_dev, w.K), **kw)
+    b = torch.randn((w.K, w.N), **kw) / w.K ** 0.5
+    return a, b
+
+
+def ga_bound(n, M_l, K, N):
+    """Least time of one gemm_allgather call on an H100: the f32 GEMM
+    operations over the f32 rate, or the bytes (a and b read once, the n
+    gathered outputs written once) over HBM, whichever is larger."""
+    flops = 2 * n * M_l * K * N
+    nbytes = 4 * (n * M_l * K + K * N + n * n * M_l * N)
+    t_ops, t_bytes = flops / F32_FLOPS, nbytes / HBM_BYTES_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def phase_ga_kernels(device="cuda", workload=None, iters=5):
+    """Hold every gemm_allgather variant against its plain version on
+    ``workload``'s full-width inputs (1e-4 max-abs-normalised: the K sum
+    runs in another order than cuBLAS; no TF32 on either side). Returns
+    one record per variant for the ``kernels`` line."""
+    from repro_torch.kernels.gemm_allgather import (VARIANTS, gemm_allgather,
+                                                    gemm_allgather_plain,
+                                                    variant_name)
+    bench = Bench(device, iters)
+    w = workload or ga_workload()
+    a, b = ga_inputs(w, device)
+    n, M_l, K = a.shape
+    N = b.shape[1]
+    sink = torch.empty((n, n * M_l, N), device=device)
+
+    def library():
+        # the gathered product as one torch.matmul, copied into n outputs
+        sink.copy_(torch.matmul(a.reshape(-1, K), b)[None].expand_as(sink))
+
+    lib = ("matmul+copy", bench.ms(library))
+    out = []
+    for knobs in VARIANTS.values():
+        key = variant_name(M_l=M_l, **knobs)
+        out.append(bench.record(
+            f"gemm_allgather/{key}", f"n={n} M_l={M_l} K={K} N={N} f32",
+            lambda: gemm_allgather(a, b, **knobs),
+            lambda: gemm_allgather_plain(a, b, **knobs), 1e-4,
+            ga_bound(n, M_l, K, N), lib, GA_SOURCE, GA_REPLACES,
+            ("gemm_allgather", key, n, M_l, K, N), "ga_main"))
+    del a, b, sink
+    return out
+
+def ga_directives():
+    """Table 3's points, fig6's deferred point, the STREAM_SPLIT build at 4
+    chunks, FLUX at 32-row tiles, fused SIGNAL, and BARRIER under
+    TILE_FUSED (the deferred drain)."""
+    from repro_torch.core.design_space import EXPERT_SYSTEMS, Directive
+    return dict(EXPERT_SYSTEMS, **{
+        "fig6 deferred": Directive("PALLAS_RDMA", "SIGNAL", "DEFERRED",
+                                   "LOCAL", "KERNEL", "PER_PEER", "RELEASE",
+                                   2),
+        "stream_split": Directive("XLA_COLLECTIVE", placement="STREAM_SPLIT",
+                                  contexts=2, tunables=(("chunks", 4),)),
+        "FLUX tm32": EXPERT_SYSTEMS["FLUX"].with_tunable("tile_m", 32),
+        "fused SIGNAL": Directive("PALLAS_RDMA", "SIGNAL", "TILE_FUSED",
+                                  "LOCAL", "GRID_STEP", "PER_TILE",
+                                  "ACQUIRE", 2),
+        "fused BARRIER": Directive("PALLAS_RDMA", "BARRIER", "TILE_FUSED",
+                                   "LOCAL", "GRID_STEP", "PER_TILE",
+                                   "RELEASE", 2),
+    })
+
+
+def _search(device, w, inputs, directives, kern, label):
+    """fast_path on ``w`` with ``inputs`` as the verification inputs (the
+    workload's ``example_inputs`` when None), then every directive through
+    the same evaluator; each must reach level 3 and the seed must be
+    ``PALLAS_RDMA`` through ``kern``'s kernel. Returns the evaluator."""
+    from repro_torch.core.cascade import Candidate, CascadeEvaluator
+    from repro_torch.core.design_space import directive_key
+    from repro_torch.core.fast_path import fast_path
+    from repro_torch.core.hardware import H100, extract_hardware_context
+    from repro_torch.dist.mesh import VirtualMesh
+    mesh = VirtualMesh(w.n_dev, device=device)
+    hw = extract_hardware_context(mesh, H100)
+    ev = CascadeEvaluator(w, mesh, hw, wallclock=True, verify_inputs=inputs)
+    log(f"context {w.name} {label}: {hw.topology_summary}; device "
+        f"{hw.device_name or mesh.device} ({hw.sm_count} SMs)")
+    t0 = time.perf_counter()
+    before = kern.launches()
+    seed = fast_path(w, mesh, hw, evaluator=ev)
+    res = seed.candidate.result
+    log(f"fast_path {w.name}: {seed.directive.backend} level {res.level} "
+        f"score {res.score:.2f} in {time.perf_counter() - t0:.1f} s; "
+        f"kernel launches {kern.launches() - before}")
+    for line in seed.log:
+        log(f"  {line}")
+    if seed.directive.backend != "PALLAS_RDMA" or res.level != 3:
+        raise SystemExit(f"fast path on {w.name} fell back to "
+                         f"{seed.directive.backend}")
+    if torch.device(device).type == "cuda" and kern.launches() == before:
+        raise SystemExit(f"fast path on {w.name} launched no kernel")
+    for name, d in directives.items():
+        r = ev.evaluate(Candidate(d, mutation=name))
+        log(f"cascade {w.name} {name}: level {r.level} score {r.score:.3f} "
+            f"t_model_ms {r.t_model_ms:.4f} (H100 model) t_wall_ms "
+            f"{r.t_wall_ms:.4f} ({ev.device}) knobs {r.record.knobs} "
+            f"key {directive_key(d)}")
+        if r.level != 3:
+            raise SystemExit(f"{name} on {w.name} stopped at level "
+                             f"{r.level}: {r.diagnostic}")
+    return ev
+
+
+def _prefixed(name, launches):
+    return {(name, *key): count for key, count in launches.items()}
+
+
+def phase_ga_main(device="cuda", workload=None):
+    """The GEMM+AllGather search, counted: fast_path, then every directive
+    of :func:`ga_directives`, on full-width verification inputs. Returns
+    the gemm_allgather launch counter."""
+    from repro_torch.kernels import gemm_allgather as kern
+    w = workload or ga_workload()
+    kern.reset_launches()
+    _search(device, w, ga_inputs(w, device, seed=2), ga_directives(), kern,
+            f"M={w.M} K={w.K} N={w.N}")
+    return _prefixed("gemm_allgather", kern.LAUNCHES)
+
+
+# ----------------------------------------------------- flash / ring attention
+
+
+def ring_workload(small=False):
+    """RingAttention at its defaults (n=4, BH=8, seq=4096, hd=64, causal,
+    f32, sl=1024; ``small``: test size)."""
+    from repro_torch.workloads.ring_attention import RingAttention
+    return RingAttention(BH=2, seq=512, hd=16) if small else RingAttention()
+
+
+def deploy_shape(small=False):
+    """(BH, seq) of fig3's largest row, the paper's deployment: 12 x 8
+    heads over 8192 tokens (``small``: test size)."""
+    return (3, 768) if small else (96, 8192)
+
+
+def ring_inputs(w, device, seed=0, BH=None, seq=None):
+    """q, k, v (n, BH, seq / n, hd) from ``seed``, f32, at ``w``'s width
+    (or the given BH and seq)."""
+    BH, seq = BH or w.BH, seq or w.seq
+    g = torch.Generator(device=device).manual_seed(seed)
+    shape = (w.n_dev, BH, seq // w.n_dev, w.hd)
+    return tuple(torch.randn(shape, generator=g, device=device,
+                             dtype=torch.float32) for _ in range(3))
+
+
+def gathered(t):
+    """(n, BH, Sl, hd) ranks -> (BH, n*Sl, hd), the whole sequence."""
+    n, BH, Sl, hd = t.shape
+    return t.permute(1, 0, 2, 3).reshape(BH, n * Sl, hd)
+
+
+def attn_bound(BH, S, hd, causal=True, esize=4):
+    """Least time of attention over (BH, S, hd) on an H100: the score and
+    value products over the pairs this mask keeps (S(S+1)/2 causal, S^2
+    otherwise) over the rate of the input type (f32: 67 TFLOP/s outside
+    the tensor cores; bf16: 989 TFLOP/s), or q, k, v read and the output
+    written once over HBM, whichever is larger."""
+    pairs = S * (S + 1) // 2 if causal else S * S
+    flops = 4 * BH * hd * pairs
+    nbytes = 4 * BH * S * hd * esize
+    rate = F32_FLOPS if esize == 4 else BF16_FLOPS
+    t_ops, t_bytes = flops / rate, nbytes / HBM_BYTES_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def _sdpa(q, k, v, causal):
+    """One ``scaled_dot_product_attention`` over (BH, S, hd), on a card on
+    the memory-efficient backend (it takes f32; the math backend would
+    build the whole score matrix). A yardstick only: the port never calls
+    it."""
+    import contextlib
+
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]) if q.is_cuda \
+            else contextlib.nullcontext():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q[None], k[None], v[None], is_causal=causal)[0]
+
+
+def phase_attn_kernels(device="cuda", workload=None, iters=5):
+    """Hold every flash_attention variant (over the ring's whole sequence,
+    BH 8 x S 4096 x hd 64: f32 within 1e-4; bf16 each element within one
+    bf16 step plus 1e-4, as both sides round an f32 result) and every
+    ring_attention variant (at RingAttention's defaults, within 1e-4: sums
+    in another order) against its plain version, timed beside the bound,
+    the plain version and ``scaled_dot_product_attention``. Returns one
+    record per variant for the ``kernels`` line. (fig3's largest row is
+    checked and timed by ``ring_main``, on the outputs of its counted
+    run.)"""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ring_attention as ra
+    bench = Bench(device, iters)
+    w = workload or ring_workload()
+    out = []
+    q, k, v = ring_inputs(w, device)
+    flat = [gathered(t).contiguous() for t in (q, k, v)]
+    BH, S, hd = flat[0].shape
+    for key, knobs in fa.VARIANTS.items():
+        causal, dtype = knobs["causal"], knobs["dtype"]
+        fq, fk, fv = (t.to(dtype) for t in flat)
+        bf16 = dtype == torch.bfloat16
+        out.append(bench.record(
+            f"flash_attention/{key}",
+            f"BH={BH} S={S} hd={hd} {'bf16' if bf16 else 'f32'}",
+            lambda: fa.flash_attention(fq, fk, fv, causal=causal),
+            lambda: fa.flash_attention_plain(fq, fk, fv, causal=causal),
+            "bf16" if bf16 else 1e-4,
+            attn_bound(BH, S, hd, causal, esize=2 if bf16 else 4),
+            ("sdpa", bench.ms(lambda: _sdpa(fq, fk, fv, causal))),
+            FA_SOURCE, FA_REPLACES, ("flash_attention", key, BH, S, S, hd),
+            "ring_main"))
+        del fq, fk, fv
+    n, BH, Sl, hd = q.shape
+    lib = ("sdpa", bench.ms(lambda: _sdpa(*flat, True)))
+    for key, knobs in ra.VARIANTS.items():
+        out.append(bench.record(
+            f"ring_attention/{key}", f"n={n} BH={BH} Sl={Sl} hd={hd} f32",
+            lambda: ra.ring_attention(q, k, v, **knobs),
+            lambda: ra.ring_attention_plain(q, k, v, **knobs), 1e-4,
+            attn_bound(BH, w.seq, hd, True), lib, RING_SOURCE, RING_REPLACES,
+            ("ring_attention", key, n, BH, Sl, hd), "ring_main"))
+    del q, k, v, flat
+    return out
+
+def ring_directives():
+    """Table 3's points, fig3's host, deferred and flux points, the
+    lazy-fence pipelined point (PER_TILE: the ring's check rejects fig3's
+    PER_PEER cuco point) and its ACQREL (eager) twin, fused SIGNAL, and
+    FLUX at 16-row chunks."""
+    from repro_torch.core.design_space import EXPERT_SYSTEMS, Directive
+    pipelined = Directive("PALLAS_RDMA", "SIGNAL", "TILE_PIPELINED", "LOCAL",
+                          "KERNEL", "PER_TILE", "RELEASE", 2)
+    return dict(EXPERT_SYSTEMS, **{
+        "fig3 host": Directive("XLA_COLLECTIVE", placement="DEFERRED"),
+        "fig3 deferred": Directive("PALLAS_RDMA", "SIGNAL", "DEFERRED",
+                                   "LOCAL", "KERNEL", "PER_PEER", "RELEASE",
+                                   2),
+        "fig3 flux": EXPERT_SYSTEMS["FLUX"].with_tunable("kv_chunk", 64),
+        "pipelined": pipelined,
+        "pipelined ACQREL": dataclasses.replace(pipelined, ordering="ACQREL"),
+        "fused SIGNAL": Directive("PALLAS_RDMA", "SIGNAL", "TILE_FUSED",
+                                  "LOCAL", "GRID_STEP", "PER_TILE",
+                                  "ACQUIRE", 2),
+        "FLUX kc16": EXPERT_SYSTEMS["FLUX"].with_tunable("kv_chunk", 16),
+    })
+
+
+DEPLOY_VARIANTS = ("pipelined", "fused_counter")
+
+
+def phase_ring_main(device="cuda", workload=None, deploy=None, iters=5):
+    """Ring attention, counted: the search (fast_path, then every
+    directive of :func:`ring_directives`, on full-width verification
+    inputs), then the public wrappers at work — ``ops.ring_attention``
+    (FLUX) against ``ops.flash_attention`` over the gathered sequence and
+    the evaluator's oracle (f32 within 1e-4), bf16 flash against the
+    oracle on the same bf16 inputs (each element within one bf16 step
+    plus 1e-4), non-causal flash against ``flash_attention_ref`` — and at
+    fig3's largest row the pipelined and FLUX rings and flash over the
+    whole sequence. The counters are read there; then each deployment
+    ring's output is held against its plain version, against flash and,
+    on two heads, the oracle (1e-4), and the ring is timed (the records
+    of fig3's row). Returns the ring_attention and flash_attention launch
+    counters and those records."""
+    from repro_torch.dist.mesh import VirtualMesh
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ring_attention as ra
+    from repro_torch.kernels.ref import flash_attention_ref
+    w = workload or ring_workload()
+    ra.reset_launches()
+    fa.reset_launches()
+    q, k, v = ring_inputs(w, device, seed=2)
+    ev = _search(device, w, (q, k, v), ring_directives(), ra,
+                 f"BH={w.BH} seq={w.seq} hd={w.hd}")
+    mesh = VirtualMesh(w.n_dev, device=device)
+    flux = ra.VARIANTS["fused_counter"]
+    with torch.no_grad():
+        ring = gathered(ops.ring_attention(q, k, v, mesh, **flux))
+        fq, fk, fv = (gathered(t).contiguous() for t in (q, k, v))
+        bq, bk, bv = (t.bfloat16() for t in (fq, fk, fv))
+        want = gathered(ev.expected)
+        flash = ops.flash_attention(fq, fk, fv, causal=True)
+        checks = [("ring vs flash", ring, flash, 1e-4),
+                  ("flash vs oracle", flash, want, 1e-4),
+                  ("bf16 flash vs oracle on its bf16 inputs",
+                   ops.flash_attention(bq, bk, bv),
+                   flash_attention_ref(bq, bk, bv), "bf16"),
+                  ("non-causal flash vs oracle",
+                   ops.flash_attention(fq, fk, fv, causal=False),
+                   flash_attention_ref(fq, fk, fv, causal=False), 1e-4)]
+        for name, got, ref, tol in checks:
+            reading, _ = _close(name, got, ref, tol)
+            log(f"attention {name} BH={w.BH} S={w.seq} hd={w.hd}: "
+                f"{_reading(reading, tol)}")
+        del ring, flash, want, checks, q, k, v, fq, fk, fv, bq, bk, bv
+        BH, seq = deploy or deploy_shape()
+        q, k, v = ring_inputs(w, device, seed=3, BH=BH, seq=seq)
+        t0 = time.perf_counter()
+        outs = {key: ops.ring_attention(q, k, v, mesh, **ra.VARIANTS[key])
+                for key in DEPLOY_VARIANTS}
+        fq, fk, fv = (gathered(t).contiguous() for t in (q, k, v))
+        flash = ops.flash_attention(fq, fk, fv, causal=True)
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize(device)
+        run_s = time.perf_counter() - t0
+        counts = {**_prefixed("ring_attention", ra.LAUNCHES),
+                  **_prefixed("flash_attention", fa.LAUNCHES)}
+        log(f"deployment BH={BH} S={seq}: two rings and flash in "
+            f"{run_s:.3f} s (host clock, first calls)")
+        heads = flash_attention_ref(fq[:2], fk[:2], fv[:2], causal=True)
+        for key, got in outs.items():
+            for name, ref in (("flash", flash), ("oracle, 2 heads", heads)):
+                reading, _ = _close(f"deployment ring {key} vs {name}",
+                                    gathered(got)[:ref.shape[0]], ref, 1e-4)
+                log(f"deployment ring {key} vs {name} BH={BH} S={seq} "
+                    f"hd={w.hd}: {_reading(reading, 1e-4)}")
+        del flash, heads
+    bench = Bench(device, iters)
+    n, _, Sl, hd = q.shape
+    lib = ("sdpa", bench.ms(lambda: _sdpa(fq, fk, fv, True)))
+    records = []
+    for key in DEPLOY_VARIANTS:
+        knobs = ra.VARIANTS[key]
+        records.append(bench.record(
+            f"ring_attention/{key}", f"n={n} BH={BH} Sl={Sl} hd={hd} f32",
+            lambda: ra.ring_attention(q, k, v, **knobs),
+            lambda: ra.ring_attention_plain(q, k, v, **knobs), 1e-4,
+            attn_bound(BH, seq, hd, True), lib, RING_SOURCE, RING_REPLACES,
+            ("ring_attention", key, n, BH, Sl, hd), "ring_main",
+            got=outs.pop(key)))
+    return counts, records
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=5,
@@ -645,14 +1007,18 @@ def main(argv=None):
     phase_build("cuda")
     records = phase_kernels("cuda", iters=args.iters)
     records += phase_kv_kernels("cuda", iters=args.iters)
+    records += phase_ga_kernels("cuda", iters=args.iters)
+    records += phase_attn_kernels("cuda", iters=args.iters)
     counted = {"main": phase_main("cuda")}
     counted["kv_main"] = phase_kv_main("cuda")
     counted["serve"] = phase_serve("cuda")
+    counted["ga_main"] = phase_ga_main("cuda")
+    counted["ring_main"], deployed = phase_ring_main("cuda", iters=args.iters)
+    records += deployed
     for path, counts in counted.items():
         log(f"launches on the {path} path: {counts}")
     for rec in records:
-        rec["launches"] = counted[rec.pop("_path", "main")].get(
-            rec.pop("_key"), 0)
+        rec["launches"] = counted[rec.pop("_path")].get(rec.pop("_key"), 0)
         if rec["launches"] == 0:
             raise SystemExit(f"{rec['name']} was not launched on its "
                              "counted path")

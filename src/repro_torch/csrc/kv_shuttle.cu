@@ -44,10 +44,8 @@
 #include <stdint.h>
 #include <stdio.h>
 
-#define BM 64
-#define BN 64
-#define BK 16
-#define NT 256
+#include "flags.cuh"
+#include "simt_gemm.cuh"
 
 struct ShuttleParams {
   int rows;         // rows of each half: T, or N in pure mode
@@ -67,126 +65,6 @@ struct ShuttleParams {
   void* vo;         // the decode rank's V slab (rows, dk)
   unsigned* flag;   // (2, nchunks): elements landed per (half, chunk)
 };
-
-struct Smem {
-  float As[BK][BM + 4];
-  float Bs[BK][BN];
-};
-
-// ------------------------------------------------------------------- flags
-
-__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ unsigned long long globaltimer() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// one thread: spin until *p >= target; trap after the timeout
-__device__ void spin_geq(const unsigned* p, unsigned target, const ShuttleParams& P,
-                         const char* what, int half, int chunk) {
-  if (ld_acquire(p) >= target) return;
-  const unsigned long long t0 = globaltimer();
-  const unsigned long long limit = (unsigned long long)P.timeout_ms * 1000000ull;
-  while (ld_acquire(p) < target) {
-    __nanosleep(64);
-    if (globaltimer() - t0 > limit) {
-      printf("kv_shuttle: block %d timed out on %s (half %d chunk %d: have %u, want %u)\n",
-             (int)blockIdx.x, what, half, chunk, ld_acquire(p), target);
-      asm volatile("trap;");
-    }
-  }
-}
-
-// whole CTA: publish this CTA's stores, then bump the flag (release)
-__device__ void cta_signal(unsigned* p, unsigned amount) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(p, amount);
-  }
-}
-
-// ------------------------------------------------------------------ tiles
-
-// One BM x BN tile of A (rows x K, row stride K) times W (K x N, row
-// stride N): rows [row0, row0 + nrows), columns [col0, col0 + ncols).
-// Out-of-range rows, columns and depth load as zeros; the K sum runs in
-// ascending order in f32.
-__device__ void gemm_tile(const float* A, int row0, int nrows, int K, const float* W, int N,
-                          int col0, int ncols, int vec, float (&acc)[4][4], Smem& sm) {
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int lr = tid / 4, lk = (tid % 4) * 4;     // A tile load coordinates
-  const int br = tid / 16, bc = (tid % 16) * 4;   // W tile load coordinates
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    float a[4] = {0.f, 0.f, 0.f, 0.f}, w[4] = {0.f, 0.f, 0.f, 0.f};
-    if (lr < nrows) {
-      const float* ap = A + (size_t)(row0 + lr) * K + k0 + lk;
-      if (vec && k0 + lk + 3 < K) {
-        const float4 v = __ldg(reinterpret_cast<const float4*>(ap));
-        a[0] = v.x; a[1] = v.y; a[2] = v.z; a[3] = v.w;
-      } else {
-        for (int q = 0; q < 4; ++q)
-          if (k0 + lk + q < K) a[q] = __ldg(ap + q);
-      }
-    }
-    if (k0 + br < K) {
-      const float* wp = W + (size_t)(k0 + br) * N + col0 + bc;
-      if (vec && bc + 3 < ncols) {
-        const float4 v = __ldg(reinterpret_cast<const float4*>(wp));
-        w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
-      } else {
-        for (int q = 0; q < 4; ++q)
-          if (bc + q < ncols) w[q] = __ldg(wp + q);
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      sm.As[lk + q][lr] = a[q];
-      sm.Bs[br][bc + q] = w[q];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 av = *reinterpret_cast<const float4*>(&sm.As[kk][ty * 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&sm.Bs[kk][tx * 4]);
-      const float ar[4] = {av.x, av.y, av.z, av.w};
-      const float br4[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br4[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-}
-
-// the tile's epilogue is the send: store into the decode rank's slab
-__device__ void store_tile(float* out, int row0, int nrows, int N, int col0, int ncols,
-                           int vec, const float (&acc)[4][4]) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    if (r >= nrows) continue;
-    float* op = out + (size_t)(row0 + r) * N + col0 + tx * 4;
-    if (vec && tx * 4 + 3 < ncols) {
-      *reinterpret_cast<float4*>(op) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    } else {
-      for (int j = 0; j < 4; ++j)
-        if (tx * 4 + j < ncols) op[j] = acc[i][j];
-    }
-  }
-}
 
 // pure mode: copy nbytes verbatim, 16 bytes a thread where aligned, four
 // loads in flight before their stores
@@ -263,7 +141,7 @@ __device__ void prefill(const ShuttleParams& P, int pid, int npre, Smem& sm) {
     if (half == 1 && !P.fused && !P.chained && !drained) {
       // sequential: K's send drains before the V GEMM starts
       if (threadIdx.x == 0) {
-        spin_geq(P.flag, all_k, P, "K drain", 0, 0);
+        spin_geq(P.flag, all_k, P.timeout_ms, "kv_shuttle", "K drain", 0, 0);
         __threadfence();
       }
       __syncthreads();
@@ -287,10 +165,11 @@ __device__ void decode(const ShuttleParams& P) {
       const int c = c0 + lane;
       if (c < P.nchunks) {
         if (P.fused && P.counter) {  // COUNTER: per chunk, K then V
-          spin_geq(kf + c, per, P, "K chunk", 0, c);
-          spin_geq(vf + c, per, P, "V chunk", 1, c);
+          spin_geq(kf + c, per, P.timeout_ms, "kv_shuttle", "K chunk", 0, c);
+          spin_geq(vf + c, per, P.timeout_ms, "kv_shuttle", "V chunk", 1, c);
         } else {  // every K chunk, then every V chunk (one chunk unfused)
-          spin_geq((pass ? vf : kf) + c, per, P, pass ? "V" : "K", pass, c);
+          spin_geq((pass ? vf : kf) + c, per, P.timeout_ms, "kv_shuttle", pass ? "V" : "K",
+                   pass, c);
         }
       }
       __syncwarp();

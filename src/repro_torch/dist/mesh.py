@@ -1,12 +1,13 @@
 """The virtual mesh: ``n`` ranks on one device as a leading rank axis.
 
 Port of ``launch/mesh.py`` plus the collectives the host builds use
-(``jax.lax.all_to_all`` and ``jax.lax.ppermute`` under ``shard_map``).
-Every per-rank tensor is stacked on axis 0 (``(n, ...)``, the JAX
-package's global layout), so a collective is an exact permutation of
-that axis. The host baseline and the
-STREAM_SPLIT / TokenWeave builds run through it; the device-initiated
-kernels address the ranks' slabs directly and do not.
+(``jax.lax.all_to_all``, ``jax.lax.all_gather`` and ``jax.lax.ppermute``
+under ``shard_map``). Every per-rank tensor is stacked on axis 0
+(``(n, ...)``, the JAX package's global layout), so a collective is an
+exact permutation (or, for ``all_gather``, a broadcast) of that axis.
+The host baseline and the STREAM_SPLIT / TokenWeave builds run through
+it; the device-initiated kernels address the ranks' slabs directly and
+do not.
 
 A recorder (:func:`record`) logs each collective's kind and per-rank
 payload bytes — what ``core/comm_graph.py`` reads instead of a jaxpr.
@@ -105,6 +106,20 @@ class VirtualMesh:
         with _inside():
             out = t.transpose(0, 1).contiguous()
             _log("all-to-all", self.axis, t, out)
+        return out
+
+    def all_gather(self, t, tiled=True):
+        """``jax.lax.all_gather`` over the rank axis: every rank gets every
+        rank's block. ``t`` (n, rows, ...) gives (n, n*rows, ...) with
+        ``tiled`` (the blocks concatenated) and (n, n, rows, ...) without
+        (the blocks stacked)."""
+        if t.dim() < 2 or t.shape[0] != self.n:
+            raise ValueError(f"all_gather wants (n, rows, ...) with "
+                             f"n={self.n}, got {tuple(t.shape)}")
+        with _inside():
+            blocks = t.reshape(-1, *t.shape[2:]) if tiled else t
+            out = blocks[None].expand(self.n, *blocks.shape).contiguous()
+            _log("all-gather", self.axis, t, out)
         return out
 
     def ppermute(self, t, pairs):

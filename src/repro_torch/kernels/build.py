@@ -3,10 +3,16 @@ library with a plain C interface, loaded with ``ctypes``).
 
 Each source under ``repro_torch/csrc/`` compiles on first use into
 ``build/repro_torch/lib<name>-<hash>.so``; the hash is of the source text,
-so an edited source never loads a stale library. :func:`build` compiles
-several sources at once, one ``nvcc`` each, all started together. Nothing
-here runs at import time, and nothing falls back: a failed build raises
-with the compiler's output.
+of every header in ``csrc/`` (``*.cuh``, which sources share) and of the
+``-D`` defines of a test build, so an edited source or header never loads a
+stale library. :func:`build` compiles several sources at once, one ``nvcc``
+each, all started together. Nothing here runs at import time, and nothing
+falls back: a failed build raises with the compiler's output.
+
+Every source exports the same plain C interface, which :func:`load_typed`
+types once for all wrappers: ``<name>_launch(Params *, [int grid,]
+cudaStream_t)``, ``<name>_error(int)``, ``<name>_params_size()`` and, for a
+cooperative kernel, ``<name>_grid(int ..., int *grid, int *per_sm)``.
 """
 from __future__ import annotations
 
@@ -15,34 +21,47 @@ import hashlib
 import subprocess
 import threading
 
+import torch
+
 from repro_torch import compat
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOCK = threading.Lock()
-_LOADED = {}          # source name -> ctypes.CDLL
-_LOGS = {}            # source name -> ptxas resource lines of its build
+_LOADED = {}          # (source name, defines) -> ctypes.CDLL
+_LOGS = {}            # (source name, defines) -> ptxas lines of its build
+_GRIDS = {}           # (library, device index, grid args) -> (grid, per_sm)
 
 
 class KernelBuildError(RuntimeError):
     pass
 
 
-def _library(name):
-    """The source of ``name`` and the library path its content hash names."""
+def _library(name, defines=()):
+    """The source of ``name`` and the library path its content hash names
+    (the source's text, every shared header's, and the defines)."""
     src = compat.CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return src, compat.build_dir() / f"lib{name}-{digest}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(compat.CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    for define in defines:
+        h.update(b"-D" + define.encode() + b"\0")
+    digest = h.hexdigest()[:12]
+    tag = "".join(f"-{define.lower()}" for define in defines)
+    return src, compat.build_dir() / f"lib{name}{tag}-{digest}.so"
 
 
-def build(names):
-    """Compile every source of ``names`` whose library is missing: one
-    ``nvcc`` per source, all started together, each waited for. Raises
-    with the compiler's output of every build that failed."""
+def build(names, defines=()):
+    """Compile every source of ``names`` whose library is missing, with
+    ``-D`` each of ``defines``: one ``nvcc`` per source, all started
+    together, each waited for. Raises with the compiler's output of every
+    build that failed."""
+    defines = tuple(defines)
     with _LOCK:
-        todo = [(name, *_library(name)) for name in dict.fromkeys(names)
-                if name not in _LOADED]
+        todo = [(name, *_library(name, defines))
+                for name in dict.fromkeys(names)
+                if (name, defines) not in _LOADED]
         todo = [(name, src, lib) for name, src, lib in todo
                 if not lib.exists()]
         if not todo:
@@ -54,14 +73,17 @@ def build(names):
         running = []
         for name, src, lib in todo:
             tmp = lib.with_suffix(".so.tmp")
-            proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", str(tmp),
-                                     str(src)], stdout=subprocess.PIPE,
+            proc = subprocess.Popen([nvcc, *NVCC_FLAGS,
+                                     *(f"-D{d}" for d in defines), "-o",
+                                     str(tmp), str(src)],
+                                    stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT, text=True)
             running.append((name, proc, tmp, lib))
         failed = []
         for name, proc, tmp, lib in running:
             log, _ = proc.communicate()
-            _LOGS[name] = [ln for ln in log.splitlines() if "ptxas info" in ln]
+            _LOGS[(name, defines)] = [ln for ln in log.splitlines()
+                                      if "ptxas info" in ln]
             if proc.returncode:
                 failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             else:
@@ -70,20 +92,76 @@ def build(names):
             raise KernelBuildError("\n".join(failed))
 
 
-def load(name):
-    """The loaded library of ``csrc/<name>.cu``, compiling it first if its
-    library is missing (once per process)."""
+def load(name, defines=()):
+    """The loaded library of ``csrc/<name>.cu`` (built with ``defines``),
+    compiling it first if its library is missing (once per process)."""
+    key = (name, tuple(defines))
     with _LOCK:
-        if name in _LOADED:
-            return _LOADED[name]
-    build([name])
+        if key in _LOADED:
+            return _LOADED[key]
+    build([name], defines)
     with _LOCK:
-        if name not in _LOADED:
-            _LOADED[name] = ctypes.CDLL(str(_library(name)[1]))
-        return _LOADED[name]
+        if key not in _LOADED:
+            _LOADED[key] = ctypes.CDLL(str(_library(*key)[1]))
+        return _LOADED[key]
 
 
-def ptxas_log(name):
+def load_typed(name, params, grid_args=None, defines=()):
+    """:func:`load` with the library's C interface typed (once):
+    ``params`` is the ctypes mirror of the source's parameter struct,
+    checked against ``<name>_params_size()``; a cooperative kernel takes
+    ``grid_args`` ints in ``<name>_grid`` and its grid in
+    ``<name>_launch``."""
+    lib = load(name, defines)
+    if getattr(lib, "_kernel", None) is None:
+        fn = lambda what: getattr(lib, f"{name}_{what}")  # noqa: E731
+        coop = [] if grid_args is None else [ctypes.c_int]
+        fn("launch").argtypes = [ctypes.POINTER(params), *coop,
+                                 ctypes.c_void_p]
+        fn("error").argtypes = [ctypes.c_int]
+        fn("error").restype = ctypes.c_char_p
+        fn("params_size").argtypes = []
+        if grid_args is not None:
+            fn("grid").argtypes = [ctypes.c_int] * grid_args \
+                + [ctypes.POINTER(ctypes.c_int)] * 2
+        if fn("params_size")() != ctypes.sizeof(params):
+            raise RuntimeError(f"{params.__name__} differs from the "
+                               f"parameter struct of {name}.cu")
+        lib._kernel = name
+    return lib
+
+
+def _check(lib, code, what):
+    if code:
+        error = getattr(lib, f"{lib._kernel}_error")(code).decode()
+        raise RuntimeError(f"{lib._kernel} {what} failed: {error}")
+
+
+def grid(lib, device, *args):
+    """``(grid, per_sm)`` of a cooperative kernel on ``device``, as
+    ``<name>_grid(*args)`` sizes it (CTAs per SM x SMs, rounded as its
+    source says); cached per library, device and arguments."""
+    key = (lib._name, torch.device(device).index, args)
+    if key not in _GRIDS:
+        size, per_sm = ctypes.c_int(0), ctypes.c_int(0)
+        with torch.cuda.device(device):
+            _check(lib, getattr(lib, f"{lib._kernel}_grid")(
+                *args, ctypes.byref(size), ctypes.byref(per_sm)), "grid")
+        _GRIDS[key] = (size.value, per_sm.value)
+    return _GRIDS[key]
+
+
+def launch(lib, params, device, *grid_size):
+    """Launch ``lib``'s kernel with ``params`` (and ``grid_size`` CTAs, a
+    cooperative kernel) on ``device``'s current stream; raises on the
+    error it returns."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        _check(lib, getattr(lib, f"{lib._kernel}_launch")(
+            ctypes.byref(params), *grid_size, stream), "launch")
+
+
+def ptxas_log(name, defines=()):
     """``ptxas info`` lines (registers, shared memory, spills) of the build
     this process ran for ``name``; empty when the library was cached."""
-    return list(_LOGS.get(name, ()))
+    return list(_LOGS.get((name, tuple(defines)), ()))

@@ -1,0 +1,173 @@
+"""Fused GEMM + AllGather (paper workload 4) as a hand-written Hopper kernel
+(``repro_torch/csrc/gemm_allgather.cu``).
+
+Port of ``repro/kernels/gemm_allgather.py``: every rank computes
+``C_r = A_r @ B`` and stores it into every rank's output at rows
+``[r*M_l, (r+1)*M_l)``. TILE_FUSED (``fused``) broadcasts each GEMM tile
+the moment it is done; DEFERRED ships the whole slab per peer after the
+rank's GEMM. COUNTER (``counter``, fused only) waits per ``tile_m`` chunk;
+SIGNAL and DEFERRED wait once per inbound edge. The n ranks are n CTA
+partitions of one cooperative launch (no mesh collective runs).
+
+Every entry takes and returns the JAX package's stacked layout, ranks on
+axis 0: a ``(n, M_l, K)``, b ``(K, N)`` replicated, the result
+``(n, n*M_l, N)``. CUDA tensors launch the kernel or raise; CPU tensors
+compute :func:`gemm_allgather_plain`, the plain version the tests and
+``chip_smoke.py`` hold the kernel against. The reference's ``contexts``
+send window is accepted and has no counterpart on the card (a store and
+its flag retire as they issue). ``LAUNCHES`` counts launches keyed by
+variant and shape; ``VARIANTS`` names the knob sets the main path launches.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+# The schedule machinery is defined once, in repro_torch.core.schedule;
+# re-exported here for the kernel's callers.
+from repro_torch.core.schedule import (BroadcastSchedule,  # noqa: F401
+                                       make_broadcast_schedule,
+                                       sanitize_tile_m)
+
+TIMEOUT_MS = 20_000           # a spin-wait traps after this long
+DEFAULT_TILE_M = 128
+
+# (variant, n, M_l, K, N) -> kernel launches; read by chip_smoke.py
+LAUNCHES = collections.Counter()
+
+# Knobs of each variant the main path launches (the GemmAllGather search's
+# directives at M_l = 1024).
+VARIANTS = {
+    "deferred": dict(fused=False, counter=False),
+    "fused_signal": dict(fused=True, counter=False),
+    "fused_counter": dict(fused=True, counter=True),
+    "fused_counter_tm32": dict(fused=True, counter=True, tile_m=32),
+}
+
+
+def reset_launches():
+    LAUNCHES.clear()
+
+
+def launches():
+    """Kernel launches so far, all variants."""
+    return sum(LAUNCHES.values())
+
+
+def variant_name(*, fused=True, counter=False, tile_m=DEFAULT_TILE_M, M_l):
+    """The variant a call launches: the realization, plus ``_tm<rows>``
+    for a COUNTER chunk other than 128 rows (after sanitizing against
+    ``M_l``). Only COUNTER waits per chunk, so only it names one."""
+    if not fused:
+        return "deferred"
+    if not counter:
+        return "fused_signal"
+    tm = sanitize_tile_m(tile_m, M_l)
+    return "fused_counter" + ("" if tm == DEFAULT_TILE_M else f"_tm{tm}")
+
+
+def _shape(a, b, *, tile_m, contexts):
+    """Check the layout and the knobs; ``(n, M_l, K, N, tile_m)``."""
+    if a.dim() != 3 or b.dim() != 2 or a.shape[2] != b.shape[0]:
+        raise ValueError(f"gemm_allgather wants a (n, M_l, K) and b (K, N), "
+                         f"got {tuple(a.shape)} and {tuple(b.shape)}")
+    if int(contexts) < 1:
+        raise ValueError(f"contexts must be >= 1, got {contexts}")
+    n, M_l, K = a.shape
+    return n, M_l, K, b.shape[1], sanitize_tile_m(tile_m, M_l)
+
+
+# ------------------------------------------------------------ plain version
+
+
+def gemm_allgather_plain(a, b, *, tile_m=DEFAULT_TILE_M, fused=True,
+                         counter=False, contexts=2):
+    """Plain-torch version of the kernel on the stacked layout: a
+    (n, M_l, K), b (K, N) -> (n, n*M_l, N), every rank holding the whole
+    gathered product, f32 accumulation, in a's dtype. The realization
+    knobs change when rows move, never what lands, so they are only
+    checked here."""
+    n, M_l, K, N, _ = _shape(a, b, tile_m=tile_m, contexts=contexts)
+    c = (a.to(torch.float32) @ b.to(torch.float32)).to(a.dtype)
+    return c.reshape(n * M_l, N)[None].expand(n, n * M_l, N).contiguous()
+
+
+# ------------------------------------------------------------ the kernel
+
+
+class _Params(ctypes.Structure):
+    """``GaParams`` of ``csrc/gemm_allgather.cu``, field for field."""
+    _fields_ = (
+        [(k, ctypes.c_int) for k in (
+            "n", "M_l", "K", "N", "chunk_rows", "nchunks", "fused", "vec",
+            "per_rank", "timeout_ms")]
+        + [(k, ctypes.c_void_p) for k in ("a", "b", "out", "flag", "done")])
+
+
+def load_kernel():
+    """Build (if needed) and load the kernel without running it — the
+    fast path's stage A and the cascade's l1."""
+    return build.load_typed("gemm_allgather", _Params, grid_args=1)
+
+
+def grid_for(device, n):
+    """The co-resident grid the launch uses for ``n`` ranks: CTAs per SM x
+    SMs, rounded down to a multiple of n. Raises when a rank would get no
+    CTA."""
+    return build.grid(load_kernel(), device, int(n))
+
+
+def _launch(a, b, *, tile_m, fused, counter, contexts):
+    n, M_l, K, N, tm = _shape(a, b, tile_m=tile_m, contexts=contexts)
+    for t in (a, b):
+        if t.device != a.device or not t.is_contiguous() \
+                or t.dtype != torch.float32:
+            raise ValueError(f"gemm_allgather wants contiguous float32 "
+                             f"tensors on {a.device}; got {t.dtype} on "
+                             f"{t.device}")
+    if M_l * N >= 2**32:
+        raise ValueError(f"a {M_l} x {N} slab overflows its 32-bit flag")
+    chunk_rows = tm if fused and counter else M_l
+    grid, _ = grid_for(a.device, n)
+    out = torch.empty((n, n * M_l, N), dtype=a.dtype, device=a.device)
+    nchunks = M_l // chunk_rows
+    flags = torch.zeros(n * n * nchunks + n, dtype=torch.int32,
+                        device=a.device)
+    vec = K % 4 == 0 and N % 4 == 0 \
+        and all(t.data_ptr() % 16 == 0 for t in (a, b, out))
+    p = _Params(n=n, M_l=M_l, K=K, N=N, chunk_rows=chunk_rows,
+                nchunks=nchunks, fused=int(fused), vec=int(vec),
+                per_rank=grid // n, timeout_ms=TIMEOUT_MS, a=a.data_ptr(),
+                b=b.data_ptr(), out=out.data_ptr(), flag=flags.data_ptr(),
+                done=flags[n * n * nchunks:].data_ptr())
+    build.launch(load_kernel(), p, a.device, grid)
+    LAUNCHES[(variant_name(fused=fused, counter=counter, tile_m=tile_m,
+                           M_l=M_l), n, M_l, K, N)] += 1
+    # the flags are freed here; the caching allocator reuses them only in
+    # this stream's order, after the launch
+    return out
+
+
+def gemm_allgather(a_shards, b, mesh=None, *, axis="x",
+                   tile_m=DEFAULT_TILE_M, fused=True, counter=False,
+                   contexts=2):
+    """Global entry, the JAX package's layout: a_shards (n, M_l, K) (rank r's
+    rows in row r), b (K, N) replicated. Returns (n, n*M_l, N): every rank
+    holds the whole gathered product. ``mesh`` (a ``VirtualMesh``) is only
+    checked: its rank count must be n."""
+    del axis
+    if mesh is not None and mesh.n != a_shards.shape[0]:
+        raise ValueError(f"a mesh of {mesh.n} ranks cannot take "
+                         f"{a_shards.shape[0]} shards")
+    if a_shards.device.type == "cpu":
+        return gemm_allgather_plain(a_shards, b, tile_m=tile_m, fused=fused,
+                                    counter=counter, contexts=contexts)
+    if a_shards.device.type != "cuda":
+        raise ValueError(f"gemm_allgather runs on cuda or cpu, not "
+                         f"{a_shards.device}")
+    return _launch(a_shards, b, tile_m=tile_m, fused=fused, counter=counter,
+                   contexts=contexts)

@@ -30,6 +30,8 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import build
+
 # The schedule machinery is defined once, in repro_torch.core.schedule;
 # re-exported here for the kernel's callers.
 from repro_torch.core.schedule import (RingSchedule,  # noqa: F401
@@ -142,49 +144,16 @@ class _Params(ctypes.Structure):
                                           "flag")])
 
 
-_GRIDS = {}                   # device index -> (grid, per_sm)
-
-
 def load_kernel():
     """Build (if needed) and load the kernel without running it — the
     fast path's stage A and the cascade's l1."""
-    from repro_torch.kernels.build import load
-    lib = load("kv_shuttle")
-    if not getattr(lib, "_typed", False):
-        lib.kv_shuttle_grid.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
-        lib.kv_shuttle_grid.restype = ctypes.c_int
-        lib.kv_shuttle_launch.argtypes = [ctypes.POINTER(_Params),
-                                          ctypes.c_int, ctypes.c_void_p]
-        lib.kv_shuttle_launch.restype = ctypes.c_int
-        lib.kv_shuttle_error.argtypes = [ctypes.c_int]
-        lib.kv_shuttle_error.restype = ctypes.c_char_p
-        lib.kv_shuttle_params_size.argtypes = []
-        lib.kv_shuttle_params_size.restype = ctypes.c_int
-        if lib.kv_shuttle_params_size() != ctypes.sizeof(_Params):
-            raise RuntimeError("ShuttleParams layout differs between "
-                               "kv_shuttle.cu and the ctypes mirror")
-        lib._typed = True
-    return lib
-
-
-def _check(lib, code, what):
-    if code:
-        raise RuntimeError(f"kv_shuttle {what} failed: "
-                           f"{lib.kv_shuttle_error(code).decode()}")
+    return build.load_typed("kv_shuttle", _Params, grid_args=0)
 
 
 def grid_for(device):
     """The co-resident grid the launch uses: CTAs per SM x SMs, one of
     them the decode rank's. Raises when fewer than two CTAs fit."""
-    key = torch.device(device).index
-    if key not in _GRIDS:
-        lib = load_kernel()
-        grid, per_sm = ctypes.c_int(0), ctypes.c_int(0)
-        with torch.cuda.device(device):
-            _check(lib, lib.kv_shuttle_grid(ctypes.byref(grid),
-                                            ctypes.byref(per_sm)), "grid")
-        _GRIDS[key] = (grid.value, per_sm.value)
-    return _GRIDS[key]
+    return build.grid(load_kernel(), device)
 
 
 def _aligned(*tensors):
@@ -233,11 +202,7 @@ def _launch(x, wk, wv, *, chained, fused, counter, kv_chunk, contexts, pure):
                 x=x.data_ptr(), wk=None if pure else wk.data_ptr(),
                 wv=None if pure else wv.data_ptr(), ko=ko[1].data_ptr(),
                 vo=vo[1].data_ptr(), flag=flags.data_ptr())
-    lib = load_kernel()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        _check(lib, lib.kv_shuttle_launch(ctypes.byref(p), grid, stream),
-               "launch")
+    build.launch(load_kernel(), p, x.device, grid)
     LAUNCHES[(variant_name(chained=chained, fused=fused, counter=counter,
                            kv_chunk=kv_chunk, pure=pure, rows=rows),
               rows, width, str(x.dtype).replace("torch.", ""))] += 1

@@ -26,6 +26,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import build
+
 # The schedule machinery is defined once, in repro_torch.core.schedule;
 # re-exported here for the kernel's callers.
 from repro_torch.core.schedule import (DispatchSchedule,  # noqa: F401
@@ -117,51 +119,17 @@ class _Params(ctypes.Structure):
             "ffn_out", "comb", "h", "hs", "disp_flag", "comb_flag", "bar")])
 
 
-_GRIDS = {}                   # (device, n, shared, wire_i8) -> (grid, per_sm)
-
-
 def load_kernel():
     """Build (if needed) and load the kernel without running it — the
     fast path's stage A and the cascade's l1."""
-    from repro_torch.kernels.build import load
-    lib = load("moe_dispatch")
-    if not getattr(lib, "_typed", False):
-        lib.moe_dispatch_grid.argtypes = [ctypes.c_int] * 3 + [
-            ctypes.POINTER(ctypes.c_int)] * 2
-        lib.moe_dispatch_grid.restype = ctypes.c_int
-        lib.moe_dispatch_launch.argtypes = [ctypes.POINTER(_Params),
-                                            ctypes.c_int, ctypes.c_void_p]
-        lib.moe_dispatch_launch.restype = ctypes.c_int
-        lib.moe_dispatch_error.argtypes = [ctypes.c_int]
-        lib.moe_dispatch_error.restype = ctypes.c_char_p
-        lib.moe_dispatch_params_size.argtypes = []
-        lib.moe_dispatch_params_size.restype = ctypes.c_int
-        if lib.moe_dispatch_params_size() != ctypes.sizeof(_Params):
-            raise RuntimeError("MoeParams layout differs between "
-                               "moe_dispatch.cu and the ctypes mirror")
-        lib._typed = True
-    return lib
-
-
-def _check(lib, code, what):
-    if code:
-        raise RuntimeError(f"moe_dispatch {what} failed: "
-                           f"{lib.moe_dispatch_error(code).decode()}")
+    return build.load_typed("moe_dispatch", _Params, grid_args=3)
 
 
 def grid_for(device, n, shared, wire_i8):
     """The co-resident grid the launch uses: CTAs per SM x SMs, rounded
     down to a multiple of ``n``. Raises when it cannot hold the ranks."""
-    key = (torch.device(device).index, n, bool(shared), bool(wire_i8))
-    if key not in _GRIDS:
-        lib = load_kernel()
-        grid, per_sm = ctypes.c_int(0), ctypes.c_int(0)
-        with torch.cuda.device(device):
-            _check(lib, lib.moe_dispatch_grid(n, int(shared), int(wire_i8),
-                                              ctypes.byref(grid),
-                                              ctypes.byref(per_sm)), "grid")
-        _GRIDS[key] = (grid.value, per_sm.value)
-    return _GRIDS[key]
+    return build.grid(load_kernel(), device, int(n), int(shared),
+                      int(wire_i8))
 
 
 # Knobs of each variant the main path launches, as
@@ -256,11 +224,7 @@ def _launch(x, w1, w2, sched, *, barrier, pipelined, tile_fused, wire_i8,
     p.disp_flag = base
     p.comb_flag = base + 4 * n_disp
     p.bar = base + 4 * (n_disp + n * n)
-    lib = load_kernel()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        _check(lib, lib.moe_dispatch_launch(ctypes.byref(p), grid, stream),
-               "launch")
+    build.launch(load_kernel(), p, dev, grid)
     LAUNCHES[(variant_name(barrier=barrier, pipelined=pipelined,
                            tile_fused=tile_fused, wire_i8=wire_i8,
                            shared=shared is not None,

@@ -1,0 +1,258 @@
+"""Context-parallel ring attention (paper §4.2, App. N) as a hand-written
+Hopper kernel (``repro_torch/csrc/ring_attention.cu``).
+
+Port of ``repro/kernels/ring_attention.py``: rank r holds the query, key
+and value shards of rows ``[r*Sl, (r+1)*Sl)`` of one sequence; the
+key/value shards rotate one hop per step (r -> r+1) and every rank folds
+each shard it holds into its queries' online softmax, against the shared
+``core/schedule.py::RingSchedule``. Realizations: fused COUNTER (chunk by
+chunk, each chunk waited for just before use — the FLUX point for rings),
+fused SIGNAL (a step's chunks drained up front), pipelined (one
+whole-shard round per step, fenced after the compute: the lazy fence),
+deferred or eager (fenced before the compute). The n ranks are n CTA
+partitions of one cooperative launch.
+
+Every entry takes and returns the JAX package's stacked layout, ranks on
+axis 0: q/k/v ``(n, BH, Sl, hd)``. CUDA tensors launch the kernel or raise
+(f32, hd <= 128 and a multiple of 4); CPU tensors compute
+:func:`ring_attention_plain`, the plain version the tests and
+``chip_smoke.py`` hold the kernel against. The reference's ``contexts``
+send window is accepted and has no counterpart on the card. ``LAUNCHES``
+counts launches keyed by variant and shape; ``VARIANTS`` names the knob
+sets the main path launches.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import build
+
+# The schedule machinery is defined once, in repro_torch.core.schedule;
+# re-exported here for the kernel's callers.
+from repro_torch.core.schedule import (RingSchedule,  # noqa: F401
+                                       make_ring_schedule)
+
+NEG_INF = -1e30               # the reference's masked score
+MAX_HD = 128
+TIMEOUT_MS = 20_000           # a spin-wait traps after this long
+DEFAULT_CHUNK = 64            # fused kv_chunk when none is given
+STALL_DEFINES = ("RING_TEST_STALL",)   # the slowed-rank test build
+
+# (variant, n, BH, Sl, hd) -> kernel launches; read by chip_smoke.py
+LAUNCHES = collections.Counter()
+
+# Knobs of each variant the main path launches (the RingAttention
+# search's directives at Sl = 1024; kv_chunk is the default tunable).
+VARIANTS = {
+    "deferred": dict(pipelined=False, kv_chunk=64),
+    "eager": dict(pipelined=True, eager_wait=True, kv_chunk=64),
+    "pipelined": dict(pipelined=True, kv_chunk=64),
+    "fused_signal": dict(fused=True, counter=False, kv_chunk=64),
+    "fused_counter": dict(fused=True, counter=True, kv_chunk=64),
+    "fused_counter_kc16": dict(fused=True, counter=True, kv_chunk=16),
+}
+
+
+def reset_launches():
+    LAUNCHES.clear()
+
+
+def launches():
+    """Kernel launches so far, all variants."""
+    return sum(LAUNCHES.values())
+
+
+def schedule_for(n, Sl, *, fused=False, kv_chunk=None):
+    """The rotation schedule a call runs: ``kv_chunk`` (64 when fused and
+    unset, the whole shard when neither) sanitized to a divisor of Sl, as
+    the reference's ``ring_attention`` builds it."""
+    return make_ring_schedule(n, Sl, kv_chunk or (DEFAULT_CHUNK if fused
+                                                  else Sl), fused)
+
+
+def variant_name(*, fused=False, counter=False, pipelined=True,
+                 eager_wait=False, kv_chunk=None, causal=True, n, Sl):
+    """The variant a call launches: the realization, plus ``_kc<rows>``
+    for a fused chunk other than 64 rows (after sanitizing against Sl) and
+    ``_full`` without the causal mask."""
+    if fused:
+        name = "fused_counter" if counter else "fused_signal"
+        kc = schedule_for(n, Sl, fused=True, kv_chunk=kv_chunk).kv_chunk
+        if kc != DEFAULT_CHUNK:
+            name += f"_kc{kc}"
+    elif not pipelined:
+        name = "deferred"
+    else:
+        name = "eager" if eager_wait else "pipelined"
+    return name + ("" if causal else "_full")
+
+
+def _shape(q, k, v, contexts):
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"ring_attention wants q, k, v (n, BH, Sl, hd) "
+                         f"alike; got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if int(contexts) < 1:
+        raise ValueError(f"contexts must be >= 1, got {contexts}")
+    return tuple(q.shape)
+
+
+# ------------------------------------------------------------ plain version
+
+
+def ring_attention_plain(q, k, v, *, causal=True, kv_chunk=None, fused=False,
+                         counter=False, pipelined=True, eager_wait=False,
+                         contexts=2):
+    """Plain-torch version on the stacked layout: in step s every rank r
+    folds the shard that started on rank (r - s) % n into its online
+    softmax, ``kv_chunk`` rows at a time (sanitized as the reference does),
+    masked scores -1e30, the result acc / max(l, 1e-30) in q's dtype. The
+    completion knobs change when chunks move, never what is attended, so
+    they are only checked here."""
+    n, BH, Sl, hd = _shape(q, k, v, contexts)
+    cr = schedule_for(n, Sl, fused=fused, kv_chunk=kv_chunk).kv_chunk
+    scale = 1.0 / math.sqrt(hd)
+    dev = q.device
+    qf = q.to(torch.float32)
+    acc = torch.zeros((n, BH, Sl, hd), dtype=torch.float32, device=dev)
+    m = torch.full((n, BH, Sl), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((n, BH, Sl), dtype=torch.float32, device=dev)
+    ranks = torch.arange(n, device=dev)
+    qpos = (ranks[:, None] * Sl + torch.arange(Sl, device=dev))[:, None, :,
+                                                                None]
+    for s in range(n):
+        # rank r holds the shard of rank (r - s) % n
+        ks, vs = torch.roll(k, s, dims=0), torch.roll(v, s, dims=0)
+        src = (ranks - s) % n
+        for c0 in range(0, Sl, cr):
+            kc = ks[:, :, c0:c0 + cr].to(torch.float32)
+            vc = vs[:, :, c0:c0 + cr].to(torch.float32)
+            sc = torch.einsum("nbqd,nbkd->nbqk", qf, kc) * scale
+            if causal:
+                kpos = (src[:, None] * Sl + c0
+                        + torch.arange(cr, device=dev))[:, None, None, :]
+                sc = torch.where(qpos >= kpos, sc, torch.full_like(sc, NEG_INF))
+            m_new = torch.maximum(m, sc.amax(dim=3))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(sc - m_new[..., None])
+            l = l * alpha + p.sum(dim=3)
+            acc = acc * alpha[..., None] + torch.einsum("nbqk,nbkd->nbqd",
+                                                        p, vc)
+            m = m_new
+    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+
+
+# ------------------------------------------------------------ the kernel
+
+
+class _Params(ctypes.Structure):
+    """``RingParams`` of ``csrc/ring_attention.cu``, field for field."""
+    _fields_ = (
+        [(k, ctypes.c_int) for k in (
+            "n", "BH", "Sl", "hd", "chunk_rows", "nc", "fused", "counter",
+            "pipelined", "eager", "causal", "vec", "per_rank", "timeout_ms",
+            "stall_rank", "stall_us")]
+        + [("scale", ctypes.c_float)]
+        + [(k, ctypes.c_void_p) for k in ("q", "k", "v", "out", "kbuf",
+                                          "vbuf", "ml", "flag", "done")])
+
+
+def load_kernel(test_stall=False):
+    """Build (if needed) and load the kernel without running it — the
+    fast path's stage A and the cascade's l1. ``test_stall``: the build
+    with ``-DRING_TEST_STALL``, which honours ``stall_rank`` /
+    ``stall_us`` (:func:`slowed_ring_attention`)."""
+    return build.load_typed("ring_attention", _Params, grid_args=2,
+                            defines=STALL_DEFINES if test_stall else ())
+
+
+def grid_for(device, n, hd=64, test_stall=False):
+    """The co-resident grid the launch uses for ``n`` ranks at head
+    dimension ``hd``: CTAs per SM x SMs, rounded down to a multiple of n."""
+    return build.grid(load_kernel(test_stall), device, int(n), int(hd))
+
+
+def _launch(q, k, v, *, causal, kv_chunk, fused, counter, pipelined,
+            eager_wait, contexts, stall):
+    n, BH, Sl, hd = _shape(q, k, v, contexts)
+    for t in (q, k, v):
+        if t.device != q.device or not t.is_contiguous() \
+                or t.dtype != torch.float32 or t.data_ptr() % 16:
+            raise ValueError(f"ring_attention wants contiguous, 16-byte "
+                             f"aligned float32 tensors on {q.device}; got "
+                             f"{t.dtype} on {t.device}")
+    if hd > MAX_HD or hd % 4:
+        raise ValueError(f"ring_attention's kernel takes hd <= {MAX_HD}, a "
+                         f"multiple of 4; got {hd}")
+    sched = schedule_for(n, Sl, fused=fused, kv_chunk=kv_chunk)
+    chunk_rows = sched.kv_chunk if fused else Sl
+    if 2 * BH * chunk_rows * hd >= 2**32:
+        raise ValueError(f"a chunk of {BH} x {chunk_rows} x {hd} overflows "
+                         "its 32-bit flag")
+    grid, _ = grid_for(q.device, n, hd, test_stall=stall is not None)
+    nc = Sl // chunk_rows
+    out = torch.empty_like(q)
+    kbuf = torch.empty((n, 2, BH, Sl, hd), dtype=q.dtype, device=q.device)
+    vbuf = torch.empty_like(kbuf)
+    ml = torch.empty((2, n, BH, Sl), dtype=torch.float32, device=q.device)
+    flags = torch.zeros(n * n * nc + n, dtype=torch.int32, device=q.device)
+    stall_rank, stall_us = stall or (-1, 0)
+    p = _Params(n=n, BH=BH, Sl=Sl, hd=hd, chunk_rows=chunk_rows, nc=nc,
+                fused=int(fused), counter=int(counter and fused),
+                pipelined=int(pipelined), eager=int(eager_wait),
+                causal=int(causal), vec=1, per_rank=grid // n,
+                timeout_ms=TIMEOUT_MS, stall_rank=int(stall_rank),
+                stall_us=int(stall_us), scale=1.0 / math.sqrt(hd),
+                q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(),
+                out=out.data_ptr(), kbuf=kbuf.data_ptr(),
+                vbuf=vbuf.data_ptr(), ml=ml.data_ptr(),
+                flag=flags.data_ptr(), done=flags[n * n * nc:].data_ptr())
+    build.launch(load_kernel(stall is not None), p, q.device, grid)
+    LAUNCHES[(variant_name(fused=fused, counter=counter, pipelined=pipelined,
+                           eager_wait=eager_wait, kv_chunk=kv_chunk,
+                           causal=causal, n=n, Sl=Sl), n, BH, Sl, hd)] += 1
+    # the buffers and flags are freed here; the caching allocator reuses
+    # them only in this stream's order, after the launch
+    return out
+
+
+def ring_attention(q, k, v, mesh=None, *, axis="x", causal=True,
+                   kv_chunk=None, fused=False, counter=False, pipelined=True,
+                   eager_wait=False, contexts=2):
+    """Global entry, the JAX package's layout: q/k/v (n, BH, Sl, hd), rank
+    r's shards in row r. ``fused`` + ``counter`` selects the chunk-rotating
+    FLUX-ring path (``kv_chunk`` rows per chunk, sanitized to a divisor of
+    Sl). ``mesh`` (a ``VirtualMesh``) is only checked: its rank count must
+    be n."""
+    del axis
+    if mesh is not None and mesh.n != q.shape[0]:
+        raise ValueError(f"a mesh of {mesh.n} ranks cannot take "
+                         f"{q.shape[0]} shards")
+    if q.device.type == "cpu":
+        return ring_attention_plain(q, k, v, causal=causal,
+                                    kv_chunk=kv_chunk, fused=fused,
+                                    counter=counter, pipelined=pipelined,
+                                    eager_wait=eager_wait, contexts=contexts)
+    if q.device.type != "cuda":
+        raise ValueError(f"ring_attention runs on cuda or cpu, not "
+                         f"{q.device}")
+    return _launch(q, k, v, causal=causal, kv_chunk=kv_chunk, fused=fused,
+                   counter=counter, pipelined=pipelined,
+                   eager_wait=eager_wait, contexts=contexts, stall=None)
+
+
+def slowed_ring_attention(q, k, v, *, rank, us, **knobs):
+    """The kernel's test build on CUDA tensors: ``rank``'s CTAs idle
+    ``us`` microseconds before each step's attention, so its upstream rank
+    runs ahead and only the free-slot credit keeps it from overwriting a
+    slot still being read. Takes :func:`ring_attention`'s knobs."""
+    if q.device.type != "cuda":
+        raise ValueError(f"the slowed ring is a kernel build; {q.device} "
+                         "has none")
+    knobs = dict(dict(causal=True, kv_chunk=None, fused=False, counter=False,
+                      pipelined=True, eager_wait=False, contexts=2), **knobs)
+    return _launch(q, k, v, stall=(int(rank), int(us)), **knobs)

@@ -1,5 +1,6 @@
 from repro_torch.workloads.base import Workload, WORKLOADS, get_workload
-from repro_torch.workloads import (kv_transfer, moe_dispatch,  # noqa: F401
+from repro_torch.workloads import (gemm_allgather, kv_transfer,  # noqa: F401
+                                   moe_dispatch, ring_attention,
                                    serving)  # (registration)
 
 __all__ = ["Workload", "WORKLOADS", "get_workload"]

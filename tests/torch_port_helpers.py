@@ -22,3 +22,27 @@ def numpy_inputs(n, T, d, f, fs=0, seed=0):
         arrs += [rng.standard_normal((d, 2 * fs)) / np.sqrt(d),
                  rng.standard_normal((fs, d)) / np.sqrt(fs)]
     return [a.astype(np.float32) for a in arrs]
+
+
+def run_jax_devices(code, arrays, tmp_dir, devices=4, timeout=180):
+    """Run ``code`` in a fresh Python with ``devices`` JAX host devices
+    (the device count is fixed when JAX starts, so it cannot change inside
+    a test process). The script gets the path of an ``.npz`` of ``arrays``
+    as ``sys.argv[1]`` and writes its results as an ``.npz`` to
+    ``sys.argv[2]``; returns them as a dict of numpy arrays."""
+    import os
+    import subprocess
+    import sys
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                       "src")
+    inp, out = os.path.join(tmp_dir, "in.npz"), os.path.join(tmp_dir,
+                                                             "out.npz")
+    np.savez(inp, **arrays)
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS=f"--xla_force_host_platform_device_count={devices}",
+               PYTHONPATH=src + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-c", code, inp, out], env=env,
+                          capture_output=True, text=True, timeout=timeout)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    with np.load(out) as got:
+        return dict(got)
