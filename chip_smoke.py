@@ -12,8 +12,13 @@ sizes; every run runs all of them, and any failure exits non-zero):
 2. ``build``   — build the five Hopper kernels from
    ``src/repro_torch/csrc`` (one ``nvcc`` per source, started together)
    and print ptxas's register / shared-memory / spill lines and each
-   launch's grid.
-3. ``kernels`` — every moe_dispatch variant the main path runs
+   launch's grid (moe: each rank's routed and second-stream CTAs).
+3. ``gemm_core`` — the tile GEMM of ``csrc/tc_gemm.cuh`` alone at the
+   main path's GEMM shapes (serving's expert GEMM1 with SwiGLU and its
+   GEMM2, the same for the skewed cell's busiest expert, kv_transfer's
+   projection), within 1e-4 of its plain version, timed beside
+   ``torch.matmul`` and the 3xTF32 bound.
+4. ``kernels`` — every moe_dispatch variant the main path runs
    (``kernels.moe_dispatch.VARIANTS``), on the inputs of the main path's
    two workloads (serving width and the skewed MoEDispatch shape): the
    kernel against its plain version on the same inputs (max-abs-normalised
@@ -23,22 +28,22 @@ sizes; every run runs all of them, and any failure exits non-zero):
    enqueue hidden behind a device spin; the kernel's call is also timed
    with the host's time exposed) beside the bound. Every kernel phase
    checks, times and logs through ``Bench.record``.
-4. ``kv_kernels`` — every kv_shuttle variant: the GEMM variants
+5. ``kv_kernels`` — every kv_shuttle variant: the GEMM variants
    (``kernels.kv_shuttle.VARIANTS``) at ``KVTransfer``'s full width
    (T = d = 4096, dk = 512, f32) within 1e-4 of the plain version, and
    the ``pure`` cache handoffs (``PURE_VARIANTS``) at the llama3.2-1b
-   engine's cache size in bf16, bit for bit; timed as in phase 3 beside
+   engine's cache size in bf16, bit for bit; timed as in phase 4 beside
    two ``torch.matmul`` (GEMM) or one ``Tensor.copy_`` (pure).
-5. ``main``    — the moe path with every launch counter at 0:
+6. ``main``    — the moe path with every launch counter at 0:
    ``fast_path`` on ``ServingStep(n_dev=4)`` and ``MoEDispatch(n_dev=4)``
    (the seed must be the kernel's ``PALLAS_RDMA`` directive at level 3),
    then the same evaluator scores the Table-3 directives and three more;
    every one must reach level 3. The counters are read right after.
-6. ``kv_main`` — the KV-transfer search with the kv counters at 0:
+7. ``kv_main`` — the KV-transfer search with the kv counters at 0:
    ``fast_path`` on ``KVTransfer()`` with full-width verification inputs
    (the seed must be ``PALLAS_RDMA`` at level 3 through the kernel), then
    eight more directives, each to level 3.
-7. ``serve``   — the llama3.2-1b serving engine at full width with the
+8. ``serve``   — the llama3.2-1b serving engine at full width with the
    kv counters at 0: 8 prompts of 512 tokens, ``generate`` 32 tokens
    (after a warm-up ``generate`` on an engine of its own),
    then ``prefill_remote`` through the shuttle (chained, and fused
@@ -47,21 +52,21 @@ sizes; every run runs all of them, and any failure exits non-zero):
    ``generate``'s, the first decode step's logits within 5e-2
    (max-abs-normalised, bf16) of ``forward`` over the 513 tokens; then
    ``serve`` answers 4 requests of mixed prompt lengths.
-8. ``ga_kernels`` — every gemm_allgather variant
+9. ``ga_kernels`` — every gemm_allgather variant
    (``kernels.gemm_allgather.VARIANTS``) at ``GemmAllGather``'s defaults
    (n=4, M=K=N=4096, f32) within 1e-4 of the plain version, timed as in
-   phase 3 beside one ``torch.matmul`` of the gathered A plus the copy
+   phase 4 beside one ``torch.matmul`` of the gathered A plus the copy
    into the n outputs.
-9. ``attn_kernels`` — every flash_attention variant over the ring's
+10. ``attn_kernels`` — every flash_attention variant over the ring's
    whole sequence (BH 8, S 4096, hd 64; f32 within 1e-4; bf16 each
    element within one bf16 step of the plain version plus 1e-4, both
    sides rounding an f32 result) and every ring_attention variant at
    ``RingAttention``'s defaults within 1e-4; timed beside
    ``scaled_dot_product_attention``.
-10. ``ga_main`` — the GEMM+AllGather search, counted like ``kv_main``:
+11. ``ga_main`` — the GEMM+AllGather search, counted like ``kv_main``:
     ``fast_path`` on ``GemmAllGather()`` with full-width verification
     inputs, then nine more directives, each to level 3.
-11. ``ring_main`` — the ring-attention search, counted the same way
+12. ``ring_main`` — the ring-attention search, counted the same way
     (fast_path, then eleven directives), then ``kernels/ops.py``'s
     wrappers at work: the FLUX ring against flash attention over the
     gathered sequence and the oracle, bf16 flash against the oracle on
@@ -95,6 +100,9 @@ sys.path.insert(0, str(ROOT / "src"))
 import torch  # noqa: E402
 
 F32_FLOPS = 67e12          # H100 SXM f32 outside the tensor cores (data sheet)
+# f32-accurate products on the TF32 tensor cores: 3xTF32 issues three TF32
+# products per multiply-add, at the data sheet's 495 TFLOP/s dense TF32
+TF32X3_FLOPS = 495e12 / 3
 BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor cores (data sheet)
 HBM_BYTES_S = 3.35e12      # H100 SXM HBM3 (data sheet)
 SOURCE = "src/repro_torch/csrc/moe_dispatch.cu"
@@ -158,14 +166,22 @@ def phase_build(device="cuda"):
     for name in KERNELS:
         for line in build.ptxas_log(name):
             log(f"ptxas {name}: {line.strip()}")
-    for shared in (False, True):
+    for w in main_path_workloads():
+        T = min(w.T, 256)             # the tokens example_inputs makes
+        counts = [int(c) for c in w._counts(T)]
+        shared = (T, w.f_shared) if w.second_stream else None
         for i8 in (False, True):
-            grid, per_sm = moe_dispatch.grid_for(device, 4, shared, i8)
-            log(f"grid: moe_dispatch shared={shared} int8={i8}: {grid} CTAs "
-                f"({per_sm} per SM)")
-    grid, per_sm = kv_shuttle.grid_for(device)
-    log(f"grid: kv_shuttle: {grid} CTAs ({per_sm} per SM), {grid - 1} "
-        "prefill + 1 decode")
+            grid, per_sm = moe_dispatch.grid_for(device, w.n_dev,
+                                                 shared is not None, i8)
+            ctas = moe_dispatch.rank_ctas(
+                grid, moe_dispatch.make_schedule(counts), w.f, shared)
+            log(f"grid: moe_dispatch {w.name} counts={counts} int8={i8}: "
+                f"{grid} CTAs ({per_sm} per SM); per rank (routed, second "
+                f"stream) {ctas}")
+    for pure in (False, True):
+        grid, per_sm = kv_shuttle.grid_for(device, pure)
+        log(f"grid: kv_shuttle {'pure' if pure else 'projections'}: {grid} "
+            f"CTAs ({per_sm} per SM), {grid - 1} prefill + 1 decode")
     grid, per_sm = gemm_allgather.grid_for(device, 4)
     log(f"grid: gemm_allgather n=4: {grid} CTAs ({per_sm} per SM), "
         f"{grid // 4} per rank")
@@ -302,18 +318,75 @@ class Bench:
                 "_path": path}
 
 
+def gemm_core_shapes(small=False):
+    """(name, M, K, N, swiglu) of the ``gemm_core`` line: the serving
+    cell's expert GEMM1 (256 routed rows, d=7168, 2f=4096, with SwiGLU)
+    and GEMM2 (f=2048 -> d), the skewed cell's busiest expert (12
+    microblocks of 64 rows, d=512, f=1024) and kv_transfer's projection
+    (T = d = 4096, dk = 512); ``small``: test size."""
+    if small:
+        return [("moe_gemm1_swiglu", 70, 64, 256, True),
+                ("moe_gemm2", 70, 128, 64, False),
+                ("skewed_gemm1_swiglu", 64, 32, 128, True),
+                ("skewed_gemm2", 64, 64, 32, False),
+                ("kv_projection", 130, 96, 40, False)]
+    return [("moe_gemm1_swiglu", 256, 7168, 2 * 2048, True),
+            ("moe_gemm2", 256, 2048, 7168, False),
+            ("skewed_gemm1_swiglu", 768, 512, 2 * 1024, True),
+            ("skewed_gemm2", 768, 1024, 512, False),
+            ("kv_projection", 4096, 4096, 512, False)]
+
+
+def phase_gemm_core(device="cuda", shapes=None, iters=5):
+    """The tile GEMM of ``csrc/tc_gemm.cuh`` alone (one CTA a tile, no
+    flags) at the main path's GEMM shapes: held to its plain version
+    within 1e-4 and timed beside one ``torch.matmul`` of the same product
+    and the 3xTF32 bound, so a moe or kv variant's time splits into GEMM
+    and the rest (dispatch, combine, waiting). Returns one dict a shape."""
+    from repro_torch.kernels.moe_dispatch import gemm_core, gemm_core_plain
+    bench = Bench(device, iters)
+    out = []
+    for name, M, K, N, swiglu in shapes or gemm_core_shapes():
+        g = torch.Generator(device=device).manual_seed(M + K + N)
+        a = torch.randn((M, K), generator=g, device=device)
+        b = torch.randn((K, N), generator=g, device=device) / K ** 0.5
+        with torch.no_grad():
+            reading, abs_err = _close(f"gemm_core {name}",
+                                      gemm_core(a, b, swiglu=swiglu),
+                                      gemm_core_plain(a, b, swiglu=swiglu),
+                                      1e-4)
+        core_ms = bench.ms(lambda: gemm_core(a, b, swiglu=swiglu))
+        mm_ms = bench.ms(lambda: torch.matmul(a, b))
+        flops = 2 * M * K * N
+        bound_ms = flops / TF32X3_FLOPS * 1e3
+        log(f"gemm_core {name} M={M} K={K} N={N}"
+            f"{' +swiglu' if swiglu else ''}: {_reading(reading, 1e-4)}, "
+            f"max abs err {abs_err:.3e}; core {core_ms:.3f} ms "
+            f"({flops / core_ms / 1e9:.1f} TFLOP/s), matmul {mm_ms:.3f} ms "
+            f"({flops / mm_ms / 1e9:.1f} TFLOP/s), 3xTF32 bound "
+            f"{bound_ms:.3f} ms")
+        out.append({"name": name, "ms": core_ms, "matmul_ms": mm_ms,
+                    "bound_ms": bound_ms})
+        del a, b
+    return out
+
+
 def bound(w, counts):
-    """Least time of one call of ``w``'s kernel on an H100: f32 operations
-    over the f32 rate, or bytes (each input read once, each output written
-    once) over HBM — whichever is larger. Routed rows are the tokens
-    routed; T is their sum."""
+    """Least time of one call of ``w``'s kernel on an H100: its f32-accurate
+    operations over the 3xTF32 rate, or bytes (each input read once, each
+    output written once) over HBM — whichever is larger. Routed rows are
+    the tokens routed; T is their sum. The kernel runs its f32 GEMMs on
+    the tensor cores as 3xTF32 (``csrc/tc_gemm.cuh``), so three TF32
+    products per multiply-add are the least the card can do for this
+    accuracy; against the f32 SIMT rate a right kernel could read over
+    100% of its bound."""
     n, T, d, f = w.n_dev, sum(counts), w.d, w.f
     fs = w.f_shared if w.second_stream else 0
     flops = sum(6 * n * c * d * f for c in counts) + 6 * n * T * d * fs
     elems = n * T * d + n * d * 2 * f + n * f * d + n * T * d
     if fs:
         elems += d * 2 * fs + fs * d + n * T * d
-    t_ops, t_bytes = flops / F32_FLOPS, 4 * elems / HBM_BYTES_S
+    t_ops, t_bytes = flops / TF32X3_FLOPS, 4 * elems / HBM_BYTES_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes"), flops
 
@@ -450,19 +523,20 @@ def cache_rows(cfg, batch, max_seq):
 
 
 def kv_bound(*, pure, rows, width, d=0, esize=4):
-    """Least time of one shuttle call on an H100: operations over the f32
-    rate or bytes over HBM, whichever is larger. Bytes: the prefill rank's
-    operand read once (x[0] and both weights; or the stacked [K; V]
-    cache), both (2, rows, width) outputs written once (the decode rank's
-    rows and the prefill rank's zero rows). The decode rank's input row
-    never enters the result, so it is not counted."""
+    """Least time of one shuttle call on an H100: operations over the
+    3xTF32 rate (the projections run on the tensor cores as 3xTF32, as in
+    :func:`bound`) or bytes over HBM, whichever is larger. Bytes: the
+    prefill rank's operand read once (x[0] and both weights; or the
+    stacked [K; V] cache), both (2, rows, width) outputs written once (the
+    decode rank's rows and the prefill rank's zero rows). The decode
+    rank's input row never enters the result, so it is not counted."""
     out = 2 * 2 * rows * width * esize
     if pure:
         flops, inp = 0, 2 * rows * width * esize
     else:
         flops = 2 * 2 * rows * d * width
         inp = (rows * d + 2 * d * width) * esize
-    t_ops, t_bytes = flops / F32_FLOPS, (inp + out) / HBM_BYTES_S
+    t_ops, t_bytes = flops / TF32X3_FLOPS, (inp + out) / HBM_BYTES_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes", flops, inp + out)
 
@@ -1005,6 +1079,7 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     dev = phase_device("cuda")
     phase_build("cuda")
+    phase_gemm_core("cuda", iters=args.iters)
     records = phase_kernels("cuda", iters=args.iters)
     records += phase_kv_kernels("cuda", iters=args.iters)
     records += phase_ga_kernels("cuda", iters=args.iters)

@@ -21,11 +21,14 @@
 //   fused + COUNTER  per chunk, K then V (32 chunks in flight at a time);
 //   fused (SIGNAL)   every K chunk, then every V chunk;
 //   whole tensor     K once, then V once.
-// Work units (tiles) go round robin over the prefill CTAs in the round
-// order: fused is chunk-major (chunk c's K tiles, then its V tiles);
-// otherwise every K tile precedes every V tile. Chained and sequential
-// differ only in when V may start: sequential CTAs wait until all of K
-// has landed (the drain before the V GEMM), chained ones go straight on.
+// Work units (whole tiles, or row copies in `pure` mode) go round robin
+// over the prefill CTAs in the round order. Fused is chunk-major: a row
+// group (kv_chunk rows when that is a multiple of 64, else one 64-row
+// m-tile) issues its K tiles, then its V tiles, so chunk c is complete no
+// later than chunk c + 1; otherwise every K tile precedes every V tile.
+// Chained and sequential differ only in when V may start: sequential
+// CTAs wait until all of K has landed (the drain before the V GEMM),
+// chained ones go straight on.
 // The reference's `contexts` send window has no counterpart: a store and
 // its flag retire as they issue (ROADMAP queue 3).
 //
@@ -35,17 +38,31 @@
 // the launch stream before every launch, so a stale flag never satisfies
 // a wait. Every spin gives up after timeout_ms with a trap.
 //
+// GEMM variants: the projections run through tc_gemm.cuh's 64 x 128
+// tensor-core tile (3xTF32 mma.sync, f32 accurate, cp.async ring). A unit
+// is one whole tile (half, m-tile, column tile) whatever kv_chunk is; its
+// epilogue ticks the (half, chunk) flag of every chunk it overlaps by the
+// elements it wrote there, so kv_chunk sets only the flag granularity.
+// The units walk the column tiles inside an m-tile: x (T x d, 64 MB at the
+// workload's width) is the operand beyond L2, so CTAs that run together
+// share its rows while both weights (8 MB each) stay in L2.
+//
 // Bound: at the workload's width (T = d = 4096, dk = 512, f32) the two
-// projections are 34.4 GFLOP against 117 MB of traffic, so the f32
-// (non-tensor-core) rate bounds it; this first version is a plain SIMT
-// GEMM (64x64 tiles, 4x4 per thread, no wgmma, no TMA). `pure` mode is a
-// copy: HBM bandwidth bounds it.
+// projections are 34.4 GFLOP against 117 MB of traffic. 3xTF32 is three
+// tensor products per multiply-add, so the operations bound it: 3 x 34.4
+// GFLOP at 495 TFLOP/s, 0.21 ms on an H100 SXM. `pure` mode is a copy
+// (its own kernel instantiation, without the GEMM's shared memory and
+// registers): HBM bandwidth bounds it.
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <stdio.h>
 
 #include "flags.cuh"
-#include "simt_gemm.cuh"
+#include "tc_gemm.cuh"
+
+using tc::BM;
+using tc::BN;
+using tc::NT;
 
 struct ShuttleParams {
   int rows;         // rows of each half: T, or N in pure mode
@@ -91,63 +108,88 @@ __device__ void copy_bytes(const char* __restrict__ src, char* __restrict__ dst,
 
 // ------------------------------------------------------------------ roles
 
-__device__ int units_per_chunk(const ShuttleParams& P) {
-  if (P.pure) return (P.chunk_rows + P.unit_rows - 1) / P.unit_rows;
-  return ((P.chunk_rows + BM - 1) / BM) * ((P.dk + BN - 1) / BN);
-}
-
-// one work unit: write the tile, send it, tick its (half, chunk) flag
-__device__ void run_unit(const ShuttleParams& P, int half, int chunk, int sub, Smem& sm) {
+// pure mode: one unit copies unit_rows rows of one (half, chunk)
+__device__ void copy_unit(const ShuttleParams& P, int half, int chunk, int sub) {
   unsigned* flag = P.flag + (size_t)half * P.nchunks + chunk;
   void* out = half ? P.vo : P.ko;
-  if (P.pure) {
-    const int r0 = sub * P.unit_rows;
-    const int nrows = min(P.unit_rows, P.chunk_rows - r0);
-    const size_t row = (size_t)chunk * P.chunk_rows + r0;
-    const size_t rb = (size_t)P.dk * P.esize;
-    const char* src = reinterpret_cast<const char*>(P.x) + ((size_t)half * P.rows + row) * rb;
-    copy_bytes(src, reinterpret_cast<char*>(out) + row * rb, nrows * rb, P.vec);
-    cta_signal(flag, (unsigned)(nrows * P.dk));
-    return;
-  }
-  const int ctn = (P.dk + BN - 1) / BN;
-  const int rt = sub / ctn, col0 = (sub % ctn) * BN;
-  const int r0 = rt * BM;
-  const int nrows = min(BM, P.chunk_rows - r0), ncols = min(BN, P.dk - col0);
-  const int row0 = chunk * P.chunk_rows + r0;
-  float acc[4][4];
-  gemm_tile(reinterpret_cast<const float*>(P.x), row0, nrows, P.d, half ? P.wv : P.wk, P.dk,
-            col0, ncols, P.vec, acc, sm);
-  store_tile(reinterpret_cast<float*>(out), row0, nrows, P.dk, col0, ncols, P.vec, acc);
-  cta_signal(flag, (unsigned)(nrows * ncols));
+  const int r0 = sub * P.unit_rows;
+  const int nrows = min(P.unit_rows, P.chunk_rows - r0);
+  const size_t row = (size_t)chunk * P.chunk_rows + r0;
+  const size_t rb = (size_t)P.dk * P.esize;
+  const char* src = reinterpret_cast<const char*>(P.x) + ((size_t)half * P.rows + row) * rb;
+  copy_bytes(src, reinterpret_cast<char*>(out) + row * rb, nrows * rb, P.vec);
+  cta_signal(flag, (unsigned)(nrows * P.dk));
 }
 
-__device__ void prefill(const ShuttleParams& P, int pid, int npre, Smem& sm) {
-  const int upc = units_per_chunk(P);
+// one GEMM unit: the whole tile (m-tile mt, column tile ct) of one half,
+// stored into the decode slab (the send); then a tick of every
+// (half, chunk) flag the tile overlaps, by the elements it wrote there
+template <bool VEC>
+__device__ void gemm_unit(const ShuttleParams& P, int half, int mt, int ct, char* smem) {
+  const int row0 = mt * BM, col0 = ct * BN;
+  const int nrows = min(BM, P.rows - row0), ncols = min(BN, P.dk - col0);
+  tc::tile<float, VEC>(tc::TileA{P.x, nullptr, P.d, (size_t)row0, nrows},
+                       tc::TileB{half ? P.wv : P.wk, P.dk, col0, col0 + 64, ncols}, P.d, smem);
+  float* out = reinterpret_cast<float*>(half ? P.vo : P.ko);
+  tc::store_tile<VEC>(smem, out + (size_t)row0 * P.dk + col0, P.dk, nrows, ncols, nrows);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    unsigned* flag = P.flag + (size_t)half * P.nchunks;
+    for (int c = row0 / P.chunk_rows; c <= (row0 + nrows - 1) / P.chunk_rows; ++c) {
+      const int lo = max(row0, c * P.chunk_rows);
+      const int hi = min(row0 + nrows, (c + 1) * P.chunk_rows);
+      atomicAdd(flag + c, (unsigned)((hi - lo) * ncols));
+    }
+  }
+}
+
+// sequential: K's send drains before the V GEMM starts
+__device__ void drain_k(const ShuttleParams& P) {
+  cta_wait(P.flag, (unsigned)P.chunk_rows * P.dk, P.timeout_ms, "kv_shuttle", "K drain", 0, 0);
+}
+
+__device__ void prefill_copy(const ShuttleParams& P, int pid, int npre) {
+  const int upc = (P.chunk_rows + P.unit_rows - 1) / P.unit_rows;
   const int total = 2 * P.nchunks * upc;
-  const unsigned all_k = (unsigned)P.chunk_rows * P.dk;  // one whole-tensor chunk
   bool drained = false;
   for (int u = pid; u < total; u += npre) {
     int half, chunk, sub;
-    if (P.fused) {  // chunk-major: chunk c's K tiles, then its V tiles
+    if (P.fused) {  // chunk-major: chunk c's K rows, then its V rows
       chunk = u / (2 * upc);
       half = (u % (2 * upc)) / upc;
       sub = u % upc;
-    } else {        // every K tile, then every V tile
+    } else {        // all of K, then all of V
       half = u / upc;
       chunk = 0;
       sub = u % upc;
     }
     if (half == 1 && !P.fused && !P.chained && !drained) {
-      // sequential: K's send drains before the V GEMM starts
-      if (threadIdx.x == 0) {
-        spin_geq(P.flag, all_k, P.timeout_ms, "kv_shuttle", "K drain", 0, 0);
-        __threadfence();
-      }
-      __syncthreads();
+      drain_k(P);
       drained = true;
     }
-    run_unit(P, half, chunk, sub, sm);
+    copy_unit(P, half, chunk, sub);
+  }
+}
+
+template <bool VEC>
+__device__ void prefill_gemm(const ShuttleParams& P, int pid, int npre, char* smem) {
+  const int rt = (P.rows + BM - 1) / BM, ctn = (P.dk + BN - 1) / BN;
+  // a row group of tpg m-tiles issues its K tiles, then its V tiles;
+  // unfused, the group is the whole tensor
+  const int tpg = !P.fused ? rt : (P.chunk_rows % BM == 0 ? P.chunk_rows / BM : 1);
+  const int per_group = 2 * tpg * ctn;
+  const int total = 2 * rt * ctn;
+  bool drained = false;
+  for (int u = pid; u < total; u += npre) {
+    const int group = u / per_group, rem = u % per_group;
+    const int half = rem / (tpg * ctn), sub = rem % (tpg * ctn);
+    const int mt = group * tpg + sub / ctn, ct = sub % ctn;
+    if (half == 1 && !P.fused && !P.chained && !drained) {
+      drain_k(P);
+      drained = true;
+    }
+    gemm_unit<VEC>(P, half, mt, ct, smem);
   }
 }
 
@@ -178,28 +220,55 @@ __device__ void decode(const ShuttleParams& P) {
   __threadfence();
 }
 
-__global__ void __launch_bounds__(NT) kv_shuttle_kernel(ShuttleParams P) {
-  __shared__ Smem sm;
+// PURE: the row copies (the engine's cache handoff), four CTAs per SM
+// (64 registers). Otherwise the projections, two CTAs per SM: the 3-stage
+// ring takes 80 KB of shared memory a CTA, and the launch bound holds
+// ptxas at 128 registers.
+template <bool PURE>
+__global__ void __launch_bounds__(NT, PURE ? 4 : 2) kv_shuttle_kernel(ShuttleParams P) {
+  extern __shared__ __align__(16) char smem[];
   const int npre = gridDim.x - 1;  // the last CTA is the decode rank
-  if ((int)blockIdx.x < npre)
-    prefill(P, blockIdx.x, npre, sm);
-  else
+  if ((int)blockIdx.x >= npre) {
     decode(P);
+  } else if constexpr (PURE) {
+    prefill_copy(P, blockIdx.x, npre);
+  } else {
+    if (P.vec)
+      prefill_gemm<true>(P, blockIdx.x, npre, smem);
+    else
+      prefill_gemm<false>(P, blockIdx.x, npre, smem);
+  }
 }
 
 // ------------------------------------------------------------ C interface
 
+static const void* kernel_for(int pure) {
+  return pure ? (const void*)kv_shuttle_kernel<true> : (const void*)kv_shuttle_kernel<false>;
+}
+
+static int smem_for(int pure) { return pure ? 0 : tc::SMEM; }
+
+// the GEMM ring's shared memory is above the 48 KB default: opt in before
+// the occupancy query and the launch
+static cudaError_t allow_smem(int pure) {
+  return cudaFuncSetAttribute(kernel_for(pure), cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              smem_for(pure));
+}
+
 extern "C" {
 
-// Largest co-resident grid: (CTAs per SM) x SMs. Returns a cudaError_t,
-// or -1 without cooperative launch, or -2 when fewer than two CTAs fit.
-int kv_shuttle_grid(int* grid, int* per_sm) {
+// Largest co-resident grid of the pure or the GEMM kernel: (CTAs per SM)
+// x SMs. Returns a cudaError_t, or -1 without cooperative launch, or -2
+// when fewer than two CTAs fit.
+int kv_shuttle_grid(int pure, int* grid, int* per_sm) {
   int dev = 0, sms = 0, coop = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e == cudaSuccess) e = allow_smem(pure);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kv_shuttle_kernel, NT, 0);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel_for(pure), NT,
+                                                      smem_for(pure));
   if (e != cudaSuccess) return (int)e;
   if (!coop) return -1;
   *grid = (*per_sm) * sms;
@@ -210,8 +279,10 @@ int kv_shuttle_grid(int* grid, int* per_sm) {
 // resident at once, which the spin-waits require.
 int kv_shuttle_launch(const ShuttleParams* p, int grid, void* stream) {
   void* args[] = {const_cast<ShuttleParams*>(p)};
-  cudaError_t e = cudaLaunchCooperativeKernel((const void*)kv_shuttle_kernel, dim3(grid),
-                                              dim3(NT), args, 0, (cudaStream_t)stream);
+  cudaError_t e = allow_smem(p->pure);
+  if (e == cudaSuccess)
+    e = cudaLaunchCooperativeKernel(kernel_for(p->pure), dim3(grid), dim3(NT), args,
+                                    smem_for(p->pure), (cudaStream_t)stream);
   if (e == cudaSuccess) e = cudaGetLastError();
   return (int)e;
 }

@@ -9,42 +9,72 @@
 // SwiGLU FFN over what arrived, and returns the rows along the reverse
 // permutation (combine). Completion is BARRIER / DEFERRED (wait every
 // edge, then compute), SIGNAL pipelined (per source: wait, then that
-// source's FFN) or COUNTER tile-fused (per microblock arrival, combine_tile
-// row GEMM tiles whose epilogue stores straight into the source's combine
-// slab). Options: an int8 wire with per-row f32 scales (max|x|/127 + 1e-12,
-// round half to even), and a second stream that runs the shared-expert FFN.
+// source's FFN) or COUNTER tile-fused (per microblock arrival, whole
+// 64-row GEMM tiles whose epilogue stores straight into the source's
+// combine slab and ticks the combine flag once for every combine_tile-row
+// chunk it covers: combine_tile sets the flag granularity, never the GEMM
+// tile). Options: an int8 wire with per-row f32 scales (max|x|/127 +
+// 1e-12, round half to even), and a second stream that runs the
+// shared-expert FFN.
 //
-// Layout: the n ranks are n partitions of ONE cooperative launch over one
+// Layout: the n ranks are partitions of ONE cooperative launch over one
 // allocation (a symmetric heap on one card). A "remote copy" is a store
-// into the receiving rank's slab. Each DMA semaphore becomes a flag word:
-// the sender's CTA finishes its stores, __syncthreads, __threadfence,
-// atomicAdd; the receiver spins on an acquire load. Dispatch flags are per
-// (receiver, source, microblock) and count rows; combine flags are per
-// (receiver, expert) and count elements. The wrapper zeroes them before
-// every launch on the launch stream, so a stale flag never satisfies a
-// wait. Within a rank, CTAs meet at a counter barrier between GEMM1 and
-// GEMM2 (the SwiGLU intermediate lives in a global scratch: 64 rows x 2f
-// f32 is far beyond shared memory). Every spin gives up after timeout_ms
-// with a trap, so a protocol fault fails the launch instead of hanging.
+// into the receiving rank's slab. Each DMA semaphore becomes a flag word
+// (flags.cuh): the sender's CTA finishes its stores, __syncthreads,
+// __threadfence, atomicAdd; the receiver spins on an acquire load.
+// Dispatch flags are per (receiver, source, microblock) and count rows;
+// combine flags are per (receiver, expert) and count elements. The wrapper
+// splits the CTAs over the streams (each rank's routed stream, and its
+// second stream) in proportion to their work and passes the prefix table
+// (cta0). It zeroes every flag and counter before each launch on the
+// launch stream, so a stale count never satisfies a wait. Every spin gives
+// up after timeout_ms with a trap, so a protocol fault fails the launch
+// instead of hanging.
+//
+// No barrier inside a stream. The SwiGLU intermediate H lives in a global
+// scratch (64 rows x 2f f32 is far beyond shared memory) with rows of its
+// own per segment; each GEMM1 unit bumps its segment's "H ready" counter,
+// and a GEMM2 unit of the segment waits until the counter reaches the
+// segment's GEMM1 unit count. The non-fused combine of a source waits the
+// same way on that source's "out ready" counter. Deadlock freedom: the
+// CTAs of a stream take their units (GEMM1, GEMM2 and combine work) round
+// robin from ONE global order, each CTA in increasing order, and a unit
+// only waits on dispatch flags (their stores wait on nothing) or on units
+// of its own stream that come earlier in that order (all GEMM1 units of a
+// segment precede its GEMM2 units, which precede its combine). Every CTA
+// is resident (cooperative launch), so the earliest unfinished unit always
+// has its inputs and its CTA at hand. The final assembly waits on other
+// ranks' combine stores, which never wait on an assembly.
+//
+// GEMMs: tc_gemm.cuh's 64 x 128 tensor-core tile (3xTF32 mma.sync, f32
+// accurate, cp.async ring). A unit is one tile; the units of one GEMM walk
+// the m-tiles inside a column slab, so the CTAs that run together share
+// one weight slab through L2 instead of each m-tile reading it from HBM.
 //
 // Bound: at serving width (4 ranks x 256 tokens, d=7168, f=fs=2048) the
-// call does ~180 GFLOP of f32 GEMM and moves ~1 GB of weights, so the f32
-// (non-tensor-core) rate bounds it. This first version is a plain SIMT
-// GEMM (64x64 tiles, 4x4 per thread, no wgmma, no TMA). How its time
-// splits between the GEMM and the dispatch/combine stores is not measured.
+// call does 180.4 GFLOP against ~1 GB of weights. 3xTF32 is three tensor
+// products per multiply-add, so the operations bound it: 3 x 180.4 GFLOP
+// at 495 TFLOP/s, 1.09 ms on an H100 SXM. chip_smoke.py's gemm_core line
+// times the tile GEMM alone at this GEMM's shapes, which splits a
+// variant's time between GEMM and dispatch / combine / waiting.
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <stdio.h>
 
+#include "flags.cuh"
+#include "tc_gemm.cuh"
+
 #define MOE_MAXN 8
-#define BM 64
-#define BN 64
-#define BK 16
-#define NT 256
+
+using tc::BM;
+using tc::BN;
+using tc::NT;
 
 struct MoeParams {
   int n, T, Ts, d, f, fs, B, b_max, stride, ct;
   int counts[MOE_MAXN], blocks[MOE_MAXN], offsets[MOE_MAXN];
+  int cta0[2 * MOE_MAXN + 1];  // stream 2r (rank r routed) / 2r+1 (its second stream):
+                               // CTAs [cta0[s], cta0[s + 1])
   int barrier, pipelined, tile_fused, shared, wire_i8, timeout_ms;
   const float *x, *w1, *w2, *xs, *s1, *s2;
   float *y, *ys;
@@ -56,92 +86,22 @@ struct MoeParams {
   float* hs;           // (n, Ts, fs) shared-expert SwiGLU intermediate
   unsigned* disp_flag; // (n recv, n src, b_max) rows landed
   unsigned* comb_flag; // (n recv, n expert) elements landed
-  unsigned* bar;       // (n, 2) group barrier counters
+  unsigned* h_ready;   // (n rank, n src, b_max) GEMM1 units done per segment
+  unsigned* o_ready;   // (n rank, n src) GEMM2 units done per segment (non-fused)
+  unsigned* hs_ready;  // (n) second-stream GEMM1 units done
 };
 
-struct Smem {
-  float As[BK][BM + 4];
-  float Bg[BK][BN];
-  float Bu[BK][BN];
-  float red[NT / 32];
-};
-
-// ------------------------------------------------------- flags and barriers
-
-__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ unsigned long long globaltimer() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// one thread: spin until *p >= target; trap after the timeout
-__device__ void spin_geq(const unsigned* p, unsigned target, const MoeParams& P,
-                         const char* what) {
-  if (ld_acquire(p) >= target) return;
-  const unsigned long long t0 = globaltimer();
-  const unsigned long long limit = (unsigned long long)P.timeout_ms * 1000000ull;
-  while (ld_acquire(p) < target) {
-    __nanosleep(64);
-    if (globaltimer() - t0 > limit) {
-      printf("moe_dispatch: block %d timed out on %s (have %u, want %u)\n",
-             (int)blockIdx.x, what, ld_acquire(p), target);
-      asm volatile("trap;");
-    }
-  }
-}
-
-// whole CTA: wait for a flag, then every thread may read what it covers
-__device__ void cta_wait(const unsigned* p, unsigned target, const MoeParams& P,
-                         const char* what) {
-  if (threadIdx.x == 0) {
-    spin_geq(p, target, P, what);
-    __threadfence();
-  }
-  __syncthreads();
-}
-
-// whole CTA: publish this CTA's stores, then bump the flag (release)
-__device__ void cta_signal(unsigned* p, unsigned amount) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(p, amount);
-  }
-}
-
-struct Group {
-  unsigned* ctr;
-  int size;
-  unsigned gen;
-};
-
-// every CTA of the group meets here (counter barrier, monotone generations)
-__device__ void group_sync(Group& g, const MoeParams& P) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(g.ctr, 1u);
-    spin_geq(g.ctr, (g.gen + 1) * (unsigned)g.size, P, "group barrier");
-    __threadfence();
-  }
-  __syncthreads();
-  g.gen++;
-}
+#define KNAME "moe_dispatch"
 
 // ------------------------------------------------------------ row staging
 
-__device__ float block_max(float v, Smem& sm) {
+__device__ float block_max(float v) {
+  __shared__ float red[NT / 32];
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  if ((threadIdx.x & 31) == 0) sm.red[threadIdx.x >> 5] = v;
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
   __syncthreads();
-  float m = sm.red[0];
-  for (int w = 1; w < NT / 32; ++w) m = fmaxf(m, sm.red[w]);
+  float m = red[0];
+  for (int w = 1; w < NT / 32; ++w) m = fmaxf(m, red[w]);
   __syncthreads();
   return m;
 }
@@ -152,14 +112,14 @@ __device__ __forceinline__ signed char quant(float v, float s) {
 }
 
 // stage one token row onto the wire (src == nullptr: a zero padding row)
-__device__ void stage_row(const float* src, float* dst, float*, int d, Smem&) {
+__device__ void stage_row(const float* src, float* dst, float*, int d) {
   const float4* s4 = reinterpret_cast<const float4*>(src);
   float4* d4 = reinterpret_cast<float4*>(dst);
   for (int i = threadIdx.x; i < d / 4; i += NT)
     d4[i] = src ? __ldg(s4 + i) : make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
-__device__ void stage_row(const float* src, int8_t* dst, float* scale, int d, Smem& sm) {
+__device__ void stage_row(const float* src, int8_t* dst, float* scale, int d) {
   const float4* s4 = reinterpret_cast<const float4*>(src);
   float m = 0.f;
   if (src)
@@ -167,7 +127,7 @@ __device__ void stage_row(const float* src, int8_t* dst, float* scale, int d, Sm
       float4 v = __ldg(s4 + i);
       m = fmaxf(m, fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w))));
     }
-  m = block_max(m, sm);
+  m = block_max(m);
   const float s = m / 127.0f + 1e-12f;
   char4* d4 = reinterpret_cast<char4*>(dst);
   for (int i = threadIdx.x; i < d / 4; i += NT) {
@@ -181,160 +141,99 @@ __device__ void stage_row(const float* src, int8_t* dst, float* scale, int d, Sm
   if (threadIdx.x == 0) *scale = s;
 }
 
-// -------------------------------------------------------------------- GEMM
+// -------------------------------------------------------------- work units
 
-// four consecutive A values of one row; slabs written by other CTAs are
-// read through L2 (__ldcg), never a possibly stale L1 line
-__device__ __forceinline__ float4 load_a4(const float* A, const float*, size_t row,
-                                          int lda, int k) {
-  return __ldcg(reinterpret_cast<const float4*>(A + row * lda + k));
-}
-
-__device__ __forceinline__ float4 load_a4(const int8_t* A, const float* S, size_t row,
-                                          int lda, int k) {
-  const char4 q = __ldcg(reinterpret_cast<const char4*>(A + row * lda + k));
-  const float s = __ldcg(S + row);
-  return make_float4(q.x * s, q.y * s, q.z * s, q.w * s);
-}
-
-// One BM x BN output tile over K. PAIRED: W holds gate columns at n0 and
-// up columns at n0 + up_off (GEMM1 of SwiGLU); acc_u is then meaningful.
-// A rows at or past `valid` load as zeros (the kernel's `valid` mask).
-template <bool PAIRED, typename AT>
-__device__ void tile_mma(const AT* A, const float* S, int lda, size_t a_row0, int valid,
-                         int K, const float* W, int ldw, int n0, int up_off,
-                         float (&acc_g)[4][4], float (&acc_u)[4][4], Smem& sm) {
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int lr = tid / 4, lk = (tid % 4) * 4;     // A tile load coordinates
-  const int br = tid / 16, bc = (tid % 16) * 4;   // W tile load coordinates
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc_g[i][j] = acc_u[i][j] = 0.f;
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    float4 a = lr < valid ? load_a4(A, S, a_row0 + lr, lda, k0 + lk)
-                          : make_float4(0.f, 0.f, 0.f, 0.f);
-    const float* wrow = W + (size_t)(k0 + br) * ldw + n0 + bc;
-    sm.As[lk + 0][lr] = a.x;
-    sm.As[lk + 1][lr] = a.y;
-    sm.As[lk + 2][lr] = a.z;
-    sm.As[lk + 3][lr] = a.w;
-    *reinterpret_cast<float4*>(&sm.Bg[br][bc]) = __ldg(reinterpret_cast<const float4*>(wrow));
-    if (PAIRED)
-      *reinterpret_cast<float4*>(&sm.Bu[br][bc]) =
-          __ldg(reinterpret_cast<const float4*>(wrow + up_off));
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 av = *reinterpret_cast<const float4*>(&sm.As[kk][ty * 4]);
-      const float4 gv = *reinterpret_cast<const float4*>(&sm.Bg[kk][tx * 4]);
-      const float ar[4] = {av.x, av.y, av.z, av.w};
-      const float gr[4] = {gv.x, gv.y, gv.z, gv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc_g[i][j] = fmaf(ar[i], gr[j], acc_g[i][j]);
-      if (PAIRED) {
-        const float4 uv = *reinterpret_cast<const float4*>(&sm.Bu[kk][tx * 4]);
-        const float ur[4] = {uv.x, uv.y, uv.z, uv.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc_u[i][j] = fmaf(ar[i], ur[j], acc_u[i][j]);
-      }
-    }
-    __syncthreads();
-  }
-}
+// A stream's CTAs take its units round robin from one global order: unit
+// u belongs to CTA u % size. `next` is the index of the stream's next unit.
+struct Stream {
+  int me, gid, size, next;
+  __device__ bool take() { return next++ % size == gid; }
+};
 
 // A run of rows one GEMM covers: slab rows [a_row0, a_row0 + rows), of
-// which the first `valid` are tokens; GEMM2 writes row r to out + r*N and
-// (if flag) bumps flag by the elements each CTA stored.
+// which the first `valid` are tokens. GEMM1 writes H rows a_row0 + r and
+// bumps h_ready; GEMM2 waits until h_ready reaches h_units, writes row r
+// to out + r*N (zero for valid <= r < rows) and then bumps o_ready or, in
+// the tile-fused path, ticks comb_flag per combine chunk. `src` >= 0: the
+// GEMM1 units of a pipelined path wait for the microblocks (src, j0 + ...)
+// their rows cover.
 struct Seg {
   size_t a_row0;
   int rows, valid;
   float* out;
-  unsigned* flag;
+  unsigned* h_ready;
+  unsigned h_units;
+  unsigned* o_ready;
+  unsigned* comb_flag;
+  int src, j0;
 };
-
-// silu(g) * u, silu(g) = g * sigmoid(g)
-__device__ __forceinline__ float swiglu(float g, float u) { return g / (1.f + expf(-g)) * u; }
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) { return v < lo ? lo : (v > hi ? hi : v); }
 
-// GEMM1 + SwiGLU: H[row, c] = silu(A W[:, c]) * (A W[:, F + c]), c < F.
-// Units (m tile, n tile) go round robin over the group, starting at `rot`
-// so that consecutive small phases land on different CTAs.
+__device__ __forceinline__ int mtiles(int rows) { return (rows + BM - 1) / BM; }
+
+// GEMM1 units of segments `segs`: F/64 H column slabs (each a paired
+// 128-column B tile: 64 gate and 64 up columns) x the m-tiles, m-tiles
+// inside a column slab.
 template <typename AT>
-__device__ void gemm1(const AT* A, const float* S, int lda, const Seg* segs, int nseg, int K,
-                      const float* W, int F, float* H, int gid, int gsize, int& rot, Smem& sm) {
-  const int ntn = F / BN;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float g[4][4], u[4][4];
-  int unit = rot;
-  for (int s = 0; s < nseg; ++s) {
-    const int mt = (segs[s].rows + BM - 1) / BM;
-    for (int q = 0; q < mt * ntn; ++q, ++unit) {
-      if (unit % gsize != gid) continue;
-      const int m0 = (q / ntn) * BM, n0 = (q % ntn) * BN;
-      const int rows = min(BM, segs[s].rows - m0);
-      tile_mma<true>(A, S, lda, segs[s].a_row0 + m0, clampi(segs[s].valid - m0, 0, BM), K,
-                     W, 2 * F, n0, F, g, u, sm);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = ty * 4 + i;
-        if (r >= rows) continue;
-        const float4 o = make_float4(swiglu(g[i][0], u[i][0]), swiglu(g[i][1], u[i][1]),
-                                     swiglu(g[i][2], u[i][2]), swiglu(g[i][3], u[i][3]));
-        *reinterpret_cast<float4*>(H + (segs[s].a_row0 + m0 + r) * F + n0 + tx * 4) = o;
+__device__ void gemm1(const MoeParams& P, const AT* A, const float* S, const Seg* segs, int nseg,
+                      int K, const float* W, int F, float* H, Stream& st, char* smem) {
+  for (int c0 = 0; c0 < F; c0 += 64)
+    for (int s = 0; s < nseg; ++s)
+      for (int m0 = 0; m0 < segs[s].rows; m0 += BM) {
+        if (!st.take()) continue;
+        const Seg& sg = segs[s];
+        if (sg.src >= 0) {  // pipelined: the microblocks this tile reads have landed
+          const int j1 = sg.j0 + (min(m0 + BM, sg.rows) - 1) / P.B;
+          for (int j = sg.j0 + m0 / P.B; j <= j1; ++j)
+            cta_wait(&P.disp_flag[((size_t)st.me * P.n + sg.src) * P.b_max + j], (unsigned)P.B,
+                     P.timeout_ms, KNAME, "dispatch", sg.src, j);
+        }
+        tc::tile<AT, true>(tc::TileA{A, S, K, sg.a_row0 + m0, clampi(sg.valid - m0, 0, BM)},
+                           tc::TileB{W, 2 * F, c0, F + c0, BN}, K, smem);
+        tc::store_swiglu(smem, H + (sg.a_row0 + m0) * F + c0, F, min(BM, sg.rows - m0));
+        cta_signal(sg.h_ready, 1u);
       }
-    }
-  }
-  rot = unit;
 }
 
-// GEMM2: out[r, :] = H[row, :] W2 for r < valid, zero for valid <= r < rows
-__device__ void gemm2(const float* H, const Seg* segs, int nseg, int K, const float* W, int N,
-                      int gid, int gsize, int& rot, Smem& sm) {
-  const int ntn = N / BN;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[4][4], unused[4][4];
-  int unit = rot;
-  for (int s = 0; s < nseg; ++s) {
-    const int mt = (segs[s].rows + BM - 1) / BM;
-    for (int q = 0; q < mt * ntn; ++q, ++unit) {
-      if (unit % gsize != gid) continue;
-      const int m0 = (q / ntn) * BM, n0 = (q % ntn) * BN;
-      const int rows = min(BM, segs[s].rows - m0);
-      const int valid = clampi(segs[s].valid - m0, 0, BM);
-      tile_mma<false>(H, nullptr, K, segs[s].a_row0 + m0, valid, K, W, N, n0, 0, acc,
-                      unused, sm);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = ty * 4 + i;
-        if (r >= rows) continue;
-        const bool ok = r < valid;
-        const float4 o = make_float4(ok ? acc[i][0] : 0.f, ok ? acc[i][1] : 0.f,
-                                     ok ? acc[i][2] : 0.f, ok ? acc[i][3] : 0.f);
-        *reinterpret_cast<float4*>(segs[s].out + (size_t)(m0 + r) * N + n0 + tx * 4) = o;
+// GEMM2 units: ceil(N/128) output column slabs x the m-tiles, m-tiles
+// inside a column slab; each waits for its segment's H.
+__device__ void gemm2(const MoeParams& P, const float* H, const Seg* segs, int nseg, int K,
+                      const float* W, int N, Stream& st, char* smem) {
+  for (int c0 = 0; c0 < N; c0 += BN)
+    for (int s = 0; s < nseg; ++s)
+      for (int m0 = 0; m0 < segs[s].rows; m0 += BM) {
+        if (!st.take()) continue;
+        const Seg& sg = segs[s];
+        cta_wait(sg.h_ready, sg.h_units, P.timeout_ms, KNAME, "H ready", st.me, s);
+        const int rows = min(BM, sg.rows - m0), valid = clampi(sg.valid - m0, 0, BM);
+        const int ncols = min(BN, N - c0);
+        tc::tile<float, true>(tc::TileA{H, nullptr, K, sg.a_row0 + m0, valid},
+                              tc::TileB{W, N, c0, c0 + 64, ncols}, K, smem);
+        tc::store_tile<true>(smem, sg.out + (size_t)m0 * N + c0, N, rows, ncols, valid);
+        __syncthreads();
+        if (threadIdx.x == 0) {
+          __threadfence();
+          if (sg.comb_flag) {  // one tick per combine_tile chunk the tile covers
+            for (int r = 0; r < rows; r += P.ct)
+              atomicAdd(sg.comb_flag, (unsigned)(min(P.ct, rows - r) * ncols));
+          } else if (sg.o_ready) {
+            atomicAdd(sg.o_ready, 1u);
+          }
+        }
       }
-      if (segs[s].flag) cta_signal(segs[s].flag, (unsigned)(rows * BN));
-    }
-  }
-  rot = unit;
 }
 
 // ------------------------------------------------------------------ streams
 
 // the second stream: ys = swiglu(xs, s1, s2) for this rank's tokens
-__device__ void shared_stream(const MoeParams& P, int me, int gid, Group& grp, Smem& sm) {
-  int rot = 0;
-  const float* xs = P.xs + (size_t)me * P.Ts * P.d;
-  float* hs = P.hs + (size_t)me * P.Ts * P.fs;
-  const Seg sg{0, P.Ts, P.Ts, P.ys + (size_t)me * P.Ts * P.d, nullptr};
-  gemm1<float>(xs, nullptr, P.d, &sg, 1, P.d, P.s1, P.fs, hs, gid, grp.size, rot, sm);
-  group_sync(grp, P);
-  gemm2(hs, &sg, 1, P.fs, P.s2, P.d, gid, grp.size, rot, sm);
+__device__ void shared_stream(const MoeParams& P, Stream& st, char* smem) {
+  const float* xs = P.xs + (size_t)st.me * P.Ts * P.d;
+  float* hs = P.hs + (size_t)st.me * P.Ts * P.fs;
+  const Seg sg{0, P.Ts, P.Ts, P.ys + (size_t)st.me * P.Ts * P.d, P.hs_ready + st.me,
+               (unsigned)(P.fs / 64 * mtiles(P.Ts)), nullptr, nullptr, -1, 0};
+  gemm1<float>(P, xs, nullptr, &sg, 1, P.d, P.s1, P.fs, hs, st, smem);
+  gemm2(P, hs, &sg, 1, P.fs, P.s2, P.d, st, smem);
 }
 
 // copy one f32 row written by other CTAs (combine / assembly)
@@ -346,29 +245,27 @@ __device__ void copy_row(const float* src, float* dst, int d) {
 
 // dispatch -> expert FFN -> combine -> assemble, for rank `me`
 template <typename WT>
-__device__ void routed(const MoeParams& P, int me, int gid, Group& grp, Smem& sm) {
+__device__ void routed(const MoeParams& P, Stream& st, char* smem) {
   const int n = P.n, B = P.B, d = P.d, f = P.f, stride = P.stride, bmax = P.b_max;
+  const int me = st.me;
   const size_t slab = (size_t)n * stride;
-  const int gsize = grp.size;
-  int rot = 0;
 
   // ---- dispatch: rounds (off, j) of DispatchSchedule, dummies elided.
-  // Rows of successive rounds go round robin over the group; each CTA
+  // Rows of successive rounds go round robin over the stream; each CTA
   // stages (and quantizes) its rows straight into the expert's slab.
-  int base = 0;
   for (int off = 0; off < n; ++off) {
     const int e = (me - off + n) % n;
     WT* dst = reinterpret_cast<WT*>(P.recv) + (size_t)e * slab * d;
     float* dsc = P.recv_s + (size_t)e * slab;
-    for (int j = 0; j < P.blocks[e]; ++j, base += B) {
+    for (int j = 0; j < P.blocks[e]; ++j) {
       unsigned mine = 0;
       for (int i = 0; i < B; ++i) {
-        if ((base + i) % gsize != gid) continue;
+        if (!st.take()) continue;
         const int k = j * B + i;
         const float* src =
             k < P.counts[e] ? P.x + ((size_t)me * P.T + P.offsets[e] + k) * d : nullptr;
         const size_t row = (size_t)me * stride + k;
-        stage_row(src, dst + row * d, dsc + row, d, sm);
+        stage_row(src, dst + row * d, dsc + row, d);
         ++mine;
       }
       if (mine) cta_signal(&P.disp_flag[((size_t)e * n + me) * bmax + j], mine);
@@ -383,61 +280,63 @@ __device__ void routed(const MoeParams& P, int me, int gid, Group& grp, Smem& sm
   const float* w2 = P.w2 + (size_t)me * f * d;
   float* h = P.h + (size_t)me * slab * f;
   float* ffo = P.ffn_out + (size_t)me * slab * d;
-  auto arrived = [&](int src, int j) {
-    cta_wait(&P.disp_flag[((size_t)me * n + src) * bmax + j], (unsigned)B, P, "dispatch");
-  };
+  unsigned* h_ready = P.h_ready + (size_t)me * n * bmax;
+  unsigned* o_ready = P.o_ready + (size_t)me * n;
+  const unsigned g1 = (unsigned)(f / 64);  // GEMM1 units per m-tile
 
   if (P.tile_fused) {
-    // COUNTER: per microblock arrival, combine_tile-row tiles; GEMM2's
-    // epilogue is the combine store into the source's slab
-    const int ct = P.ct;
+    // COUNTER: per microblock arrival, GEMM1 then GEMM2 of its 64-row
+    // tiles; GEMM2's epilogue is the combine store into the source's slab
     for (int off = 0; off < n; ++off) {
       const int src = (me + off) % n;
       for (int j = 0; j < mb; ++j) {
-        arrived(src, j);
-        for (int t = 0; t < B / ct; ++t) {
-          const int rel = j * B + t * ct;
-          const Seg sg{(size_t)src * stride + rel, ct, clampi(cme - rel, 0, ct),
-                       P.comb + ((size_t)src * slab + (size_t)me * stride + rel) * d,
-                       &P.comb_flag[src * n + me]};
-          gemm1<WT>(recv, rs, d, &sg, 1, d, w1, f, h, gid, gsize, rot, sm);
-          group_sync(grp, P);
-          gemm2(h, &sg, 1, f, w2, d, gid, gsize, rot, sm);
-        }
+        const int rel = j * B;
+        const Seg sg{(size_t)src * stride + rel, B, clampi(cme - rel, 0, B),
+                     P.comb + ((size_t)src * slab + (size_t)me * stride + rel) * d,
+                     &h_ready[src * bmax + j], g1 * mtiles(B), nullptr,
+                     &P.comb_flag[src * n + me], src, j};
+        gemm1<WT>(P, recv, rs, &sg, 1, d, w1, f, h, st, smem);
+        gemm2(P, h, &sg, 1, f, w2, d, st, smem);
       }
     }
   } else {
+    const bool pipelined = !P.barrier && P.pipelined;
+    const unsigned all_units = g1 * n * mtiles(mb * B);
     Seg segs[MOE_MAXN];
     for (int s = 0; s < n; ++s) {
       const int src = (me + s) % n;
+      // pipelined: a counter per source; otherwise one for the whole GEMM
       segs[s] = Seg{(size_t)src * stride, mb * B, min(cme, mb * B),
-                    ffo + (size_t)src * stride * d, nullptr};
+                    ffo + (size_t)src * stride * d,
+                    pipelined ? &h_ready[src * bmax] : h_ready,
+                    pipelined ? g1 * mtiles(mb * B) : all_units,
+                    pipelined ? &o_ready[s] : o_ready, nullptr, pipelined ? src : -1, 0};
     }
-    if (P.barrier || !P.pipelined) {
-      // BARRIER / DEFERRED: every edge lands before any expert compute
-      for (int s = 0; s < n; ++s)
-        for (int j = 0; j < mb; ++j) arrived((me + s) % n, j);
-      gemm1<WT>(recv, rs, d, segs, n, d, w1, f, h, gid, gsize, rot, sm);
-      group_sync(grp, P);
-      gemm2(h, segs, n, f, w2, d, gid, gsize, rot, sm);
-    } else {
+    if (pipelined) {
       // SIGNAL pipelined: sources in arrival order, self edge first
       for (int s = 0; s < n; ++s) {
-        for (int j = 0; j < mb; ++j) arrived((me + s) % n, j);
-        gemm1<WT>(recv, rs, d, &segs[s], 1, d, w1, f, h, gid, gsize, rot, sm);
-        group_sync(grp, P);
-        gemm2(h, &segs[s], 1, f, w2, d, gid, gsize, rot, sm);
+        gemm1<WT>(P, recv, rs, &segs[s], 1, d, w1, f, h, st, smem);
+        gemm2(P, h, &segs[s], 1, f, w2, d, st, smem);
       }
+    } else {
+      // BARRIER / DEFERRED: every edge lands before any expert compute
+      for (int s = 0; s < n; ++s)
+        for (int j = 0; j < mb; ++j)
+          cta_wait(&P.disp_flag[((size_t)me * n + (me + s) % n) * bmax + j], (unsigned)B,
+                   P.timeout_ms, KNAME, "dispatch", (me + s) % n, j);
+      gemm1<WT>(P, recv, rs, segs, n, d, w1, f, h, st, smem);
+      gemm2(P, h, segs, n, f, w2, d, st, smem);
     }
-    group_sync(grp, P);  // every expert row is in ffn_out before combine reads it
-    // ---- combine: reverse shift, expert me -> source (me + off) % n
-    base = 0;
+    // ---- combine: reverse shift, expert me -> source (me + off) % n, once
+    // that source's expert rows are in ffn_out
+    const unsigned o_units = (unsigned)((d + BN - 1) / BN * mtiles(mb * B) * (pipelined ? 1 : n));
     for (int off = 0; off < n; ++off) {
       const int q = (me + off) % n;
-      for (int j = 0; j < mb; ++j, base += B) {
+      for (int j = 0; j < mb; ++j) {
         unsigned mine = 0;
         for (int i = 0; i < B; ++i) {
-          if ((base + i) % gsize != gid) continue;
+          if (!st.take()) continue;
+          if (!mine) cta_wait(segs[off].o_ready, o_units, P.timeout_ms, KNAME, "out ready", me, off);
           const int k = j * B + i;
           copy_row(ffo + ((size_t)q * stride + k) * d,
                    P.comb + ((size_t)q * slab + (size_t)me * stride + k) * d, d);
@@ -450,9 +349,11 @@ __device__ void routed(const MoeParams& P, int me, int gid, Group& grp, Smem& sm
 
   // ---- assemble: region e of my combine slab holds my tokens for expert e
   for (int e = 0; e < n; ++e)
-    cta_wait(&P.comb_flag[me * n + e], (unsigned)P.blocks[e] * B * d, P, "combine");
+    cta_wait(&P.comb_flag[me * n + e], (unsigned)P.blocks[e] * B * d, P.timeout_ms, KNAME,
+             "combine", me, e);
   const float* comb = P.comb + (size_t)me * slab * d;
-  for (int k = (gid + rot) % gsize; k < P.T; k += gsize) {
+  for (int k = 0; k < P.T; ++k) {
+    if (!st.take()) continue;
     int e = 0;
     while (e + 1 < n && k >= P.offsets[e + 1]) ++e;
     copy_row(comb + ((size_t)e * stride + k - P.offsets[e]) * d,
@@ -460,19 +361,42 @@ __device__ void routed(const MoeParams& P, int me, int gid, Group& grp, Smem& sm
   }
 }
 
+// Two CTAs per SM: the 3-stage ring takes 80 KB of shared memory a CTA and
+// the launch bound holds ptxas at 128 registers a thread.
 template <typename WT>
-__global__ void __launch_bounds__(NT) moe_kernel(MoeParams P) {
-  __shared__ Smem sm;
-  const int per = gridDim.x / P.n;
-  const int me = blockIdx.x / per, local = blockIdx.x % per;
-  if (me >= P.n) return;
-  const int ps = P.shared ? per / 2 : 0, pa = per - ps;
-  const bool second = local >= pa;
-  Group grp{P.bar + 2 * me + (second ? 1 : 0), second ? ps : pa, 0u};
-  if (second)
-    shared_stream(P, me, local - pa, grp, sm);
+__global__ void __launch_bounds__(NT, 2) moe_kernel(MoeParams P) {
+  extern __shared__ __align__(16) char smem[];
+  int s = 0;
+  while (s + 1 < 2 * P.n && (int)blockIdx.x >= P.cta0[s + 1]) ++s;
+  if ((int)blockIdx.x >= P.cta0[2 * P.n]) return;
+  Stream st{s / 2, (int)blockIdx.x - P.cta0[s], P.cta0[s + 1] - P.cta0[s], 0};
+  if (s & 1)
+    shared_stream(P, st, smem);
   else
-    routed<WT>(P, me, local, grp, sm);
+    routed<WT>(P, st, smem);
+}
+
+// The tile GEMM alone, one CTA a tile (m-tiles inside a column slab), for
+// the tests and chip_smoke.py's gemm_core line: C = A B, or with `swiglu`
+// C = silu(A B[:, :N/2]) * (A B[:, N/2:]), C (M, N/2).
+template <bool VEC>
+__global__ void __launch_bounds__(NT, 2)
+    gemm_core_kernel(const float* A, const float* Bw, float* C, int M, int K, int N, int swiglu) {
+  extern __shared__ __align__(16) char smem[];
+  const int mt = (M + BM - 1) / BM;
+  const int m0 = (blockIdx.x % mt) * BM;
+  const int rows = min(BM, M - m0);
+  if (swiglu) {
+    const int F = N / 2, c0 = (blockIdx.x / mt) * 64;
+    tc::tile<float, VEC>(tc::TileA{A, nullptr, K, (size_t)m0, rows},
+                         tc::TileB{Bw, N, c0, F + c0, BN}, K, smem);
+    tc::store_swiglu(smem, C + (size_t)m0 * F + c0, F, rows);
+  } else {
+    const int c0 = (blockIdx.x / mt) * BN, ncols = min(BN, N - c0);
+    tc::tile<float, VEC>(tc::TileA{A, nullptr, K, (size_t)m0, rows},
+                         tc::TileB{Bw, N, c0, c0 + 64, ncols}, K, smem);
+    tc::store_tile<VEC>(smem, C + (size_t)m0 * N + c0, N, rows, ncols, rows);
+  }
 }
 
 // ------------------------------------------------------------ C interface
@@ -481,33 +405,57 @@ static const void* kernel_for(int wire_i8) {
   return wire_i8 ? (const void*)moe_kernel<int8_t> : (const void*)moe_kernel<float>;
 }
 
+// the ring's shared memory is above the 48 KB default: opt in before the
+// occupancy query and the launch
+static cudaError_t allow_smem(const void* kernel) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, tc::SMEM);
+}
+
 extern "C" {
 
-// Largest co-resident grid for n ranks: (CTAs per SM) x SMs, rounded down
-// to a multiple of n. Returns a cudaError_t, or -1 without cooperative
-// launch, or -2 when a rank would get too few CTAs.
+// Largest co-resident grid: (CTAs per SM) x SMs. Returns a cudaError_t,
+// or -1 without cooperative launch, or -2 when the grid cannot give every
+// rank one routed CTA (and one second-stream CTA when `shared`).
 int moe_dispatch_grid(int n, int shared, int wire_i8, int* grid, int* per_sm) {
   int dev = 0, sms = 0, coop = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e == cudaSuccess) e = allow_smem(kernel_for(wire_i8));
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel_for(wire_i8), NT, 0);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel_for(wire_i8), NT, tc::SMEM);
   if (e != cudaSuccess) return (int)e;
   if (!coop) return -1;
-  const int per_rank = (*per_sm) * sms / n;
-  *grid = per_rank * n;
-  return per_rank < (shared ? 2 : 1) ? -2 : 0;
+  *grid = (*per_sm) * sms;
+  return *grid < n * (shared ? 2 : 1) ? -2 : 0;
 }
 
 // Cooperative launch: the runtime refuses a grid whose CTAs cannot all be
 // resident at once, which the spin-waits require.
 int moe_dispatch_launch(const MoeParams* p, int grid, void* stream) {
   void* args[] = {const_cast<MoeParams*>(p)};
-  cudaError_t e = cudaLaunchCooperativeKernel(kernel_for(p->wire_i8), dim3(grid), dim3(NT),
-                                              args, 0, (cudaStream_t)stream);
+  cudaError_t e = allow_smem(kernel_for(p->wire_i8));
+  if (e == cudaSuccess)
+    e = cudaLaunchCooperativeKernel(kernel_for(p->wire_i8), dim3(grid), dim3(NT), args,
+                                    tc::SMEM, (cudaStream_t)stream);
   if (e == cudaSuccess) e = cudaGetLastError();
   return (int)e;
+}
+
+// The tile GEMM alone (see gemm_core_kernel): `vec` when K and N are
+// multiples of 4 and the bases 16-byte aligned; `swiglu` wants N/2 a
+// multiple of 64.
+int moe_dispatch_gemm(const float* a, const float* b, float* c, int M, int K, int N, int swiglu,
+                      int vec, void* stream) {
+  const void* kernel = vec ? (const void*)gemm_core_kernel<true> : (const void*)gemm_core_kernel<false>;
+  cudaError_t e = allow_smem(kernel);
+  if (e != cudaSuccess) return (int)e;
+  const int mt = (M + BM - 1) / BM, nt = swiglu ? N / 2 / 64 : (N + BN - 1) / BN;
+  if (vec)
+    gemm_core_kernel<true><<<mt * nt, NT, tc::SMEM, (cudaStream_t)stream>>>(a, b, c, M, K, N, swiglu);
+  else
+    gemm_core_kernel<false><<<mt * nt, NT, tc::SMEM, (cudaStream_t)stream>>>(a, b, c, M, K, N, swiglu);
+  return (int)cudaGetLastError();
 }
 
 const char* moe_dispatch_error(int code) {

@@ -1,8 +1,9 @@
-// The SIMT f32 tile GEMM the port's projection and GEMM kernels share
-// (kv_shuttle.cu, gemm_allgather.cu): a CTA of NT = 256 threads computes
-// one BM x BN = 64 x 64 output tile, 4 x 4 outputs a thread, staging BK =
-// 16 deep slices of A (transposed) and B in shared memory. No wgmma, no
-// TMA: the first, simple version.
+// The SIMT f32 tile GEMM of gemm_allgather.cu: a CTA of NT = 256 threads
+// computes one BM x BN = 64 x 64 output tile, 4 x 4 outputs a thread,
+// staging BK = 16 deep slices of A (transposed) and B in shared memory. No
+// tensor cores, no asynchronous copy: the first, simple version, kept until
+// gemm_allgather.cu is redesigned (moe_dispatch.cu and kv_shuttle.cu run on
+// tc_gemm.cuh).
 #pragma once
 #include <cuda_runtime.h>
 #include <stddef.h>

@@ -83,7 +83,8 @@ def build(names, defines=()):
         for name, proc, tmp, lib in running:
             log, _ = proc.communicate()
             _LOGS[(name, defines)] = [ln for ln in log.splitlines()
-                                      if "ptxas info" in ln]
+                                      if "ptxas info" in ln
+                                      or "bytes spill" in ln]
             if proc.returncode:
                 failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             else:
@@ -162,6 +163,7 @@ def launch(lib, params, device, *grid_size):
 
 
 def ptxas_log(name, defines=()):
-    """``ptxas info`` lines (registers, shared memory, spills) of the build
-    this process ran for ``name``; empty when the library was cached."""
+    """``ptxas info`` and spill lines (registers, shared memory, stack
+    frame, spill stores and loads) of the build this process ran for
+    ``name``; empty when the library was cached."""
     return list(_LOGS.get((name, tuple(defines)), ()))

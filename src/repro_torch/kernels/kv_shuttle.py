@@ -147,13 +147,14 @@ class _Params(ctypes.Structure):
 def load_kernel():
     """Build (if needed) and load the kernel without running it — the
     fast path's stage A and the cascade's l1."""
-    return build.load_typed("kv_shuttle", _Params, grid_args=0)
+    return build.load_typed("kv_shuttle", _Params, grid_args=1)
 
 
-def grid_for(device):
-    """The co-resident grid the launch uses: CTAs per SM x SMs, one of
-    them the decode rank's. Raises when fewer than two CTAs fit."""
-    return build.grid(load_kernel(), device)
+def grid_for(device, pure=False):
+    """The co-resident grid of the projection (or, with ``pure``, the row
+    copy) kernel: CTAs per SM x SMs, one of them the decode rank's. Raises
+    when fewer than two CTAs fit."""
+    return build.grid(load_kernel(), device, int(pure))
 
 
 def _aligned(*tensors):
@@ -180,7 +181,7 @@ def _launch(x, wk, wv, *, chained, fused, counter, kv_chunk, contexts, pure):
     if chunk_rows * width >= 2**32:
         raise ValueError(f"a chunk of {chunk_rows} x {width} elements "
                          "overflows its 32-bit flag")
-    grid, _ = grid_for(x.device)
+    grid, _ = grid_for(x.device, pure)
     ko = torch.empty((2, rows, width), dtype=x.dtype, device=x.device)
     vo = torch.empty_like(ko)
     ko[0].zero_()                 # the prefill rank's rows: never written

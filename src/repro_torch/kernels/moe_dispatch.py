@@ -34,7 +34,7 @@ from repro_torch.core.schedule import (DispatchSchedule,  # noqa: F401
                                        make_schedule, sanitize_combine_tile)
 
 MAX_RANKS = 8                 # MOE_MAXN in the CUDA source
-TILE = 64                     # BN: d, f and fs must be multiples of it
+TILE = 64                     # d, f and fs must be multiples of it
 TIMEOUT_MS = 20_000           # a spin-wait traps after this long
 
 # (variant, n, T, d, f) -> kernel launches; read by chip_smoke.py
@@ -112,11 +112,13 @@ class _Params(ctypes.Structure):
                                      "b_max", "stride", "ct")]
         + [(k, ctypes.c_int * MAX_RANKS)
            for k in ("counts", "blocks", "offsets")]
+        + [("cta0", ctypes.c_int * (2 * MAX_RANKS + 1))]
         + [(k, ctypes.c_int) for k in ("barrier", "pipelined", "tile_fused",
                                        "shared", "wire_i8", "timeout_ms")]
         + [(k, ctypes.c_void_p) for k in (
             "x", "w1", "w2", "xs", "s1", "s2", "y", "ys", "recv", "recv_s",
-            "ffn_out", "comb", "h", "hs", "disp_flag", "comb_flag", "bar")])
+            "ffn_out", "comb", "h", "hs", "disp_flag", "comb_flag",
+            "h_ready", "o_ready", "hs_ready")])
 
 
 def load_kernel():
@@ -126,10 +128,61 @@ def load_kernel():
 
 
 def grid_for(device, n, shared, wire_i8):
-    """The co-resident grid the launch uses: CTAs per SM x SMs, rounded
-    down to a multiple of ``n``. Raises when it cannot hold the ranks."""
+    """The co-resident grid the launch uses: CTAs per SM x SMs. Raises
+    when it cannot give every rank one routed CTA (and one second-stream
+    CTA with ``shared``)."""
     return build.grid(load_kernel(), device, int(n), int(shared),
                       int(wire_i8))
+
+
+def cta_split(grid, work):
+    """``grid`` CTAs over streams of the given (integer) ``work``: one
+    each, and the rest in proportion to the work, by largest remainder
+    (ties to the earlier stream; all-zero work splits evenly). The counts
+    sum to ``grid``, are even (within one) under equal work and monotone
+    in it. Raises where ``grid`` cannot give every stream one CTA."""
+    work = [int(w) for w in work]
+    k = len(work)
+    if k == 0 or any(w < 0 for w in work):
+        raise ValueError(f"cta_split wants streams of work >= 0, got {work}")
+    if grid < k:
+        raise ValueError(f"a grid of {grid} CTAs cannot give {k} streams "
+                         "one each")
+    if not any(work):
+        work = [1] * k
+    spare, total = grid - k, sum(work)
+    base = [spare * w // total for w in work]
+    rest = sorted(range(k), key=lambda i: (-(spare * work[i] % total), i))
+    for i in rest[:spare - sum(base)]:
+        base[i] += 1
+    return [1 + b for b in base]
+
+
+def rank_ctas(grid, sched, f, shared=None):
+    """Each rank's ``(routed, second-stream)`` CTAs of a launch of
+    ``grid`` CTAs: :func:`cta_split` by work. Rank e's routed stream runs
+    the FFN (width ``f``) over the rows routed to its expert as the
+    kernel computes them: ``n * blocks[e] * block_tokens`` under the
+    schedule ``sched`` (each source's microblocks, padding rows included:
+    a GEMM tile costs the same however many of its rows are tokens). With
+    ``shared=(Ts, fs)`` its second stream runs the shared expert (width
+    ``fs``) over its ``Ts`` rows (0 CTAs without)."""
+    n, B = sched.n, sched.block_tokens
+    routed = [n * b * B * f for b in sched.blocks]
+    if shared is None:
+        return [(c, 0) for c in cta_split(grid, routed)]
+    Ts, fs = shared
+    split = cta_split(grid, [w for r in routed for w in (r, Ts * fs)])
+    return [(split[2 * r], split[2 * r + 1]) for r in range(n)]
+
+
+def stream_starts(ctas):
+    """The kernel's ``cta0`` prefix table from :func:`rank_ctas`: stream
+    2r is rank r's routed stream, 2r + 1 its second stream."""
+    starts = [0]
+    for routed, second in ctas:
+        starts += [starts[-1] + routed, starts[-1] + routed + second]
+    return starts
 
 
 # Knobs of each variant the main path launches, as
@@ -189,6 +242,7 @@ def _launch(x, w1, w2, sched, *, barrier, pipelined, tile_fused, wire_i8,
     if d % TILE or f % TILE or fs % TILE:
         raise ValueError(f"d={d}, f={f}, fs={fs} must be multiples of {TILE}")
     grid, _ = grid_for(x.device, n, shared is not None, wire_i8)
+    ctas = rank_ctas(grid, sched, f, None if shared is None else (Ts, fs))
     dev = x.device
     stride = sched.b_max * B
     slab = n * stride
@@ -202,9 +256,12 @@ def _launch(x, w1, w2, sched, *, barrier, pipelined, tile_fused, wire_i8,
     if shared is not None:
         hs = torch.empty((n, Ts, fs), dtype=torch.float32, device=dev)
         ys = torch.empty((n, Ts, d), dtype=torch.float32, device=dev)
-    # flags and barrier counters, zeroed on the launch stream
+    # flags and the "H ready" / "out ready" counters, zeroed on the launch
+    # stream: dispatch (n, n, b_max), combine (n, n), H ready (n, n,
+    # b_max), out ready (n, n), second-stream H ready (n)
     n_disp = n * n * sched.b_max
-    flags = torch.zeros(n_disp + n * n + 2 * n, dtype=torch.int32, device=dev)
+    flags = torch.zeros(2 * n_disp + 2 * n * n + n, dtype=torch.int32,
+                        device=dev)
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     p = _Params(n=n, T=T, Ts=Ts, d=d, f=f, fs=fs, B=B, b_max=sched.b_max,
                 stride=stride, ct=sanitize_combine_tile(combine_tile, B),
@@ -214,6 +271,7 @@ def _launch(x, w1, w2, sched, *, barrier, pipelined, tile_fused, wire_i8,
     for k in ("counts", "blocks"):
         getattr(p, k)[:n] = getattr(sched, k)
     p.offsets[:n] = _offsets(sched.counts)
+    p.cta0[:2 * n + 1] = stream_starts(ctas)
     p.x, p.w1, p.w2, p.y = ptr(x), ptr(w1), ptr(w2), ptr(y)
     if shared is not None:
         p.xs, p.s1, p.s2, p.ys, p.hs = (ptr(xs), ptr(s1), ptr(s2), ptr(ys),
@@ -223,7 +281,9 @@ def _launch(x, w1, w2, sched, *, barrier, pipelined, tile_fused, wire_i8,
     base = flags.data_ptr()
     p.disp_flag = base
     p.comb_flag = base + 4 * n_disp
-    p.bar = base + 4 * (n_disp + n * n)
+    p.h_ready = base + 4 * (n_disp + n * n)
+    p.o_ready = base + 4 * (2 * n_disp + n * n)
+    p.hs_ready = base + 4 * (2 * n_disp + 2 * n * n)
     build.launch(load_kernel(), p, dev, grid)
     LAUNCHES[(variant_name(barrier=barrier, pipelined=pipelined,
                            tile_fused=tile_fused, wire_i8=wire_i8,
@@ -267,3 +327,54 @@ def moe_dispatch_combine(x, w1, w2, *, counts, block_tokens=64, tight=True,
     return _launch(x, w1, w2, sched, barrier=barrier, pipelined=pipelined,
                    tile_fused=tile_fused, wire_i8=wire_i8,
                    combine_tile=combine_tile, shared=shared)
+
+
+# ------------------------------------------------------- the tile GEMM alone
+
+
+def gemm_core_plain(a, b, *, swiglu=False):
+    """Plain version of :func:`gemm_core`."""
+    if swiglu:
+        g, u = torch.chunk(a @ b, 2, dim=-1)
+        return F.silu(g) * u
+    return a @ b
+
+
+def gemm_core(a, b, *, swiglu=False):
+    """The tensor-core tile GEMM of ``csrc/tc_gemm.cuh`` alone, one CTA a
+    64 x 128 tile (``moe_dispatch_gemm`` of the moe_dispatch library), for
+    the tests and ``chip_smoke.py``'s ``gemm_core`` line; the kernels run
+    the same tile inside their cooperative launch. a (M, K) @ b (K, N)
+    float32; ``swiglu``: silu(a b[:, :N/2]) * (a b[:, N/2:]), N/2 a
+    multiple of 64. CUDA tensors launch the kernel (or raise); CPU tensors
+    compute :func:`gemm_core_plain`."""
+    if a.device.type == "cpu":
+        return gemm_core_plain(a, b, swiglu=swiglu)
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0] \
+            or a.shape[0] < 1:
+        raise ValueError(f"gemm_core wants a (M, K) @ (K, N), got "
+                         f"{tuple(a.shape)} @ {tuple(b.shape)}")
+    for t in (a, b):
+        if t.device != a.device or t.dtype != torch.float32 \
+                or not t.is_contiguous():
+            raise ValueError("gemm_core wants contiguous float32 tensors on "
+                             f"{a.device}; got {t.dtype} on {t.device}")
+    (M, K), N = a.shape, b.shape[1]
+    if swiglu and N % (2 * TILE):
+        raise ValueError(f"gemm_core's SwiGLU wants N/2 a multiple of {TILE}, "
+                         f"got N={N}")
+    out = torch.empty((M, N // 2 if swiglu else N), device=a.device)
+    vec = K % 4 == 0 and N % 4 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (a, b, out))
+    if swiglu and not vec:
+        raise ValueError("gemm_core's SwiGLU wants 16-byte aligned operands")
+    lib = load_kernel()
+    fn = lib.moe_dispatch_gemm
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 \
+        + [ctypes.c_void_p]
+    with torch.cuda.device(a.device):
+        build._check(lib, fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), M,
+                             K, N, int(swiglu), int(vec),
+                             torch.cuda.current_stream(a.device).cuda_stream),
+                     "gemm_core launch")
+    return out

@@ -232,18 +232,44 @@ def test_chip_smoke_phases_on_the_cpu():
     assert len(recs) == 2 * len(kern.VARIANTS)
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
-    for rec in recs:
+    nv = len(kern.VARIANTS)
+    for i, rec in enumerate(recs):
         assert keys <= set(rec) and rec["max_abs_err"] == 0.0
-        assert rec["bound_by"] == "operations"
+        # each record's bound is its workload's (at this tiny size the
+        # 3xTF32 rate leaves some bound by bytes)
+        w = small[i // nv]
+        ms, by, _ = chip_smoke.bound(w, [int(c) for c in w._counts(w.T)])
+        assert (rec["bound_ms"], rec["bound_by"]) == (ms, by)
         assert os.path.exists(os.path.join(ROOT, rec["source"]))
     counts = chip_smoke.phase_main("cpu", small)
     assert counts == {}                          # no kernel on the CPU
 
 
+def test_chip_smoke_gemm_core_on_the_cpu():
+    """The smoke's gemm_core line at test size on the CPU, where the
+    wrapper computes the plain version; the full shapes are the serving
+    cell's expert GEMMs and kv_transfer's projection."""
+    recs = chip_smoke.phase_gemm_core(
+        "cpu", chip_smoke.gemm_core_shapes(small=True), iters=1)
+    assert [r["name"] for r in recs] == [
+        "moe_gemm1_swiglu", "moe_gemm2", "skewed_gemm1_swiglu",
+        "skewed_gemm2", "kv_projection"]
+    for rec in recs:
+        assert rec["ms"] > 0 and rec["matmul_ms"] > 0 and rec["bound_ms"] > 0
+    shapes = chip_smoke.gemm_core_shapes()
+    assert [s[1:] for s in shapes] == [(256, 7168, 4096, True),
+                                       (256, 2048, 7168, False),
+                                       (768, 512, 2048, True),
+                                       (768, 1024, 512, False),
+                                       (4096, 4096, 512, False)]
+
+
 def test_chip_smoke_bound_counts_routed_tokens():
     ms, by, flops = chip_smoke.bound(TServing(n_dev=4), [64, 64, 64, 64])
     assert flops == 2 * 6 * 4 * 256 * 7168 * 2048
-    assert by == "operations" and abs(ms - flops / 67e12 * 1e3) < 1e-12
+    # the kernel's GEMMs run as 3xTF32: three TF32 products per multiply-add
+    rate = 495e12 / 3
+    assert by == "operations" and abs(ms - flops / rate * 1e3) < 1e-12
 
 
 def test_chip_smoke_fails_without_a_card_or_a_checkout(tmp_path):

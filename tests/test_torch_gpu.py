@@ -11,6 +11,7 @@ Inputs are made with numpy from a seed. Tolerances, max-abs-normalised:
 than cuBLAS; no TF32 on either side), 1e-3 on the int8 wire (a tie may
 round the other way after an f32 division).
 """
+import numpy as np
 import pytest
 import torch
 
@@ -29,8 +30,10 @@ def cuda_device():
     return torch.device("cuda")
 
 
-# the main path's variants, and one it does not launch
+# the main path's variants, and ones it does not launch: combine_tile 32
+# (flag chunks of half a 64-row GEMM tile) and BARRIER on the int8 wire
 GPU_VARIANTS = dict(kern.VARIANTS, **{
+    "tile_fused_ct32": dict(tile_fused=True, combine_tile=32),
     "barrier+int8": dict(barrier=True, pipelined=False, wire_i8=True)})
 
 
@@ -39,7 +42,8 @@ GPU_VARIANTS = dict(kern.VARIANTS, **{
 @pytest.mark.parametrize("shape", [(4, 256, 128, 128, 0, 3.0, 64, True),
                                    (4, 192, 256, 128, 128, 1.0, 32, True),
                                    (2, 128, 64, 192, 64, 2.0, 16, False),
-                                   (1, 64, 64, 64, 64, 1.0, 64, True)])
+                                   (1, 64, 64, 64, 64, 1.0, 64, True),
+                                   (3, 320, 192, 64, 64, 2.0, 64, True)])
 def test_kernel_matches_plain_version(cuda_device, variant, shape):
     """The CUDA kernel against its plain version on the card (1e-4 f32,
     1e-3 int8 wire: a tie may round the other way)."""
@@ -61,6 +65,88 @@ def test_kernel_matches_plain_version(cuda_device, variant, shape):
     tol = 1e-3 if kw.get("wire_i8") else 1e-4
     for g, w in zip(got, want):
         assert rel_err(g.cpu(), w.cpu()) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", list(GPU_VARIANTS))
+@pytest.mark.parametrize("counts,shared", [([125, 1, 0, 2], False),
+                                           ([0, 128, 0, 0], True),
+                                           ([1, 0, 127, 0], True)])
+def test_kernel_with_experts_of_zero_or_one_row(cuda_device, variant, counts,
+                                                shared):
+    """Ranks whose expert gets 0 or 1 rows: each keeps its minimum of one
+    routed CTA (and one second-stream CTA), dispatches its own tokens and
+    assembles; the busy expert gets the rest of the grid."""
+    n, T, d, f = 4, 128, 128, 128
+    arrs = numpy_inputs(n, T, d, f, f if shared else 0, seed=sum(counts[:2]))
+    ts = inputs_from_numpy(*arrs, device=cuda_device)
+    sh = (ts[0], ts[3], ts[4]) if shared else None
+    kw = dict(counts=counts, block_tokens=64, tight=True,
+              **GPU_VARIANTS[variant])
+    grid, _ = kern.grid_for(cuda_device, n, shared, kw.get("wire_i8", False))
+    ctas = kern.rank_ctas(grid, kern.make_schedule(counts), f,
+                          (T, f) if shared else None)
+    assert min(r for r, _ in ctas) >= 1 and sum(map(sum, ctas)) == grid
+    got = kern.moe_dispatch_combine(*ts[:3], shared=sh, **kw)
+    want = kern.moe_dispatch_combine_ref(
+        *ts[:3], counts=counts, block_tokens=64, tight=True,
+        wire_i8=kw.get("wire_i8", False), shared=sh)
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    tol = 1e-3 if kw.get("wire_i8") else 1e-4
+    for g, w in zip(got, want):
+        assert rel_err(g.cpu(), w.cpu()) <= tol
+
+
+@pytest.mark.gpu
+def test_launch_after_launch_sees_fresh_flags(cuda_device):
+    """Back-to-back launches of every variant on one stream, reusing the
+    allocator's freed flag and counter words: each launch waits on its
+    own arrivals and H counts, never a stale count from the one before."""
+    n, T, d, f = 4, 256, 128, 128
+    arrs = numpy_inputs(n, T, d, f, f, seed=11)
+    ts = inputs_from_numpy(*arrs, device=cuda_device)
+    sh = (ts[0], ts[3], ts[4])
+    counts = TMoE(n_dev=n, tokens_per_rank=T, d=d, f=f, skew=3.0)._counts(T)
+    outs = [(kw, kern.moe_dispatch_combine(*ts[:3], counts=counts, shared=sh,
+                                           **kw))
+            for _ in range(3) for kw in GPU_VARIANTS.values()]
+    torch.cuda.synchronize()
+    for kw, got in outs:
+        want = kern.moe_dispatch_combine_ref(
+            *ts[:3], counts=counts, wire_i8=kw.get("wire_i8", False),
+            shared=sh)
+        tol = 1e-3 if kw.get("wire_i8") else 1e-4
+        for g, w in zip(got, want):
+            assert rel_err(g.cpu(), w.cpu()) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N,swiglu", [(70, 100, 256, True),
+                                          (1, 64, 128, True),
+                                          (200, 96, 40, False),
+                                          (130, 67, 65, False),
+                                          (64, 4096, 200, False),
+                                          (256, 7168, 4096, True)])
+def test_gemm_core_matches_matmul(cuda_device, M, K, N, swiglu):
+    """The tile GEMM alone against torch.matmul (f32, no TF32) at ragged
+    rows, columns and depth, the unaligned path (K, N not multiples of 4)
+    and serving's GEMM1 shape: within 1e-4 (3xTF32 keeps f32 accuracy;
+    the sums run in another order)."""
+    rng = np.random.default_rng(M + K + N)
+    a = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32))
+    b = torch.from_numpy((rng.standard_normal((K, N)) / np.sqrt(K))
+                         .astype(np.float32))
+    a, b = a.to(cuda_device), b.to(cuda_device)
+    got = kern.gemm_core(a, b, swiglu=swiglu)
+    want = torch.matmul(a, b)
+    if swiglu:
+        g, u = torch.chunk(want, 2, dim=-1)
+        want = torch.nn.functional.silu(g) * u
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    assert rel_err(got.cpu(), want.cpu()) <= 1e-4
 
 
 @pytest.mark.gpu

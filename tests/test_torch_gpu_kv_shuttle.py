@@ -48,10 +48,13 @@ def _projection_inputs(T, d, dk, device, seed):
 @pytest.mark.gpu
 @pytest.mark.parametrize("variant", list(GPU_VARIANTS))
 @pytest.mark.parametrize("shape", [(256, 128, 64), (200, 96, 40),
-                                   (130, 67, 65), (4096, 512, 128)])
+                                   (130, 67, 65), (4096, 512, 128),
+                                   (192, 100, 200), (320, 36, 12)])
 def test_kernel_matches_plain_version(cuda_device, variant, shape):
     """Every realization at aligned, ragged-row, ragged-column and
-    unaligned (d, dk not multiples of 4) shapes."""
+    unaligned (d, dk not multiples of 4) shapes, depths that are not a
+    multiple of the 32-deep stage (100, 36) and more than one 128-column
+    tile (dk 200)."""
     T, d, dk = shape
     x, wk, wv = _projection_inputs(T, d, dk, cuda_device, seed=T + d + dk)
     knobs = GPU_VARIANTS[variant]
