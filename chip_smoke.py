@@ -12,7 +12,9 @@ sizes; every run runs all of them, and any failure exits non-zero):
 2. ``build``   — build the five Hopper kernels from
    ``src/repro_torch/csrc`` (one ``nvcc`` per source, started together)
    and print ptxas's register / shared-memory / spill lines and each
-   launch's grid (moe: each rank's routed and second-stream CTAs).
+   launch's grid (moe: each rank's routed and second-stream CTAs; the
+   ring: each rank's CTAs from ``ring_ctas`` at the defaults and at
+   fig3's largest row).
 3. ``gemm_core`` — the tile GEMM of ``csrc/tc_gemm.cuh`` alone at the
    main path's GEMM shapes (serving's expert GEMM1 with SwiGLU and its
    GEMM2, the same for the skewed cell's busiest expert, kv_transfer's
@@ -61,20 +63,28 @@ sizes; every run runs all of them, and any failure exits non-zero):
    whole sequence (BH 8, S 4096, hd 64; f32 within 1e-4; bf16 each
    element within one bf16 step of the plain version plus 1e-4, both
    sides rounding an f32 result) and every ring_attention variant at
-   ``RingAttention``'s defaults within 1e-4; timed beside
-   ``scaled_dot_product_attention``.
+   ``RingAttention``'s defaults (f32 within 1e-4; the bf16 ring under
+   the bf16 gate); timed beside ``scaled_dot_product_attention`` in the
+   variant's type and against the bound (f32 at the 3xTF32 rate).
 11. ``ga_main`` — the GEMM+AllGather search, counted like ``kv_main``:
     ``fast_path`` on ``GemmAllGather()`` with full-width verification
     inputs, then nine more directives, each to level 3.
 12. ``ring_main`` — the ring-attention search, counted the same way
     (fast_path, then eleven directives), then ``kernels/ops.py``'s
     wrappers at work: the FLUX ring against flash attention over the
-    gathered sequence and the oracle, bf16 flash against the oracle on
-    its bf16 inputs, non-causal flash against the oracle, and at fig3's
-    largest row (BH 96, seq 8192) the pipelined and FLUX rings and flash.
+    gathered sequence and the oracle, bf16 flash and the bf16 FLUX ring
+    against the oracle on their bf16 inputs, non-causal flash against the
+    oracle, and at fig3's largest row (BH 96, seq 8192) the pipelined and
+    FLUX rings and flash.
     The counters are read there; each deployment ring's output is then
     held against its plain version, flash (1e-4) and, on two heads, the
     oracle, and timed: the records of fig3's row.
+13. ``ring_split`` — the ring's CTA split on the card: the pipelined and
+    FLUX rings at the defaults and at fig3's row and the bf16 FLUX ring,
+    each launched and timed on ``ring_ctas``' split, the split by
+    attended tile pairs, the even split and a closed form that balances
+    each rank's tile pairs alone; every launch's credit counters must
+    show its split and its output pass the variant's gate.
 
 ``--iters`` sets the timed launches per kernel (1 for a quick check after
 a kernel change). The line before the last is the ``kernels`` JSON
@@ -185,10 +195,17 @@ def phase_build(device="cuda"):
     grid, per_sm = gemm_allgather.grid_for(device, 4)
     log(f"grid: gemm_allgather n=4: {grid} CTAs ({per_sm} per SM), "
         f"{grid // 4} per rank")
-    for hd in (64, 128):
-        grid, per_sm = ring_attention.grid_for(device, 4, hd)
-        log(f"grid: ring_attention n=4 hd<={hd}: {grid} CTAs ({per_sm} per "
-            f"SM), {grid // 4} per rank")
+    w, (dBH, dseq) = ring_workload(), deploy_shape()
+    n, dsl = w.n_dev, dseq // w.n_dev
+    for dtype in (torch.float32, torch.bfloat16):
+        for hd in (64, 128):
+            grid, per_sm = ring_attention.grid_for(device, n, hd, dtype=dtype)
+            log(f"grid: ring_attention n={n} hd<={hd} {str(dtype)[6:]}: "
+                f"{grid} CTAs ({per_sm} per SM); per rank at the defaults "
+                f"(BH {w.BH}, Sl {w.sl}) "
+                f"{ring_attention.ring_ctas(grid, n, w.BH, w.sl)}, at the "
+                f"deployment row (BH {dBH}, Sl {dsl}) "
+                f"{ring_attention.ring_ctas(grid, n, dBH, dsl)}")
 
 
 HIDE_CYCLES = 5_000_000    # ~2.5 ms of device spin ahead of each timed call
@@ -885,13 +902,14 @@ def gathered(t):
 def attn_bound(BH, S, hd, causal=True, esize=4):
     """Least time of attention over (BH, S, hd) on an H100: the score and
     value products over the pairs this mask keeps (S(S+1)/2 causal, S^2
-    otherwise) over the rate of the input type (f32: 67 TFLOP/s outside
-    the tensor cores; bf16: 989 TFLOP/s), or q, k, v read and the output
-    written once over HBM, whichever is larger."""
+    otherwise) over the rate of the input type (f32: f32-accurate on the
+    tensor cores, 3xTF32's 165 TFLOP/s, as the kernels compute it; bf16:
+    989 TFLOP/s), or q, k, v read and the output written once over HBM,
+    whichever is larger."""
     pairs = S * (S + 1) // 2 if causal else S * S
     flops = 4 * BH * hd * pairs
     nbytes = 4 * BH * S * hd * esize
-    rate = F32_FLOPS if esize == 4 else BF16_FLOPS
+    rate = TF32X3_FLOPS if esize == 4 else BF16_FLOPS
     t_ops, t_bytes = flops / rate, nbytes / HBM_BYTES_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
@@ -916,7 +934,8 @@ def phase_attn_kernels(device="cuda", workload=None, iters=5):
     BH 8 x S 4096 x hd 64: f32 within 1e-4; bf16 each element within one
     bf16 step plus 1e-4, as both sides round an f32 result) and every
     ring_attention variant (at RingAttention's defaults, within 1e-4: sums
-    in another order) against its plain version, timed beside the bound,
+    in another order; ``BF16_VARIANTS`` on the same inputs in bf16, under
+    the bf16 gate) against its plain version, timed beside the bound,
     the plain version and ``scaled_dot_product_attention``. Returns one
     record per variant for the ``kernels`` line. (fig3's largest row is
     checked and timed by ``ring_main``, on the outputs of its counted
@@ -945,16 +964,111 @@ def phase_attn_kernels(device="cuda", workload=None, iters=5):
             "ring_main"))
         del fq, fk, fv
     n, BH, Sl, hd = q.shape
-    lib = ("sdpa", bench.ms(lambda: _sdpa(*flat, True)))
-    for key, knobs in ra.VARIANTS.items():
-        out.append(bench.record(
-            f"ring_attention/{key}", f"n={n} BH={BH} Sl={Sl} hd={hd} f32",
-            lambda: ra.ring_attention(q, k, v, **knobs),
-            lambda: ra.ring_attention_plain(q, k, v, **knobs), 1e-4,
-            attn_bound(BH, w.seq, hd, True), lib, RING_SOURCE, RING_REPLACES,
-            ("ring_attention", key, n, BH, Sl, hd), "ring_main"))
+    for dtype, variants in ((torch.float32, ra.VARIANTS),
+                            (torch.bfloat16, ra.BF16_VARIANTS)):
+        rq, rk, rv = (t.to(dtype) for t in (q, k, v))
+        bf16 = dtype == torch.bfloat16
+        whole = [gathered(t).contiguous() for t in (rq, rk, rv)]
+        lib = ("sdpa", bench.ms(lambda: _sdpa(*whole, True)))
+        del whole
+        for key, knobs in variants.items():
+            out.append(bench.record(
+                f"ring_attention/{key}",
+                f"n={n} BH={BH} Sl={Sl} hd={hd} {'bf16' if bf16 else 'f32'}",
+                lambda: ra.ring_attention(rq, rk, rv, **knobs),
+                lambda: ra.ring_attention_plain(rq, rk, rv, **knobs),
+                "bf16" if bf16 else 1e-4,
+                attn_bound(BH, w.seq, hd, True, esize=2 if bf16 else 4), lib,
+                RING_SOURCE, RING_REPLACES,
+                ("ring_attention", key, n, BH, Sl, hd), "ring_main"))
+        del rq, rk, rv
     del q, k, v, flat
     return out
+
+def balanced_split(grid, n, BH, Sl, causal=True):
+    """The closed form the search is held against: each CTA added in turn
+    to the rank whose busiest CTA attends the most tile pairs over the n
+    steps (ceil(BH nqt / c_r) pieces of ``ring_work`` / (BH nqt) pairs
+    each; ties to the later rank), with no wait between ranks counted."""
+    from repro_torch.kernels.ring_attention import TILE, ring_work
+    pieces = BH * -(-Sl // TILE)
+    per_piece = [w / pieces for w in ring_work(n, BH, Sl, causal)]
+    ctas = [1] * n
+    for _ in range(grid - n):
+        cost = [-(-pieces // c) * w for c, w in zip(ctas, per_piece)]
+        ctas[max(range(n), key=lambda r: (cost[r], r))] += 1
+    return ctas
+
+
+def split_candidates(grid, n, BH, Sl, causal=True):
+    """The CTA splits phase ``ring_split`` runs the ring on: ``ring_ctas``
+    (the search against ``ring_makespan``), the split by attended tile
+    pairs (``cta_split`` over ``ring_work``), the even split and
+    :func:`balanced_split`."""
+    from repro_torch.kernels import ring_attention as ra
+    from repro_torch.kernels.split import cta_split
+    return {"ring_ctas": ra.ring_ctas(grid, n, BH, Sl, causal),
+            "pairs": cta_split(grid, ra.ring_work(n, BH, Sl, causal)),
+            "even": cta_split(grid, [1] * n),
+            "balanced": balanced_split(grid, n, BH, Sl, causal)}
+
+
+def phase_ring_split(device="cuda", workload=None, deploy=None, iters=5):
+    """The ring's CTA split on the card: the pipelined and FLUX rings at
+    the defaults and at fig3's largest row (f32) and the bf16 FLUX ring
+    at the defaults, each launched on every split of
+    :func:`split_candidates`. Each launch's credit counters must show the
+    split it was given and its output must pass the variant's gate
+    against the plain version; the ``split:`` lines give each split's
+    device time. Returns {(variant, BH, split name): ms}. Skipped on the
+    cpu, where no split is launched."""
+    from unittest import mock
+
+    from repro_torch.kernels import ring_attention as ra
+    if torch.device(device).type != "cuda":
+        log("ring_split: skipped on the cpu (a split is a launch's)")
+        return {}
+    bench = Bench(device, iters)
+    w = workload or ring_workload()
+    cases = [(BH, seq, dtype, key) for BH, seq, dtype, keys in (
+        (w.BH, w.seq, torch.float32, DEPLOY_VARIANTS),
+        (w.BH, w.seq, torch.bfloat16, tuple(ra.BF16_VARIANTS)),
+        (*(deploy or deploy_shape()), torch.float32, DEPLOY_VARIANTS))
+        for key in keys]
+    out = {}
+    for BH, seq, dtype, key in cases:
+        knobs = dict(ra.VARIANTS, **ra.BF16_VARIANTS)[key]
+        q, k, v = (t.to(dtype) for t in ring_inputs(w, device, seed=4, BH=BH,
+                                                     seq=seq))
+        n, _, Sl, hd = q.shape
+        bf16 = dtype == torch.bfloat16
+        grid, _ = ra.grid_for(q.device, n, hd, dtype=dtype)
+        launch = dict(dict(causal=True, kv_chunk=None, fused=False,
+                           counter=False, pipelined=True, eager_wait=False,
+                           contexts=2), **knobs)
+        with torch.no_grad():
+            want = ra.ring_attention_plain(q, k, v, **knobs)
+        line = []
+        for name, ctas in split_candidates(grid, n, BH, Sl).items():
+            with mock.patch.object(ra, "ring_ctas",
+                                   lambda *a, c=ctas, **kw: list(c)):
+                with torch.no_grad():
+                    got, done = ra._launch(q, k, v, stall=None, **launch)
+                if done.cpu().tolist() != [c * max(n - 2, 0) for c in ctas]:
+                    raise SystemExit(f"ring_split {key} {name}: the credit "
+                                     f"counters read {done.tolist()}, not "
+                                     f"the split {ctas}")
+                _close(f"ring_split {key} {name}", got, want,
+                       "bf16" if bf16 else 1e-4)
+                del got, done
+                ms = bench.ms(lambda: ra.ring_attention(q, k, v, **knobs))
+            out[(key, BH, name)] = ms
+            line.append(f"{name} {ctas} {ms:.3f} ms")
+        log(f"split: ring_attention/{key} n={n} BH={BH} Sl={Sl} hd={hd} "
+            f"{'bf16' if bf16 else 'f32'} ({grid} CTAs): " + "; ".join(line))
+        del q, k, v, want
+    return out
+
 
 def ring_directives():
     """Table 3's points, fig3's host, deferred and flux points, the
@@ -987,9 +1101,10 @@ def phase_ring_main(device="cuda", workload=None, deploy=None, iters=5):
     directive of :func:`ring_directives`, on full-width verification
     inputs), then the public wrappers at work — ``ops.ring_attention``
     (FLUX) against ``ops.flash_attention`` over the gathered sequence and
-    the evaluator's oracle (f32 within 1e-4), bf16 flash against the
-    oracle on the same bf16 inputs (each element within one bf16 step
-    plus 1e-4), non-causal flash against ``flash_attention_ref`` — and at
+    the evaluator's oracle (f32 within 1e-4), bf16 flash and the bf16
+    FLUX ring against the oracle on the same bf16 inputs (each element
+    within one bf16 step plus 1e-4), non-causal flash against
+    ``flash_attention_ref`` — and at
     fig3's largest row the pipelined and FLUX rings and flash over the
     whole sequence. The counters are read there; then each deployment
     ring's output is held against its plain version, against flash and,
@@ -1015,11 +1130,16 @@ def phase_ring_main(device="cuda", workload=None, deploy=None, iters=5):
         bq, bk, bv = (t.bfloat16() for t in (fq, fk, fv))
         want = gathered(ev.expected)
         flash = ops.flash_attention(fq, fk, fv, causal=True)
+        bref = flash_attention_ref(bq, bk, bv)
+        bring = gathered(ops.ring_attention(
+            *(t.bfloat16() for t in (q, k, v)), mesh,
+            **ra.BF16_VARIANTS["fused_counter_bf16"]))
         checks = [("ring vs flash", ring, flash, 1e-4),
                   ("flash vs oracle", flash, want, 1e-4),
                   ("bf16 flash vs oracle on its bf16 inputs",
-                   ops.flash_attention(bq, bk, bv),
-                   flash_attention_ref(bq, bk, bv), "bf16"),
+                   ops.flash_attention(bq, bk, bv), bref, "bf16"),
+                  ("bf16 ring vs oracle on its bf16 inputs", bring, bref,
+                   "bf16"),
                   ("non-causal flash vs oracle",
                    ops.flash_attention(fq, fk, fv, causal=False),
                    flash_attention_ref(fq, fk, fv, causal=False), 1e-4)]
@@ -1027,7 +1147,8 @@ def phase_ring_main(device="cuda", workload=None, deploy=None, iters=5):
             reading, _ = _close(name, got, ref, tol)
             log(f"attention {name} BH={w.BH} S={w.seq} hd={w.hd}: "
                 f"{_reading(reading, tol)}")
-        del ring, flash, want, checks, q, k, v, fq, fk, fv, bq, bk, bv
+        del ring, flash, want, checks, q, k, v, fq, fk, fv, bq, bk, bv, bref, \
+            bring
         BH, seq = deploy or deploy_shape()
         q, k, v = ring_inputs(w, device, seed=3, BH=BH, seq=seq)
         t0 = time.perf_counter()
@@ -1090,6 +1211,7 @@ def main(argv=None):
     counted["ga_main"] = phase_ga_main("cuda")
     counted["ring_main"], deployed = phase_ring_main("cuda", iters=args.iters)
     records += deployed
+    phase_ring_split("cuda", iters=args.iters)
     for path, counts in counted.items():
         log(f"launches on the {path} path: {counts}")
     for rec in records:

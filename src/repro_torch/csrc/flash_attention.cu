@@ -6,19 +6,24 @@
 // running max, sum and accumulator in f32, masked scores -1e30, the output
 // acc / max(l, 1e-30) stored in q's dtype (f32 or bf16 in, same out).
 //
-// Design: one CTA per (bh, 64-row query tile), where the Pallas grid ran
-// its kv axis in order on one core: here a loop inside the CTA walks the
-// key tiles (attend.cuh) and, under `causal`, stops at the tile holding
-// the tile's last query, as _fa_kernel skips fully masked kv blocks (a
-// fully masked tile after the first would add exactly 0). The longest
-// causal rows are scheduled first, so the short ones fill the tail. The
-// q_block / kv_block of the reference shape only its grid; the wrapper
-// keeps its divisibility checks and the kernel always tiles 64 x 64.
+// Design: one CTA of 4 warps per (bh, 64-row query tile), where the
+// Pallas grid ran its kv axis in order on one core: here a loop inside
+// the CTA walks the key tiles through attend.cuh's tensor-core step (bf16
+// m16n8k16 for bf16 inputs, 3xTF32 m16n8k8 for f32; K and V double
+// buffered by cp.async) and, under `causal`, stops at the tile holding the
+// tile's last query, as _fa_kernel skips fully masked kv blocks (a fully
+// masked tile after the first would add exactly 0). The longest causal
+// rows are scheduled first, so the short ones fill the tail. The q_block /
+// kv_block of the reference shape only its grid; the wrapper keeps its
+// divisibility checks and the kernel always tiles 64 x 64.
 //
 // Bound: at (BH 8, S 4096, hd 64) the call does 17.2 GFLOP causal (34.4
-// non-causal) of f32 against 33.6 MB of traffic (f32), so the f32
-// (non-tensor-core) rate bounds it: 0.256 ms causal on an H100 SXM. This
-// first version runs on the SIMT cores (no wgmma, no TMA).
+// non-causal) against 33.6 MB of traffic (f32), so the operations bound
+// it: f32-accurate on the tensor cores (3xTF32, 495 / 3 = 165 TFLOP/s)
+// 0.104 ms causal on an H100 SXM; bf16 at 989 TFLOP/s, 0.017 ms. The
+// step spends four MMA a multiply-add in bf16 (P as hi + lo) and three in
+// f32, plus the split of every f32 operand on the integer and f32 pipes
+// and the softmax on the SFU; attend.cuh's header has the layout.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -29,7 +34,7 @@ struct FlashParams {
   int BH, S, Skv, hd;
   int causal;
   int bf16;       // q, k, v and out are bf16 (else f32)
-  int vec;        // hd a multiple of 4 and aligned bases: vector loads
+  int vec;        // rows of 16-byte multiples, 16-byte aligned bases: cp.async
   float scale;
   const void* q;  // (BH, S, hd)
   const void* k;  // (BH, Skv, hd)
@@ -37,10 +42,11 @@ struct FlashParams {
   void* out;      // (BH, S, hd)
 };
 
-template <int HDP, typename T>
-__global__ void __launch_bounds__(ATT_NT) flash_attention_kernel(FlashParams P) {
+template <typename T, int HDP>
+__global__ void __launch_bounds__(ATT_NT, Attn<T, HDP>::MIN_CTAS)
+    flash_attention_kernel(FlashParams P) {
   extern __shared__ float4 smem_raw[];
-  AttnSmem<HDP>& sm = *reinterpret_cast<AttnSmem<HDP>*>(smem_raw);
+  char* smem = reinterpret_cast<char*>(smem_raw);
   const int nqt = (P.S + ATT_BQ - 1) / ATT_BQ;
   const int bh = blockIdx.x % P.BH;
   const int q0 = (nqt - 1 - (int)blockIdx.x / P.BH) * ATT_BQ;  // longest rows first
@@ -48,24 +54,25 @@ __global__ void __launch_bounds__(ATT_NT) flash_attention_kernel(FlashParams P) 
   const T* q = reinterpret_cast<const T*>(P.q) + ((size_t)bh * P.S + q0) * P.hd;
   const T* k = reinterpret_cast<const T*>(P.k) + (size_t)bh * P.Skv * P.hd;
   const T* v = reinterpret_cast<const T*>(P.v) + (size_t)bh * P.Skv * P.hd;
-  load_rows<HDP>(sm.q, q, nq, P.hd, P.vec);
   AttnState<HDP> st;
   attn_init(st);
   const int kend = P.causal ? min(P.Skv, q0 + nq) : P.Skv;
-  for (int k0 = 0; k0 < kend; k0 += ATT_BKV)
-    attn_tile(st, sm, k + (size_t)k0 * P.hd, v + (size_t)k0 * P.hd, min(ATT_BKV, P.Skv - k0),
-              P.hd, P.vec, k0, q0, P.causal, P.scale);
-  attn_store(st, reinterpret_cast<T*>(P.out) + ((size_t)bh * P.S + q0) * P.hd, nq, P.hd);
+  attn_piece<T, HDP>(st, smem, q, nq, k, v, P.Skv, kend, P.hd, P.vec, q0, 0, P.causal, P.scale,
+                     [](int) {});
+  const int b = opaque_int(blockIdx.x);  // the tile found anew after the loop
+  const int q1 = (nqt - 1 - b / P.BH) * ATT_BQ;
+  attn_store<T, HDP>(st, smem, reinterpret_cast<T*>(P.out) + ((size_t)(b % P.BH) * P.S + q1) * P.hd,
+                     min(ATT_BQ, P.S - q1), P.hd, P.vec);
 }
 
-template <int HDP, typename T>
+template <typename T, int HDP>
 static cudaError_t launch(const FlashParams* p, cudaStream_t stream) {
-  const int smem = (int)sizeof(AttnSmem<HDP>);
-  cudaError_t e = cudaFuncSetAttribute(flash_attention_kernel<HDP, T>,
+  const int smem = Attn<T, HDP>::SMEM;
+  cudaError_t e = cudaFuncSetAttribute(flash_attention_kernel<T, HDP>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   const int nqt = (p->S + ATT_BQ - 1) / ATT_BQ;
-  flash_attention_kernel<HDP, T><<<p->BH * nqt, ATT_NT, smem, stream>>>(*p);
+  flash_attention_kernel<T, HDP><<<p->BH * nqt, ATT_NT, smem, stream>>>(*p);
   return cudaGetLastError();
 }
 
@@ -77,8 +84,8 @@ int flash_attention_launch(const FlashParams* p, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (p->hd < 1 || p->hd > 128) return -1;
   if (p->hd <= 64)
-    return (int)(p->bf16 ? launch<64, __nv_bfloat16>(p, s) : launch<64, float>(p, s));
-  return (int)(p->bf16 ? launch<128, __nv_bfloat16>(p, s) : launch<128, float>(p, s));
+    return (int)(p->bf16 ? launch<__nv_bfloat16, 64>(p, s) : launch<float, 64>(p, s));
+  return (int)(p->bf16 ? launch<__nv_bfloat16, 128>(p, s) : launch<float, 128>(p, s));
 }
 
 const char* flash_attention_error(int code) {

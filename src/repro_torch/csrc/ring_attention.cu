@@ -5,69 +5,85 @@
 //
 // Replaces src/repro/kernels/ring_attention.py::_ring_kernel (the Pallas
 // kernel behind ring_attention_sharded and ring_attention). It computes
-// the same function in f32: the attend step is _fa_kernel's (attend.cuh),
-// masked scores -1e30, the output acc / max(l, 1e-30).
+// the same function in q's dtype (f32 or bf16 in, buffers and output the
+// same) with the math in f32: the attend step is _fa_kernel's
+// (attend.cuh's tensor-core step), masked scores -1e30, the output
+// acc / max(l, 1e-30).
 //
 // Layout: the n ranks are n partitions of ONE cooperative launch over one
-// allocation (CTA b is rank b % n). Each rank's CTAs own (bh, 64-row
-// query tile) pieces of its Q shard. In step s a rank attends to the
-// shard that started on rank (r - s) % n: at step 0 its own k / v, after
-// that slot s % 2 of its double buffer (kbuf / vbuf, (n, 2, BH, Sl, hd)).
-// In step s it also forwards what it holds into the next rank's slot
-// (s + 1) % 2: each CTA stores its share of each chunk (rows
-// [c*kv_chunk, (c+1)*kv_chunk) of every bh), then ticks a flag word per
-// (receiving rank, step, chunk) by the elements landed (flags.cuh).
+// allocation: rank r's CTAs are [cta0[r], cta0[r + 1]), a split the
+// wrapper makes by each rank's causal work (kernels/ring_attention.py::
+// ring_ctas: rank r attends to r full shards and its own diagonal, so an
+// even split left rank n - 1 with (2n - 1) / n^2 of the work on 1 / n of
+// the CTAs; the split also weighs whole pieces and the waits between
+// ranks). Each rank's CTAs own (bh, 64-row query tile) pieces of its Q
+// shard, dealt in snake order (piece_of). In step s a rank attends to the shard that started on rank
+// (r - s) % n: at step 0 its own k / v, after that slot s % 2 of its
+// double buffer (kbuf / vbuf, (n, 2, BH, Sl, hd)). In step s it also
+// forwards what it holds into the next rank's slot (s + 1) % 2: each CTA
+// stores its share of each chunk (rows [c*kv_chunk, (c+1)*kv_chunk) of
+// every bh), then ticks a flag word per (receiving rank, step, chunk) by
+// the elements landed (flags.cuh).
 // Realizations, as _ring_kernel orders them:
 //   fused COUNTER  chunk by chunk: wait chunk c's arrival just before the
-//                  first key tile that needs it, forward it, attend;
+//                  first key tile that needs it is copied, forward it,
+//                  attend;
 //   fused SIGNAL   wait all of the step's chunks first, then the same;
 //   pipelined      one whole-shard round per step: forward, attend, then
 //                  wait for the next step's shard (the lazy fence);
 //   deferred/eager forward, wait for the next step's shard, then attend.
 // The free-slot credit is required on the card, not a window: before it
-// forwards in step s >= 1 a CTA waits until every CTA of the next rank has
-// finished step s - 1 (a per-rank counter the CTAs bump after steps s <=
-// n - 3), since the slot it writes is the one that rank read then. A key
-// tile fully masked for a piece's queries is skipped, as _fa_kernel skips
-// masked kv blocks; that is exact, since every query row meets an
-// unmasked key in step 0's first tile (its own shard), so its running max
-// is finite before any masked tile comes. A CTA holding one piece keeps
-// its softmax state in registers across steps; one holding several parks
-// it between steps in `out` (the accumulator) and `ml` (max and sum). The
-// reference's `contexts` send window has no counterpart: a store and its
-// flag retire as they issue (ROADMAP queue 3). The wrapper zeroes the
-// flags and counters on the launch stream before every launch.
+// forwards in step s >= 2 a CTA waits until every CTA of the next rank has
+// finished step s - 1 (a per-rank counter the CTAs bump after steps
+// s <= n - 3, awaited at the next rank's CTA count times s), since the
+// slot it writes is the one that rank read then (step 1 writes slot 0,
+// which nothing has read: step 0 reads k / v themselves). A key tile fully masked
+// for a piece's queries is skipped, as _fa_kernel skips masked kv blocks;
+// that is exact, since every query row meets an unmasked key in step 0's
+// first tile (its own shard), so its running max is finite before any
+// masked tile comes. A CTA holding one piece keeps its softmax state in
+// registers across steps; one holding several parks it between steps in
+// `acc` (the f32 accumulator; `out` itself for f32) and `ml` (max and
+// sum). The reference's `contexts` send window has no counterpart: a
+// store and its flag retire as they issue (ROADMAP queue 3). The wrapper
+// zeroes the flags and counters on the launch stream before every launch.
 //
 // Bound: at RingAttention's defaults (n=4, BH=8, seq=4096, hd=64, causal)
-// the call does the work of causal flash attention at S=4096, 17.2 GFLOP
-// of f32, so the f32 (non-tensor-core) rate bounds it: 0.256 ms on an H100
-// SXM (12.3 ms at BH=96, seq=8192). Causal work is uneven across ranks
-// (rank r attends to r + 1/2 shards' worth) while the CTAs split evenly.
-// This first version runs on the SIMT cores (no wgmma, no TMA).
+// the call does the work of causal flash attention at S=4096, 17.2 GFLOP,
+// so the operations bound it: f32-accurate on the tensor cores (3xTF32,
+// 165 TFLOP/s) 0.104 ms on an H100 SXM (5.0 ms at BH=96, seq=8192); bf16
+// at 989 TFLOP/s, 0.017 ms. Forwarding moves each K / V shard n - 1 hops
+// (4 MB a rank and step at the defaults in f32): each thread keeps four
+// 16-byte loads in flight, so the few CTAs of rank 0 keep their share
+// moving.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "attend.cuh"
 #include "flags.cuh"
 
+#define RING_MAXN 16
+
 struct RingParams {
   int n, BH, Sl, hd;
   int chunk_rows;   // rows per flag chunk: kv_chunk when fused, else Sl
   int nc;           // chunks per shard: Sl / chunk_rows
   int fused, counter, pipelined, eager;
-  int causal, vec;
-  int per_rank;     // CTAs per rank
+  int causal;
+  int bf16;         // q, k, v, out and the buffers are bf16 (else f32)
+  int cta0[RING_MAXN + 1];  // rank r's CTAs: [cta0[r], cta0[r + 1])
   int timeout_ms;
   int stall_rank;   // read only by the -DRING_TEST_STALL build (the tests'
   int stall_us;     // slowed rank): this rank's CTAs idle stall_us before
                     // each step's attention
   float scale;
-  const float* q;   // (n, BH, Sl, hd)
-  const float* k;
-  const float* v;
-  float* out;       // (n, BH, Sl, hd); parks accumulators between steps
-  float* kbuf;      // (n, 2, BH, Sl, hd): the double buffer
-  float* vbuf;
+  const void* q;    // (n, BH, Sl, hd)
+  const void* k;
+  const void* v;
+  void* out;        // (n, BH, Sl, hd)
+  float* acc;       // (n, BH, Sl, hd) f32: parks accumulators between steps
+  void* kbuf;       // (n, 2, BH, Sl, hd): the double buffer
+  void* vbuf;
   float* ml;        // (2, n, BH, Sl): parked running max and sum
   unsigned* flag;   // (n, n, nc): elements landed per (rank, step, chunk)
   unsigned* done;   // (n): CTA-steps each rank finished (the credit)
@@ -83,88 +99,122 @@ __device__ __forceinline__ unsigned* flag_of(const RingParams& P, int rank, int 
   return P.flag + ((size_t)rank * P.n + step) * P.nc + c;
 }
 
-// this CTA's share of chunk c of (k, v) into (kn, vn), then its tick of
-// the receiver's flag for `step`
-__device__ void forward_chunk(const RingParams& P, const float* k, const float* v, float* kn,
-                              float* vn, int c, int pid, unsigned* flag) {
-  const size_t per_bh = (size_t)P.chunk_rows * P.hd;
-  const size_t units = P.BH * per_bh / 4;  // hd % 4 == 0 (the wrapper checks)
-  const size_t lo = units * pid / P.per_rank, hi = units * (pid + 1) / P.per_rank;
-  for (size_t u = lo + threadIdx.x; u < hi; u += ATT_NT) {
-    const size_t e = 4 * u, bh = e / per_bh;
-    const size_t at = (bh * P.Sl + (size_t)c * P.chunk_rows) * P.hd + e % per_bh;
-    *reinterpret_cast<float4*>(kn + at) = __ldcg(reinterpret_cast<const float4*>(k + at));
-    *reinterpret_cast<float4*>(vn + at) = __ldcg(reinterpret_cast<const float4*>(v + at));
-  }
-  cta_signal(flag, (unsigned)(8 * (hi - lo)));
-}
-
-template <int HDP>
-__device__ void park(const RingParams& P, const AttnState<HDP>& st, size_t row0, int nq) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const size_t rows = (size_t)P.n * P.BH * P.Sl;
+// this CTA's share (pid of cnt) of chunk c of (k, v) into (kn, vn), four
+// 16-byte loads in flight a thread, then its tick of the receiver's flag
+// by the elements it landed. Index math in 32 bits (the wrapper bounds a
+// chunk's elements below 2^32): a 64-bit divide a unit held rank 0's few
+// CTAs to about 1 GB/s each.
+template <typename T>
+__device__ void forward_chunk(const RingParams& P, int cnt, const T* k, const T* v, T* kn, T* vn,
+                              int c, int pid, unsigned* flag) {
+  constexpr int PER = 16 / sizeof(T), DEPTH = 4;
+  const unsigned per_bh = (unsigned)(P.chunk_rows * P.hd / PER);  // units of a bh's chunk
+  const unsigned units = (unsigned)P.BH * per_bh;
+  const unsigned lo = (unsigned)((unsigned long long)units * pid / cnt);
+  const unsigned hi = (unsigned)((unsigned long long)units * (pid + 1) / cnt);
+  const size_t bh_stride = (size_t)P.Sl * P.hd, base = (size_t)c * P.chunk_rows * P.hd;
+  for (unsigned u0 = lo + threadIdx.x; u0 < hi; u0 += DEPTH * ATT_NT) {
+    uint4 kx[DEPTH], vx[DEPTH];
+    size_t at[DEPTH];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    if (r >= nq) continue;
-    if (tx == 0) {
-      P.ml[row0 + r] = st.m[i];
-      P.ml[rows + row0 + r] = st.l[i];
+    for (int i = 0; i < DEPTH; ++i) {
+      const unsigned u = u0 + i * ATT_NT;
+      if (u >= hi) break;
+      const unsigned bh = u / per_bh;
+      at[i] = bh * bh_stride + base + (size_t)(u - bh * per_bh) * PER;
+      kx[i] = __ldcg(reinterpret_cast<const uint4*>(k + at[i]));
+      vx[i] = __ldcg(reinterpret_cast<const uint4*>(v + at[i]));
     }
 #pragma unroll
-    for (int e = 0; e < HDP / 16; ++e)
-      if (attn_col(e) < P.hd) P.out[(row0 + r) * P.hd + attn_col(e)] = st.o[i][e];
+    for (int i = 0; i < DEPTH; ++i) {
+      if (u0 + i * ATT_NT >= hi) break;
+      *reinterpret_cast<uint4*>(kn + at[i]) = kx[i];
+      *reinterpret_cast<uint4*>(vn + at[i]) = vx[i];
+    }
   }
+  cta_signal(flag, 2 * PER * (hi - lo));
 }
 
-template <int HDP>
-__device__ void unpark(const RingParams& P, AttnState<HDP>& st, size_t row0, int nq) {
-  const int ty = threadIdx.x / 16;
-  const size_t rows = (size_t)P.n * P.BH * P.Sl;
-  attn_init(st);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    if (r >= nq) continue;
-    st.m[i] = P.ml[row0 + r];
-    st.l[i] = P.ml[rows + row0 + r];
-#pragma unroll
-    for (int e = 0; e < HDP / 16; ++e)
-      if (attn_col(e) < P.hd) st.o[i][e] = P.out[(row0 + r) * P.hd + attn_col(e)];
-  }
+// Piece i of this CTA (pid of cnt), or -1: the rounds of cnt pieces go
+// out in snake order (round i to pid, round i + 1 to cnt - 1 - pid), so a
+// CTA holding a long causal row in one round holds a short one in the
+// next (pieces run in query-tile order).
+__device__ __forceinline__ int piece_of(int i, int pid, int cnt, int npieces) {
+  const int p = i * cnt + (i & 1 ? cnt - 1 - pid : pid);
+  return p < npieces ? p : -1;
 }
 
-// Two CTAs per SM at hd <= 64 (at most 128 registers a thread): left to
-// itself ptxas takes up to 182, one CTA a SM, and the ring runs 35% slower.
-template <int HDP>
-__global__ void __launch_bounds__(ATT_NT, HDP <= 64 ? 2 : 1)
+// The slots of step s for rank me: the shard it reads (its own k / v in
+// step 0, then slot s % 2 of its double buffer) and the next rank's slot
+// it forwards into, (s + 1) % 2
+template <typename T>
+struct Slots {
+  const T *kd, *vd;
+  T *kn, *vn;
+  __device__ __forceinline__ Slots(const RingParams& P, int me, int s) {
+    const int nxt = (me + 1) % P.n;
+    const size_t shard = shard_elems(P);
+    kd = s ? reinterpret_cast<const T*>(P.kbuf) + ((size_t)me * 2 + s % 2) * shard
+           : reinterpret_cast<const T*>(P.k) + me * shard;
+    vd = s ? reinterpret_cast<const T*>(P.vbuf) + ((size_t)me * 2 + s % 2) * shard
+           : reinterpret_cast<const T*>(P.v) + me * shard;
+    kn = reinterpret_cast<T*>(P.kbuf) + ((size_t)nxt * 2 + (s + 1) % 2) * shard;
+    vn = reinterpret_cast<T*>(P.vbuf) + ((size_t)nxt * 2 + (s + 1) % 2) * shard;
+  }
+};
+
+// Where piece p of rank me sits: its bh, first query row q0 and rows nq
+// of its shard, and its first row in the (n, BH, Sl) rows of q and out
+struct PieceRows {
+  size_t bh, row0, rows;
+  int q0, nq;
+  __device__ __forceinline__ PieceRows(const RingParams& P, int me, int p) {
+    bh = p % P.BH;
+    q0 = (p / P.BH) * ATT_BQ;
+    nq = min(ATT_BQ, P.Sl - q0);
+    row0 = ((size_t)me * P.BH + bh) * P.Sl + q0;
+    rows = (size_t)P.n * P.BH * P.Sl;
+  }
+};
+
+template <typename T, int HDP>
+__global__ void __launch_bounds__(ATT_NT, Attn<T, HDP>::MIN_CTAS)
     ring_attention_kernel(RingParams P) {
   extern __shared__ float4 smem_raw[];
-  AttnSmem<HDP>& sm = *reinterpret_cast<AttnSmem<HDP>*>(smem_raw);
-  const int n = P.n, me = blockIdx.x % n, pid = blockIdx.x / n, nxt = (me + 1) % n;
-  const size_t shard = shard_elems(P);
+  char* smem = reinterpret_cast<char*>(smem_raw);
+  const int n = P.n;
+  int me = 0;
+  while (me + 1 < n && (int)blockIdx.x >= P.cta0[me + 1]) ++me;
+  const int nxt = (me + 1) % n;
+  const int pid = blockIdx.x - P.cta0[me], cnt = P.cta0[me + 1] - P.cta0[me];
+  const int cnt_nxt = P.cta0[nxt + 1] - P.cta0[nxt];
   const int nqt = (P.Sl + ATT_BQ - 1) / ATT_BQ, npieces = P.BH * nqt;
-  const bool resident = npieces - pid > 0 && npieces - pid <= P.per_rank;  // one piece
+  int mine = 0;
+  for (int i = 0; i * cnt < npieces; ++i) mine += piece_of(i, pid, cnt, npieces) >= 0;
+  const bool resident = mine == 1;  // its one piece's state stays in registers
   const unsigned chunk_flag = (unsigned)(2 * P.BH * P.chunk_rows * P.hd);
   AttnState<HDP> st;
   for (int s = 0; s < n; ++s) {
     const bool rotate = s <= n - 2;
     const int src = (me - s + n) % n;
-    const float* kd = s ? P.kbuf + ((size_t)me * 2 + s % 2) * shard : P.k + me * shard;
-    const float* vd = s ? P.vbuf + ((size_t)me * 2 + s % 2) * shard : P.v + me * shard;
-    float* kn = P.kbuf + ((size_t)nxt * 2 + (s + 1) % 2) * shard;
-    float* vn = P.vbuf + ((size_t)nxt * 2 + (s + 1) % 2) * shard;
-    if (rotate && s >= 1)  // the free-slot credit: the next rank is done reading
-      cta_wait(&P.done[nxt], (unsigned)(P.per_rank * s), P.timeout_ms, "ring_attention",
+    // the free-slot credit: the next rank is done reading the slot this
+    // step writes, (s + 1) % 2, in step s - 1. Not in step 1: slot 0 is
+    // first read in step 2 (step 0 reads k / v themselves), and waiting
+    // there held the last rank until rank 0 had run its whole diagonal.
+    if (rotate && s >= 2)
+      cta_wait(&P.done[nxt], (unsigned)(cnt_nxt * s), P.timeout_ms, "ring_attention",
                "credit", nxt, s);
     int ticked = 0;  // fused: chunks of this step waited for and forwarded
     auto tick = [&](int upto) {
+      const int step = opaque_int(s);
+      const Slots<T> sl(P, me, step);
       for (; ticked <= upto; ++ticked) {
-        if (s >= 1 && P.counter)
-          cta_wait(flag_of(P, me, s, ticked), chunk_flag, P.timeout_ms, "ring_attention",
-                   "chunk", s, ticked);
-        if (rotate)
-          forward_chunk(P, kd, vd, kn, vn, ticked, pid, flag_of(P, nxt, s + 1, ticked));
+        if (step >= 1 && P.counter)
+          cta_wait(flag_of(P, me, step, ticked), chunk_flag, P.timeout_ms, "ring_attention",
+                   "chunk", step, ticked);
+        if (step <= n - 2)
+          forward_chunk(P, cnt, sl.kd, sl.vd, sl.kn, sl.vn, ticked, pid,
+                        flag_of(P, nxt, step + 1, ticked));
       }
     };
     if (P.fused) {
@@ -173,7 +223,8 @@ __global__ void __launch_bounds__(ATT_NT, HDP <= 64 ? 2 : 1)
           cta_wait(flag_of(P, me, s, c), chunk_flag, P.timeout_ms, "ring_attention", "chunk",
                    s, c);
     } else if (rotate) {
-      forward_chunk(P, kd, vd, kn, vn, 0, pid, flag_of(P, nxt, s + 1, 0));
+      const Slots<T> sl(P, me, s);
+      forward_chunk(P, cnt, sl.kd, sl.vd, sl.kn, sl.vn, 0, pid, flag_of(P, nxt, s + 1, 0));
       if (P.eager || !P.pipelined)  // DEFERRED / eager: fenced before the compute
         cta_wait(flag_of(P, me, s + 1, 0), chunk_flag, P.timeout_ms, "ring_attention",
                  "shard", s + 1, 0);
@@ -184,33 +235,39 @@ __global__ void __launch_bounds__(ATT_NT, HDP <= 64 ? 2 : 1)
       while (globaltimer() - t0 < (unsigned long long)P.stall_us * 1000ull) __nanosleep(1000);
     }
 #endif
-    for (int piece = pid; piece < npieces; piece += P.per_rank) {
-      const int bh = piece % P.BH, q0 = (piece / P.BH) * ATT_BQ;
-      const int nq = min(ATT_BQ, P.Sl - q0);
-      const size_t row0 = ((size_t)me * P.BH + bh) * P.Sl + q0;
+    for (int i = 0; i * cnt < npieces; ++i) {
+      const int piece = piece_of(i, pid, cnt, npieces);
+      if (piece < 0) continue;
+      const PieceRows pr(P, me, piece);
+      const int qpos0 = me * P.Sl + pr.q0, kbase = src * P.Sl;
+      // keys of this shard at or before the piece's last query
+      const int kend = P.causal ? max(0, min(P.Sl, qpos0 + pr.nq - kbase)) : P.Sl;
+      // a parked state the step leaves as it is stays parked
+      const bool parked = s > 0 && !resident && (kend > 0 || s == n - 1);
       if (s == 0)
         attn_init(st);
-      else if (!resident)
-        unpark(P, st, row0, nq);
-      load_rows<HDP>(sm.q, P.q + row0 * P.hd, nq, P.hd, P.vec);
-      const long long qpos0 = (long long)me * P.Sl + q0, kbase = (long long)src * P.Sl;
-      // keys of this shard at or before the piece's last query
-      const int kend = P.causal ? (int)max(0LL, min((long long)P.Sl, qpos0 + nq - kbase))
-                                : P.Sl;
-      for (int k0 = 0; k0 < P.Sl; k0 += ATT_BKV) {
-        const int nk = min(ATT_BKV, P.Sl - k0);
-        if (P.fused) tick((k0 + nk - 1) / P.chunk_rows);
-        if (k0 >= kend) continue;
-        const size_t at = ((size_t)bh * P.Sl + k0) * P.hd;
-        attn_tile(st, sm, kd + at, vd + at, nk, P.hd, P.vec, kbase + k0, qpos0, P.causal,
-                  P.scale);
-      }
+      else if (parked)
+        attn_unpark<T, HDP>(st, smem, P.acc + pr.row0 * P.hd, P.ml + pr.row0,
+                            P.ml + pr.rows + pr.row0, pr.nq, P.hd);
+      const Slots<T> sl(P, me, s);
+      const size_t at = pr.bh * P.Sl * P.hd;
+      attn_piece<T, HDP>(st, smem, reinterpret_cast<const T*>(P.q) + pr.row0 * P.hd, pr.nq,
+                         sl.kd + at, sl.vd + at, P.Sl, kend, P.hd, true, qpos0, kbase, P.causal,
+                         P.scale, [&](int i) {
+                           // a tile's chunks arrive (and go on) before its copy
+                           const int last = i * ATT_BKV + min(ATT_BKV, P.Sl - i * ATT_BKV) - 1;
+                           if (P.fused) tick(last / P.chunk_rows);
+                         });
+      if (P.fused) tick(P.nc - 1);  // chunks past the piece's keys
+      const PieceRows po(P, me, opaque_int(piece));  // found anew: not held across the tiles
       if (s == n - 1)
-        attn_store(st, P.out + row0 * P.hd, nq, P.hd);
-      else if (!resident)
-        park(P, st, row0, nq);
+        attn_store<T, HDP>(st, smem, reinterpret_cast<T*>(P.out) + po.row0 * P.hd, po.nq, P.hd,
+                           true);
+      else if (!resident && (s == 0 || parked))
+        attn_park<T, HDP>(st, smem, P.acc + po.row0 * P.hd, P.ml + po.row0,
+                          P.ml + po.rows + po.row0, po.nq, P.hd);
     }
-    if (P.fused) tick(P.nc - 1);  // chunks no piece of this CTA reached
+    if (P.fused) tick(P.nc - 1);  // a CTA without a piece
     if (!P.fused && rotate && P.pipelined && !P.eager)  // the lazy fence
       cta_wait(flag_of(P, me, s + 1, 0), chunk_flag, P.timeout_ms, "ring_attention", "shard",
                s + 1, 0);
@@ -218,37 +275,53 @@ __global__ void __launch_bounds__(ATT_NT, HDP <= 64 ? 2 : 1)
   }
 }
 
-template <int HDP>
-static int smem_bytes() { return (int)sizeof(AttnSmem<HDP>); }
-
-template <int HDP>
-static cudaError_t grid_of(int n, int* grid, int* per_sm) {
+template <typename T, int HDP>
+static cudaError_t grid_of(int* grid, int* per_sm) {
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(ring_attention_kernel<HDP>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<HDP>());
+    e = cudaFuncSetAttribute(ring_attention_kernel<T, HDP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, Attn<T, HDP>::SMEM);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, ring_attention_kernel<HDP>, ATT_NT,
-                                                      smem_bytes<HDP>());
-  if (e == cudaSuccess) *grid = (*per_sm) * sms / n * n;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, ring_attention_kernel<T, HDP>,
+                                                      ATT_NT, Attn<T, HDP>::SMEM);
+  if (e == cudaSuccess) *grid = (*per_sm) * sms;
+  return e;
+}
+
+template <typename T, int HDP>
+static cudaError_t launch(const RingParams* p, int grid, cudaStream_t stream) {
+  void* args[] = {const_cast<RingParams*>(p)};
+  const void* fn = (const void*)ring_attention_kernel<T, HDP>;
+  cudaError_t e =
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, Attn<T, HDP>::SMEM);
+  if (e == cudaSuccess)
+    e = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(ATT_NT), args, Attn<T, HDP>::SMEM,
+                                    stream);
+  if (e == cudaSuccess) e = cudaGetLastError();
   return e;
 }
 
 extern "C" {
 
-// Largest co-resident grid for n ranks at head dimension hd (a multiple of
-// n). Returns a cudaError_t, or -1 without cooperative launch, -2 when a
-// rank would get no CTA, -3 for hd outside 1..128.
-int ring_attention_grid(int n, int hd, int* grid, int* per_sm) {
+// Largest co-resident grid for n ranks at head dimension hd, in bf16 or
+// f32 (CTAs per SM x SMs; the wrapper splits it over the ranks). Returns a
+// cudaError_t, or -1 without cooperative launch, -2 when a rank would get
+// no CTA, -3 for hd outside 1..128, -4 for n outside 1..RING_MAXN.
+int ring_attention_grid(int n, int hd, int bf16, int* grid, int* per_sm) {
   int dev = 0, coop = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (e != cudaSuccess) return (int)e;
   if (!coop) return -1;
   if (hd < 1 || hd > HDP_MAX) return -3;
-  e = hd <= 64 ? grid_of<64>(n, grid, per_sm) : grid_of<128>(n, grid, per_sm);
+  if (n < 1 || n > RING_MAXN) return -4;
+  if (bf16)
+    e = hd <= 64 ? grid_of<__nv_bfloat16, 64>(grid, per_sm)
+                 : grid_of<__nv_bfloat16, 128>(grid, per_sm);
+  else
+    e = hd <= 64 ? grid_of<float, 64>(grid, per_sm) : grid_of<float, 128>(grid, per_sm);
   if (e != cudaSuccess) return (int)e;
   return *grid < n ? -2 : 0;
 }
@@ -257,15 +330,14 @@ int ring_attention_grid(int n, int hd, int* grid, int* per_sm) {
 // resident at once, which the spin-waits require.
 int ring_attention_launch(const RingParams* p, int grid, void* stream) {
   if (p->hd < 1 || p->hd > HDP_MAX) return -3;
-  void* args[] = {const_cast<RingParams*>(p)};
-  const void* fn = p->hd <= 64 ? (const void*)ring_attention_kernel<64>
-                               : (const void*)ring_attention_kernel<128>;
-  const int smem = p->hd <= 64 ? smem_bytes<64>() : smem_bytes<128>();
-  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e == cudaSuccess)
-    e = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(ATT_NT), args, smem,
-                                    (cudaStream_t)stream);
-  if (e == cudaSuccess) e = cudaGetLastError();
+  if (p->n < 1 || p->n > RING_MAXN || p->cta0[p->n] != grid) return -4;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t e;
+  if (p->bf16)
+    e = p->hd <= 64 ? launch<__nv_bfloat16, 64>(p, grid, s)
+                    : launch<__nv_bfloat16, 128>(p, grid, s);
+  else
+    e = p->hd <= 64 ? launch<float, 64>(p, grid, s) : launch<float, 128>(p, grid, s);
   return (int)e;
 }
 
@@ -273,6 +345,7 @@ const char* ring_attention_error(int code) {
   if (code == -1) return "device does not support cooperative launch";
   if (code == -2) return "fewer co-resident CTAs than ranks";
   if (code == -3) return "head dimension outside 1..128";
+  if (code == -4) return "rank count outside 1..16, or a CTA table that does not cover the grid";
   return cudaGetErrorString((cudaError_t)code);
 }
 

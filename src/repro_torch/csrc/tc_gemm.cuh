@@ -3,14 +3,14 @@
 // tile of A (rows x K) times B (K x N), both row-major, at f32 accuracy.
 //
 // Products: mma.sync m16n8k8 on TF32 with the error-compensated 3xTF32
-// split. Each f32 operand x becomes hi (x rounded to TF32) and lo = x - hi;
-// every k step adds a_lo*b_hi, then a_hi*b_lo, then a_hi*b_hi (small terms
-// first). At the TF32 rate (495 TFLOP/s dense) three products per
-// multiply-add allow 165 TFLOP/s of f32-accurate work, against 67 on the
-// SIMT cores. Not wgmma: for tf32 it takes only K-major A and B, and the
-// weights here are (K, N) row-major (N-major); mma.sync fragments are
-// gathered from shared memory in any layout, so no weight is transposed
-// or copied.
+// split (mma.cuh's split_tf32 and mma_tf32). Each f32 operand x becomes
+// hi (x rounded to TF32) and lo = x - hi; every k step adds a_lo*b_hi,
+// then a_hi*b_lo, then a_hi*b_hi (small terms first). At the TF32 rate
+// (495 TFLOP/s dense) three products per multiply-add allow 165 TFLOP/s
+// of f32-accurate work, against 67 on the SIMT cores. Not wgmma: for
+// tf32 it takes only K-major A and B, and the weights here are (K, N)
+// row-major (N-major); mma.sync fragments are gathered from shared memory
+// in any layout, so no weight is transposed or copied.
 //
 // Staging: A and B arrive through a ring of STAGES BK = 32 deep slices in
 // dynamic shared memory, by cp.async (16 bytes a copy, one commit group a
@@ -39,6 +39,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "mma.cuh"
+
 namespace tc {
 
 constexpr int BM = 64, BN = 128, BK = 32, NT = 256, STAGES = 3;
@@ -66,47 +68,6 @@ struct TileB {
   int col_lo, col_hi;  // first global column of the low and high 64-column halves
   int ncols;           // tile columns (0..128) that load; the rest are zeros
 };
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes through L2, zero-filled when !ok (src is then only a valid address)
-__device__ __forceinline__ void cp16(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp4(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// x = hi + lo: hi rounds x to TF32 (half an ulp added to the magnitude,
-// then the 13 low bits cleared: cvt.rna's rounding, on the integer
-// pipe); lo = x - hi is exact in f32 and goes in as it is (the tensor core
-// reads its top 19 bits), so x is carried to 2^-21 of its magnitude
-__device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
-                                         const unsigned (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // issue the copies of depth slice [k0, k0 + BK) into one stage
 template <typename AT, bool VEC>

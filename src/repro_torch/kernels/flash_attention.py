@@ -131,8 +131,9 @@ def _launch(q, k, v, *, causal, q_block, kv_block):
                          f"got {hd}")
     q, k, v = (t.contiguous() for t in (q, k, v))
     out = torch.empty_like(q)
-    align = 16 if q.dtype == torch.float32 else 8
-    vec = hd % 4 == 0 and all(t.data_ptr() % align == 0 for t in (q, k, v))
+    # cp.async copies 16 bytes: rows of a 16-byte multiple, aligned bases
+    vec = hd * q.element_size() % 16 == 0 \
+        and all(t.data_ptr() % 16 == 0 for t in (q, k, v, out))
     p = _Params(BH=BH, S=S, Skv=Skv, hd=hd, causal=int(causal),
                 bf16=int(q.dtype == torch.bfloat16), vec=int(vec),
                 scale=1.0 / math.sqrt(hd), q=q.data_ptr(), k=k.data_ptr(),

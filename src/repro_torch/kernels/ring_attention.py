@@ -10,26 +10,33 @@ chunk, each chunk waited for just before use — the FLUX point for rings),
 fused SIGNAL (a step's chunks drained up front), pipelined (one
 whole-shard round per step, fenced after the compute: the lazy fence),
 deferred or eager (fenced before the compute). The n ranks are n CTA
-partitions of one cooperative launch.
+partitions of one cooperative launch, each rank's CTAs in proportion to
+its causal work (:func:`ring_ctas`).
 
 Every entry takes and returns the JAX package's stacked layout, ranks on
-axis 0: q/k/v ``(n, BH, Sl, hd)``. CUDA tensors launch the kernel or raise
-(f32, hd <= 128 and a multiple of 4); CPU tensors compute
+axis 0: q/k/v ``(n, BH, Sl, hd)``, in f32 or bf16 (the reference runs in
+q's dtype; the math is f32 either way). CUDA tensors launch the kernel or
+raise (rows of a 16-byte multiple: hd <= 128 and a multiple of 4 in f32,
+of 8 in bf16); CPU tensors compute
 :func:`ring_attention_plain`, the plain version the tests and
 ``chip_smoke.py`` hold the kernel against. The reference's ``contexts``
 send window is accepted and has no counterpart on the card. ``LAUNCHES``
 counts launches keyed by variant and shape; ``VARIANTS`` names the knob
-sets the main path launches.
+sets the main path launches on f32 inputs, ``BF16_VARIANTS`` those it
+launches on bf16 inputs.
 """
 from __future__ import annotations
 
 import collections
 import ctypes
+import functools
+import itertools
 import math
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.split import cta_split
 
 # The schedule machinery is defined once, in repro_torch.core.schedule;
 # re-exported here for the kernel's callers.
@@ -38,6 +45,8 @@ from repro_torch.core.schedule import (RingSchedule,  # noqa: F401
 
 NEG_INF = -1e30               # the reference's masked score
 MAX_HD = 128
+MAX_RANKS = 16                # RING_MAXN in the CUDA source
+TILE = 64                     # the kernel's query and key tile rows
 TIMEOUT_MS = 20_000           # a spin-wait traps after this long
 DEFAULT_CHUNK = 64            # fused kv_chunk when none is given
 STALL_DEFINES = ("RING_TEST_STALL",)   # the slowed-rank test build
@@ -54,6 +63,12 @@ VARIANTS = {
     "fused_signal": dict(fused=True, counter=False, kv_chunk=64),
     "fused_counter": dict(fused=True, counter=True, kv_chunk=64),
     "fused_counter_kc16": dict(fused=True, counter=True, kv_chunk=16),
+}
+
+# The same, on bf16 inputs (``chip_smoke.py`` phase ``ring_main`` runs the
+# FLUX ring on the bf16 sequence too); the name ends in ``_bf16``.
+BF16_VARIANTS = {
+    "fused_counter_bf16": dict(fused=True, counter=True, kv_chunk=64),
 }
 
 
@@ -75,10 +90,11 @@ def schedule_for(n, Sl, *, fused=False, kv_chunk=None):
 
 
 def variant_name(*, fused=False, counter=False, pipelined=True,
-                 eager_wait=False, kv_chunk=None, causal=True, n, Sl):
+                 eager_wait=False, kv_chunk=None, causal=True, n, Sl,
+                 dtype=torch.float32):
     """The variant a call launches: the realization, plus ``_kc<rows>``
-    for a fused chunk other than 64 rows (after sanitizing against Sl) and
-    ``_full`` without the causal mask."""
+    for a fused chunk other than 64 rows (after sanitizing against Sl),
+    ``_full`` without the causal mask and ``_bf16`` on bf16 inputs."""
     if fused:
         name = "fused_counter" if counter else "fused_signal"
         kc = schedule_for(n, Sl, fused=True, kv_chunk=kv_chunk).kv_chunk
@@ -88,7 +104,90 @@ def variant_name(*, fused=False, counter=False, pipelined=True,
         name = "deferred"
     else:
         name = "eager" if eager_wait else "pipelined"
-    return name + ("" if causal else "_full")
+    return name + ("" if causal else "_full") \
+        + ("_bf16" if dtype == torch.bfloat16 else "")
+
+
+def ring_work(n, BH, Sl, causal=True):
+    """Each rank's work as the kernel computes it: the (64-row query tile,
+    64-row key tile) pairs its pieces attend over all n steps, times BH. A
+    tile the mask skips counts 0 and a ragged edge a whole tile: under the
+    causal mask rank r attends to r whole shards (nqt^2 pairs each) and
+    its own diagonal (nqt (nqt + 1) / 2); without it to n shards."""
+    nqt = -(-int(Sl) // TILE)
+    if causal:
+        return [BH * (r * nqt * nqt + nqt * (nqt + 1) // 2) for r in range(n)]
+    return [BH * n * nqt * nqt] * n
+
+
+def ring_makespan(ctas, n, BH, Sl, causal=True):
+    """The kernel's time on a split ``ctas``, in tile pairs of one CTA, as
+    its protocol orders each rank's steps. A CTA runs whole pieces (a
+    64-row query tile of one bh over all n steps), so in step s rank r's
+    busiest CTA attends ceil(P / c_r) pieces of the shard that started on
+    rank (r - s) % n: a whole one (nqt tiles a piece), its own diagonal
+    ((nqt + 1) / 2) or, under the mask, none. A rank starts step s when it
+    has finished step s - 1 and, from step 2, when the next rank has (the
+    free-slot credit: its forward writes the slot that rank read then);
+    it ends step s when the next step's shard has landed, forwarded by
+    rank r - 1 as that rank started step s. The copies themselves count
+    nothing: weighted by the data sheet's rates (a 64-row K and V tile
+    against a tile pair) they took CTAs from the busiest rank and the ring
+    ran slower on an H100."""
+    nqt = -(-int(Sl) // TILE)
+    pieces = BH * nqt
+    end = [0.0] * n
+    for s in range(n):
+        start = [max(end[r], end[(r + 1) % n] if s >= 2 else 0.0)
+                 for r in range(n)]
+        for r in range(n):
+            src = (r - s) % n
+            tiles = nqt if not causal or src < r else \
+                (nqt + 1) / 2 if src == r else 0
+            done = start[r] + -(-pieces // ctas[r]) * tiles
+            end[r] = max(done, start[(r - 1) % n]) if s <= n - 2 else done
+    return max(end)
+
+
+def ring_ctas(grid, n, BH, Sl, causal=True):
+    """Each rank's CTAs of a launch of ``grid``, split by causal work: the
+    split of the grid with the least :func:`ring_makespan` (whole pieces,
+    the credit and arrival waits between ranks), found by moving CTAs
+    between ranks from the split in proportion to each rank's attention
+    (:func:`ring_work`) and from the even split. Every rank keeps one CTA
+    at least; under the mask the counts never fall with r, and without it
+    the ranks are alike and the split is even (within one). Raises where
+    the grid cannot give every rank one CTA."""
+    grid, n = int(grid), int(n)
+    if grid < n:
+        raise ValueError(f"a grid of {grid} CTAs cannot give {n} ranks one "
+                         "each")
+    return list(_best_split(grid, n, int(BH), int(Sl), bool(causal)))
+
+
+@functools.lru_cache(maxsize=256)   # a launch asks once per shape
+def _best_split(grid, n, BH, Sl, causal):
+    def descend(best):
+        cost = ring_makespan(tuple(best), n, BH, Sl, causal)
+        step = max(1, grid // 8)
+        while step:
+            moved = False
+            for i, j in itertools.permutations(range(n), 2):
+                trial = list(best)
+                trial[i] -= step
+                trial[j] += step
+                if trial[i] < 1 or (causal and trial != sorted(trial)):
+                    continue
+                c = ring_makespan(tuple(trial), n, BH, Sl, causal)
+                if c < cost - 1e-9:
+                    best, cost, moved = trial, c, True
+            if not moved:
+                step //= 2
+        return cost, best
+
+    even = cta_split(grid, [1] * n)[::-1]   # spare CTAs to the later ranks
+    return tuple(min(descend(cta_split(grid, ring_work(n, BH, Sl, causal))),
+                     descend(even))[1])
 
 
 def _shape(q, k, v, contexts):
@@ -154,10 +253,12 @@ class _Params(ctypes.Structure):
     _fields_ = (
         [(k, ctypes.c_int) for k in (
             "n", "BH", "Sl", "hd", "chunk_rows", "nc", "fused", "counter",
-            "pipelined", "eager", "causal", "vec", "per_rank", "timeout_ms",
-            "stall_rank", "stall_us")]
+            "pipelined", "eager", "causal", "bf16")]
+        + [("cta0", ctypes.c_int * (MAX_RANKS + 1))]
+        + [(k, ctypes.c_int) for k in ("timeout_ms", "stall_rank",
+                                       "stall_us")]
         + [("scale", ctypes.c_float)]
-        + [(k, ctypes.c_void_p) for k in ("q", "k", "v", "out", "kbuf",
+        + [(k, ctypes.c_void_p) for k in ("q", "k", "v", "out", "acc", "kbuf",
                                           "vbuf", "ml", "flag", "done")])
 
 
@@ -166,36 +267,53 @@ def load_kernel(test_stall=False):
     fast path's stage A and the cascade's l1. ``test_stall``: the build
     with ``-DRING_TEST_STALL``, which honours ``stall_rank`` /
     ``stall_us`` (:func:`slowed_ring_attention`)."""
-    return build.load_typed("ring_attention", _Params, grid_args=2,
+    return build.load_typed("ring_attention", _Params, grid_args=3,
                             defines=STALL_DEFINES if test_stall else ())
 
 
-def grid_for(device, n, hd=64, test_stall=False):
+def grid_for(device, n, hd=64, test_stall=False, dtype=torch.float32):
     """The co-resident grid the launch uses for ``n`` ranks at head
-    dimension ``hd``: CTAs per SM x SMs, rounded down to a multiple of n."""
-    return build.grid(load_kernel(test_stall), device, int(n), int(hd))
+    dimension ``hd`` in ``dtype``: CTAs per SM x SMs, split over the ranks
+    by :func:`ring_ctas`."""
+    return build.grid(load_kernel(test_stall), device, int(n), int(hd),
+                      int(dtype == torch.bfloat16))
 
 
 def _launch(q, k, v, *, causal, kv_chunk, fused, counter, pipelined,
             eager_wait, contexts, stall):
+    """Launch the kernel; returns (out, the per-rank ``done`` counters,
+    which end at each rank's CTA count times max(n - 2, 0))."""
     n, BH, Sl, hd = _shape(q, k, v, contexts)
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"ring_attention's kernel takes float32 or "
+                         f"bfloat16, got {q.dtype}")
     for t in (q, k, v):
         if t.device != q.device or not t.is_contiguous() \
-                or t.dtype != torch.float32 or t.data_ptr() % 16:
+                or t.dtype != q.dtype or t.data_ptr() % 16:
             raise ValueError(f"ring_attention wants contiguous, 16-byte "
-                             f"aligned float32 tensors on {q.device}; got "
-                             f"{t.dtype} on {t.device}")
-    if hd > MAX_HD or hd % 4:
+                             f"aligned tensors of q's dtype ({q.dtype}) on "
+                             f"{q.device}; got {t.dtype} on {t.device}")
+    per = 16 // q.element_size()           # elements in 16 bytes
+    if hd > MAX_HD or hd % per:
         raise ValueError(f"ring_attention's kernel takes hd <= {MAX_HD}, a "
-                         f"multiple of 4; got {hd}")
+                         f"multiple of {per} in {q.dtype}; got {hd}")
+    if n > MAX_RANKS:
+        raise ValueError(f"ring_attention's kernel runs 1..{MAX_RANKS} "
+                         f"ranks, got {n}")
     sched = schedule_for(n, Sl, fused=fused, kv_chunk=kv_chunk)
     chunk_rows = sched.kv_chunk if fused else Sl
     if 2 * BH * chunk_rows * hd >= 2**32:
         raise ValueError(f"a chunk of {BH} x {chunk_rows} x {hd} overflows "
                          "its 32-bit flag")
-    grid, _ = grid_for(q.device, n, hd, test_stall=stall is not None)
+    grid, _ = grid_for(q.device, n, hd, test_stall=stall is not None,
+                       dtype=q.dtype)
+    cta0 = list(itertools.accumulate(ring_ctas(grid, n, BH, Sl, causal),
+                                     initial=0))
     nc = Sl // chunk_rows
     out = torch.empty_like(q)
+    # the f32 accumulators park in out itself; a bf16 out cannot hold them
+    acc = out if q.dtype == torch.float32 else torch.empty(
+        q.shape, dtype=torch.float32, device=q.device)
     kbuf = torch.empty((n, 2, BH, Sl, hd), dtype=q.dtype, device=q.device)
     vbuf = torch.empty_like(kbuf)
     ml = torch.empty((2, n, BH, Sl), dtype=torch.float32, device=q.device)
@@ -204,20 +322,22 @@ def _launch(q, k, v, *, causal, kv_chunk, fused, counter, pipelined,
     p = _Params(n=n, BH=BH, Sl=Sl, hd=hd, chunk_rows=chunk_rows, nc=nc,
                 fused=int(fused), counter=int(counter and fused),
                 pipelined=int(pipelined), eager=int(eager_wait),
-                causal=int(causal), vec=1, per_rank=grid // n,
+                causal=int(causal), bf16=int(q.dtype == torch.bfloat16),
+                cta0=(ctypes.c_int * (MAX_RANKS + 1))(*cta0),
                 timeout_ms=TIMEOUT_MS, stall_rank=int(stall_rank),
                 stall_us=int(stall_us), scale=1.0 / math.sqrt(hd),
                 q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(),
-                out=out.data_ptr(), kbuf=kbuf.data_ptr(),
+                out=out.data_ptr(), acc=acc.data_ptr(), kbuf=kbuf.data_ptr(),
                 vbuf=vbuf.data_ptr(), ml=ml.data_ptr(),
                 flag=flags.data_ptr(), done=flags[n * n * nc:].data_ptr())
     build.launch(load_kernel(stall is not None), p, q.device, grid)
     LAUNCHES[(variant_name(fused=fused, counter=counter, pipelined=pipelined,
                            eager_wait=eager_wait, kv_chunk=kv_chunk,
-                           causal=causal, n=n, Sl=Sl), n, BH, Sl, hd)] += 1
+                           causal=causal, n=n, Sl=Sl, dtype=q.dtype), n, BH,
+              Sl, hd)] += 1
     # the buffers and flags are freed here; the caching allocator reuses
     # them only in this stream's order, after the launch
-    return out
+    return out, flags[n * n * nc:]
 
 
 def ring_attention(q, k, v, mesh=None, *, axis="x", causal=True,
@@ -242,7 +362,7 @@ def ring_attention(q, k, v, mesh=None, *, axis="x", causal=True,
                          f"{q.device}")
     return _launch(q, k, v, causal=causal, kv_chunk=kv_chunk, fused=fused,
                    counter=counter, pipelined=pipelined,
-                   eager_wait=eager_wait, contexts=contexts, stall=None)
+                   eager_wait=eager_wait, contexts=contexts, stall=None)[0]
 
 
 def slowed_ring_attention(q, k, v, *, rank, us, **knobs):
@@ -255,4 +375,4 @@ def slowed_ring_attention(q, k, v, *, rank, us, **knobs):
                          "has none")
     knobs = dict(dict(causal=True, kv_chunk=None, fused=False, counter=False,
                       pipelined=True, eager_wait=False, contexts=2), **knobs)
-    return _launch(q, k, v, stall=(int(rank), int(us)), **knobs)
+    return _launch(q, k, v, stall=(int(rank), int(us)), **knobs)[0]

@@ -193,8 +193,9 @@ class RingAttention(Workload):
         from repro_torch.kernels import ring_attention as kern
         lib = kern.load_kernel()
         grid, per_sm = kern.grid_for(mesh.device, self.n_dev, self.hd)
+        ctas = kern.ring_ctas(grid, self.n_dev, self.BH, self.sl)
         return (f"ring_attention kernel {lib._name}: grid {grid} "
-                f"({per_sm}/SM, {grid // self.n_dev} per rank)")
+                f"({per_sm}/SM; per rank {ctas})")
 
     def default_tunables(self):
         # kv_chunk joins the TUNABLES grid: slow-path diff patches refine

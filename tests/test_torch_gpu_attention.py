@@ -9,10 +9,10 @@ card's machine, which has no JAX:
 
 Inputs are made with numpy from a seed. Tolerances: 1e-4 max-abs-normalised
 in f32 (the kernels sum in another order, and take exp on the special
-function unit); for bf16 flash attention each element within one bf16 step
-of the plain version's plus 1e-4 (both round an f32 result to bf16, so a
-right kernel is at most one rounding step off; a step is at most 2^-7 of
-the value).
+function unit); for bf16 flash and ring attention each element within
+one bf16 step of the plain version's plus 1e-4 (both round an f32 result
+to bf16, so a right kernel is at most one rounding step off; a step is at
+most 2^-7 of the value).
 """
 import numpy as np
 import pytest
@@ -61,11 +61,13 @@ def _qkv(shape, device, seed, kv_rows=None):
     ((2, 256, 256, 64), (128, 128)), ((3, 200, 200, 32), (8, 8)),
     ((2, 192, 192, 80), (64, 64)), ((1, 128, 128, 128), (64, 128)),
     ((2, 96, 96, 13), (32, 32)), ((2, 128, 256, 64), (64, 64)),
-    ((8, 4096, 4096, 64), (128, 128))])
+    ((2, 100, 180, 32), (4, 4)), ((2, 150, 90, 80), (2, 2)),
+    ((1, 200, 120, 128), (8, 8)), ((8, 4096, 4096, 64), (128, 128))])
 def test_flash_matches_plain_version(cuda_device, shape, blocks, causal,
                                      dtype):
-    """Ragged query and key tiles, head dims 13 to 128 (scalar loads for
-    13), more keys than queries, f32 and bf16, and the ring's whole
+    """Ragged query and key tiles, head dims 13 to 128 (synchronous
+    loads for 13), more keys than queries and fewer (S and Skv off the
+    64-row tile at hd 32, 80 and 128), f32 and bf16, and the ring's whole
     sequence at RingAttention's defaults."""
     BH, S, Skv, hd = shape
     q, k, v = (t.to(dtype) for t in _qkv((BH, S, hd), cuda_device,
@@ -138,6 +140,56 @@ def test_ring_matches_plain_version(cuda_device, variant, shape):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("variant", list(GPU_RING_VARIANTS))
+@pytest.mark.parametrize("shape", [(4, 2, 256, 64), (4, 3, 200, 32),
+                                   (2, 2, 128, 128), (4, 48, 512, 64),
+                                   (4, 8, 1024, 64)])
+def test_ring_bf16_matches_plain_version(cuda_device, variant, shape):
+    """The ring in bf16, as the reference runs it in q's dtype: bf16
+    buffers and output, f32 math; each element within one bf16 step."""
+    q, k, v = (t.bfloat16() for t in _qkv(shape, cuda_device,
+                                          seed=sum(shape) + 1))
+    knobs = GPU_RING_VARIANTS[variant]
+    got = ra.ring_attention(q, k, v, **knobs)
+    want = ra.ring_attention_plain(q, k, v, **knobs)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert bf16_steps(got, want) <= 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("n,BH,Sl,hd", [(4, 8, 1024, 64), (3, 2, 200, 128),
+                                        (4, 96, 2048, 64)])
+def test_ring_launches_its_ctas_by_causal_work(cuda_device, n, BH, Sl, hd,
+                                               causal, dtype):
+    """Each CTA bumps its rank's credit counter once a step for steps
+    0..n-3, so the counters end at each rank's launched CTAs times n - 2:
+    the split :func:`ring_ctas` makes by causal work (even without the
+    mask), in every rank, and the whole grid."""
+    q, k, v = (t.to(dtype) for t in _qkv((n, BH, Sl, hd), cuda_device,
+                                         seed=n + Sl))
+    grid, _ = ra.grid_for(cuda_device, n, hd, dtype=dtype)
+    want = ra.ring_ctas(grid, n, BH, Sl, causal)
+    got, done = ra._launch(q, k, v, causal=causal, kv_chunk=None,
+                           fused=True, counter=True, pipelined=True,
+                           eager_wait=False, contexts=2, stall=None)
+    done = done.cpu().tolist()
+    assert sum(want) == grid and done == [c * (n - 2) for c in want]
+    if causal:
+        assert want == sorted(want) and want[-1] > want[0]
+    else:
+        assert max(want) - min(want) <= 1
+    plain = ra.ring_attention_plain(q, k, v, causal=causal, fused=True,
+                                    counter=True)
+    if dtype == torch.bfloat16:
+        assert bf16_steps(got, plain) <= 1.0
+    else:
+        assert rel_err(got.cpu(), plain.cpu()) <= 1e-4
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("variant", list(ra.VARIANTS))
 def test_ring_without_the_mask(cuda_device, variant):
     q, k, v = _qkv((4, 2, 192, 64), cuda_device, seed=11)
@@ -156,7 +208,8 @@ def test_ring_without_the_mask(cuda_device, variant):
 def test_ring_with_a_slowed_rank(cuda_device, variant, rank):
     """One rank's CTAs idle 3 ms before each step's attention, so its
     upstream rank runs ahead: the free-slot credit must keep it from
-    overwriting the slot the slow rank has yet to read."""
+    overwriting the slot the slow rank has yet to read. Under the split by
+    causal work rank 0 has the fewest CTAs and rank 3 the most."""
     q, k, v = _qkv((4, 4, 256, 64), cuda_device, seed=5 + rank)
     knobs = ra.VARIANTS[variant]
     got = ra.slowed_ring_attention(q, k, v, rank=rank, us=3000, **knobs)
@@ -179,8 +232,13 @@ def test_ring_launch_after_launch_sees_fresh_flags(cuda_device):
 @pytest.mark.gpu
 def test_ring_rejects_what_it_cannot_take(cuda_device):
     q = torch.zeros((4, 2, 64, 64), device=cuda_device)
-    with pytest.raises(ValueError, match="float32"):
-        ra.ring_attention(q.bfloat16(), q.bfloat16(), q.bfloat16())
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ra.ring_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="q's dtype"):
+        ra.ring_attention(q, q.bfloat16(), q)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        odd = torch.zeros((4, 2, 64, 36), device=cuda_device).bfloat16()
+        ra.ring_attention(odd, odd, odd)
     with pytest.raises(ValueError, match="multiple of 4"):
         odd = torch.zeros((4, 2, 64, 30), device=cuda_device)
         ra.ring_attention(odd, odd, odd)
