@@ -14,13 +14,22 @@ sizes; every run runs all of them, and any failure exits non-zero):
    and print ptxas's register / shared-memory / spill lines and each
    launch's grid (moe: each rank's routed and second-stream CTAs; the
    ring: each rank's CTAs from ``ring_ctas`` at the defaults and at
-   fig3's largest row).
+   fig3's largest row; gemm_allgather: its registers, spills, dynamic
+   shared memory and CTAs per SM).
 3. ``gemm_core`` — the tile GEMM of ``csrc/tc_gemm.cuh`` alone at the
    main path's GEMM shapes (serving's expert GEMM1 with SwiGLU and its
    GEMM2, the same for the skewed cell's busiest expert, kv_transfer's
    projection), within 1e-4 of its plain version, timed beside
    ``torch.matmul`` and the 3xTF32 bound.
-4. ``kernels`` — every moe_dispatch variant the main path runs
+4. ``ga_core`` — gemm_allgather taken apart at ``GemmAllGather``'s
+   defaults: its split phase alone (``gemm_allgather_split``, bit for bit
+   against the plain split), the kernel at n = 1 with M_l = 4096 (the
+   same 137.4 GFLOP with no peer) and its split there, one
+   ``torch.matmul``, the 3xTF32 bound: split, GEMM and broadcast. Then
+   the ``-D`` builds of ``GA_KNOBS`` (the partial sums' depth, the tile
+   group) beside the production build: the error at K = 4096 and 7168
+   and the times that set those two constants.
+5. ``kernels`` — every moe_dispatch variant the main path runs
    (``kernels.moe_dispatch.VARIANTS``), on the inputs of the main path's
    two workloads (serving width and the skewed MoEDispatch shape): the
    kernel against its plain version on the same inputs (max-abs-normalised
@@ -30,22 +39,22 @@ sizes; every run runs all of them, and any failure exits non-zero):
    enqueue hidden behind a device spin; the kernel's call is also timed
    with the host's time exposed) beside the bound. Every kernel phase
    checks, times and logs through ``Bench.record``.
-5. ``kv_kernels`` — every kv_shuttle variant: the GEMM variants
+6. ``kv_kernels`` — every kv_shuttle variant: the GEMM variants
    (``kernels.kv_shuttle.VARIANTS``) at ``KVTransfer``'s full width
    (T = d = 4096, dk = 512, f32) within 1e-4 of the plain version, and
    the ``pure`` cache handoffs (``PURE_VARIANTS``) at the llama3.2-1b
-   engine's cache size in bf16, bit for bit; timed as in phase 4 beside
+   engine's cache size in bf16, bit for bit; timed as in phase 5 beside
    two ``torch.matmul`` (GEMM) or one ``Tensor.copy_`` (pure).
-6. ``main``    — the moe path with every launch counter at 0:
+7. ``main``    — the moe path with every launch counter at 0:
    ``fast_path`` on ``ServingStep(n_dev=4)`` and ``MoEDispatch(n_dev=4)``
    (the seed must be the kernel's ``PALLAS_RDMA`` directive at level 3),
    then the same evaluator scores the Table-3 directives and three more;
    every one must reach level 3. The counters are read right after.
-7. ``kv_main`` — the KV-transfer search with the kv counters at 0:
+8. ``kv_main`` — the KV-transfer search with the kv counters at 0:
    ``fast_path`` on ``KVTransfer()`` with full-width verification inputs
    (the seed must be ``PALLAS_RDMA`` at level 3 through the kernel), then
    eight more directives, each to level 3.
-8. ``serve``   — the llama3.2-1b serving engine at full width with the
+9. ``serve``   — the llama3.2-1b serving engine at full width with the
    kv counters at 0: 8 prompts of 512 tokens, ``generate`` 32 tokens
    (after a warm-up ``generate`` on an engine of its own),
    then ``prefill_remote`` through the shuttle (chained, and fused
@@ -54,22 +63,22 @@ sizes; every run runs all of them, and any failure exits non-zero):
    ``generate``'s, the first decode step's logits within 5e-2
    (max-abs-normalised, bf16) of ``forward`` over the 513 tokens; then
    ``serve`` answers 4 requests of mixed prompt lengths.
-9. ``ga_kernels`` — every gemm_allgather variant
+10. ``ga_kernels`` — every gemm_allgather variant
    (``kernels.gemm_allgather.VARIANTS``) at ``GemmAllGather``'s defaults
    (n=4, M=K=N=4096, f32) within 1e-4 of the plain version, timed as in
-   phase 4 beside one ``torch.matmul`` of the gathered A plus the copy
+   phase 5 beside one ``torch.matmul`` of the gathered A plus the copy
    into the n outputs.
-10. ``attn_kernels`` — every flash_attention variant over the ring's
+11. ``attn_kernels`` — every flash_attention variant over the ring's
    whole sequence (BH 8, S 4096, hd 64; f32 within 1e-4; bf16 each
    element within one bf16 step of the plain version plus 1e-4, both
    sides rounding an f32 result) and every ring_attention variant at
    ``RingAttention``'s defaults (f32 within 1e-4; the bf16 ring under
    the bf16 gate); timed beside ``scaled_dot_product_attention`` in the
    variant's type and against the bound (f32 at the 3xTF32 rate).
-11. ``ga_main`` — the GEMM+AllGather search, counted like ``kv_main``:
+12. ``ga_main`` — the GEMM+AllGather search, counted like ``kv_main``:
     ``fast_path`` on ``GemmAllGather()`` with full-width verification
     inputs, then nine more directives, each to level 3.
-12. ``ring_main`` — the ring-attention search, counted the same way
+13. ``ring_main`` — the ring-attention search, counted the same way
     (fast_path, then eleven directives), then ``kernels/ops.py``'s
     wrappers at work: the FLUX ring against flash attention over the
     gathered sequence and the oracle, bf16 flash and the bf16 FLUX ring
@@ -79,7 +88,7 @@ sizes; every run runs all of them, and any failure exits non-zero):
     The counters are read there; each deployment ring's output is then
     held against its plain version, flash (1e-4) and, on two heads, the
     oracle, and timed: the records of fig3's row.
-13. ``ring_split`` — the ring's CTA split on the card: the pipelined and
+14. ``ring_split`` — the ring's CTA split on the card: the pipelined and
     FLUX rings at the defaults and at fig3's row and the bf16 FLUX ring,
     each launched and timed on ``ring_ctas``' split, the split by
     attended tile pairs, the even split and a closed form that balances
@@ -99,6 +108,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -109,7 +119,6 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import torch  # noqa: E402
 
-F32_FLOPS = 67e12          # H100 SXM f32 outside the tensor cores (data sheet)
 # f32-accurate products on the TF32 tensor cores: 3xTF32 issues three TF32
 # products per multiply-add, at the data sheet's 495 TFLOP/s dense TF32
 TF32X3_FLOPS = 495e12 / 3
@@ -193,8 +202,12 @@ def phase_build(device="cuda"):
         log(f"grid: kv_shuttle {'pure' if pure else 'projections'}: {grid} "
             f"CTAs ({per_sm} per SM), {grid - 1} prefill + 1 decode")
     grid, per_sm = gemm_allgather.grid_for(device, 4)
+    regs, stores, loads = ptxas_resources(build.ptxas_log("gemm_allgather"),
+                                          "gemm_allgather_kernel")
     log(f"grid: gemm_allgather n=4: {grid} CTAs ({per_sm} per SM), "
-        f"{grid // 4} per rank")
+        f"{grid // 4} per rank; {regs} registers, spill stores {stores} / "
+        f"loads {loads} bytes, {gemm_allgather.smem_bytes()} bytes of "
+        f"dynamic shared memory a CTA")
     w, (dBH, dseq) = ring_workload(), deploy_shape()
     n, dsl = w.n_dev, dseq // w.n_dev
     for dtype in (torch.float32, torch.bfloat16):
@@ -206,6 +219,27 @@ def phase_build(device="cuda"):
                 f"{ring_attention.ring_ctas(grid, n, w.BH, w.sl)}, at the "
                 f"deployment row (BH {dBH}, Sl {dsl}) "
                 f"{ring_attention.ring_ctas(grid, n, dBH, dsl)}")
+
+
+def ptxas_resources(lines, entry):
+    """``(registers, spill store bytes, spill load bytes)`` of the kernel
+    whose mangled name holds ``entry``, from ptxas ``-v`` lines (None for
+    what the lines do not give: a library loaded from the cache)."""
+    regs = stores = loads = None
+    compiling = props = ""
+    for line in lines:
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            compiling = m.group(1)
+        elif m := re.search(r"Function properties for (\S+)", line):
+            props = m.group(1)
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", line):
+            if entry in props:
+                stores, loads = int(m.group(1)), int(m.group(2))
+        elif m := re.search(r"Used (\d+) registers", line):
+            if entry in compiling:
+                regs = int(m.group(1))
+    return regs, stores, loads
 
 
 HIDE_CYCLES = 5_000_000    # ~2.5 ms of device spin ahead of each timed call
@@ -747,20 +781,25 @@ def ga_inputs(w, device, seed=0):
 
 
 def ga_bound(n, M_l, K, N):
-    """Least time of one gemm_allgather call on an H100: the f32 GEMM
-    operations over the f32 rate, or the bytes (a and b read once, the n
-    gathered outputs written once) over HBM, whichever is larger."""
+    """Least time of one gemm_allgather call on an H100: the GEMM's
+    f32-accurate operations over the 3xTF32 rate, or the bytes (a and b
+    read once, the n gathered outputs written once) over HBM, whichever is
+    larger. The kernel runs its GEMM on the tensor cores as 3xTF32
+    (``csrc/wgmma_gemm.cuh``), three TF32 products per multiply-add, the
+    least the card can do for this accuracy; against the f32 SIMT rate a
+    right kernel could read over 100% of its bound."""
     flops = 2 * n * M_l * K * N
     nbytes = 4 * (n * M_l * K + K * N + n * n * M_l * N)
-    t_ops, t_bytes = flops / F32_FLOPS, nbytes / HBM_BYTES_S
+    t_ops, t_bytes = flops / TF32X3_FLOPS, nbytes / HBM_BYTES_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
 
 
 def phase_ga_kernels(device="cuda", workload=None, iters=5):
     """Hold every gemm_allgather variant against its plain version on
-    ``workload``'s full-width inputs (1e-4 max-abs-normalised: the K sum
-    runs in another order than cuBLAS; no TF32 on either side). Returns
+    ``workload``'s full-width inputs (1e-4 max-abs-normalised: the
+    kernel's 3xTF32 products carry f32 accuracy and sum K in another
+    order than cuBLAS, which runs without TF32). Returns
     one record per variant for the ``kernels`` line."""
     from repro_torch.kernels.gemm_allgather import (VARIANTS, gemm_allgather,
                                                     gemm_allgather_plain,
@@ -788,6 +827,92 @@ def phase_ga_kernels(device="cuda", workload=None, iters=5):
             ("gemm_allgather", key, n, M_l, K, N), "ga_main"))
     del a, b, sink
     return out
+
+
+# -D builds of gemm_allgather.cu read beside the production build by
+# ga_core: the stages summed in one partial (production 4) and the row
+# tiles of a tile group (production 4; 1 is row by row)
+GA_KNOBS = (("GA_PART_STAGES=1",), ("GA_PART_STAGES=8",), ("GA_GROUP_M=1",),
+            ("GA_GROUP_M=8",))
+
+
+def ga_deep_inputs(w, device, K=7168):
+    """One rank of ``w``'s rows at depth ``K`` (the partial sums' deepest
+    reading): a (1, M_l, K), b (K, N) / sqrt(K)."""
+    g = torch.Generator(device=device).manual_seed(K)
+    kw = dict(generator=g, device=device, dtype=torch.float32)
+    return (torch.randn((1, w.M // w.n_dev, K), **kw),
+            torch.randn((K, w.N), **kw) / K ** 0.5)
+
+
+def phase_ga_core(device="cuda", workload=None, iters=5):
+    """gemm_allgather's time taken apart at ``workload``'s full width: the
+    split phase alone (``gemm_allgather_split``) at n ranks, bit for bit
+    against its plain version; the kernel at n = 1 with M_l = M (the same
+    GEMM, no peer, held to its plain version within 1e-4) and its split at
+    n = 1; one ``torch.matmul`` of the same product; the 3xTF32 bound. The
+    GEMM phase is the n = 1 kernel less its split; a variant's time less
+    the split at n ranks and the GEMM is its broadcast and waits. Then, on
+    the card, each build of :data:`GA_KNOBS` beside the production build:
+    the error at K = 4096 (n = 1) and K = 7168, the n = 1 kernel's time
+    and ``fused_counter``'s at n ranks."""
+    from repro_torch.kernels.gemm_allgather import (gemm_allgather,
+                                                    gemm_allgather_plain,
+                                                    launch_built_with,
+                                                    split_operands,
+                                                    split_operands_plain)
+    bench = Bench(device, iters)
+    w = workload or ga_workload()
+    a, b = ga_inputs(w, device)
+    n, M_l, K = a.shape
+    N = b.shape[1]
+    a1 = a.reshape(1, n * M_l, K)
+    with torch.no_grad():
+        _close("ga_core split", split_operands(a, b),
+               split_operands_plain(a, b), "exact")
+        reading, abs_err = _close("ga_core n=1", gemm_allgather(a1, b),
+                                  gemm_allgather_plain(a1, b), 1e-4)
+    split_ms = bench.ms(lambda: split_operands(a, b))
+    split1_ms = bench.ms(lambda: split_operands(a1, b))
+    one_ms = bench.ms(lambda: gemm_allgather(a1, b))
+    mm_ms = bench.ms(lambda: torch.matmul(a1[0], b))
+    flops = 2 * n * M_l * K * N
+    bound_ms = flops / TF32X3_FLOPS * 1e3
+    gemm_ms = one_ms - split1_ms
+    log(f"ga_core n={n} M_l={M_l} K={K} N={N}: split {split_ms:.3f} ms "
+        f"(n={n}), kernel at n=1 M_l={n * M_l} {one_ms:.3f} ms "
+        f"({_reading(reading, 1e-4)}, max abs err {abs_err:.3e}) of which "
+        f"split {split1_ms:.3f} ms and GEMM {gemm_ms:.3f} ms "
+        f"({flops / gemm_ms / 1e9:.1f} TFLOP/s), matmul {mm_ms:.3f} ms "
+        f"({flops / mm_ms / 1e9:.1f} TFLOP/s), 3xTF32 bound {bound_ms:.3f} "
+        f"ms")
+    rec = {"split_ms": split_ms, "split1_ms": split1_ms, "one_ms": one_ms,
+           "gemm_ms": gemm_ms, "matmul_ms": mm_ms, "bound_ms": bound_ms,
+           "knobs": {}}
+    if not bench.cuda:
+        log("ga_core: the -D builds are skipped on the cpu")
+        return rec
+    a7, b7 = ga_deep_inputs(w, device)
+    for defines in ((),) + GA_KNOBS:
+        with torch.no_grad():
+            r4, _ = _close(f"ga_core {defines} K={K}",
+                           launch_built_with(defines, a1, b),
+                           gemm_allgather_plain(a1, b), 1e-4)
+            r7, _ = _close(f"ga_core {defines} K=7168",
+                           launch_built_with(defines, a7, b7),
+                           gemm_allgather_plain(a7, b7), 1e-4)
+        k_one = bench.ms(lambda: launch_built_with(defines, a1, b))
+        k_fc = bench.ms(lambda: launch_built_with(defines, a, b,
+                                                  counter=True))
+        name = " ".join(defines) or "production"
+        log(f"ga_knob {name}: rel err K={K} {r4:.3e}, K=7168 {r7:.3e}; "
+            f"kernel at n=1 {k_one:.3f} ms, fused_counter at n={n} "
+            f"{k_fc:.3f} ms")
+        rec["knobs"][name] = {"err_k": r4, "err_k7168": r7,
+                              "one_ms": k_one, "fused_counter_ms": k_fc}
+    del a, b, a1, a7, b7
+    return rec
+
 
 def ga_directives():
     """Table 3's points, fig6's deferred point, the STREAM_SPLIT build at 4
@@ -1201,6 +1326,7 @@ def main(argv=None):
     dev = phase_device("cuda")
     phase_build("cuda")
     phase_gemm_core("cuda", iters=args.iters)
+    phase_ga_core("cuda", iters=args.iters)
     records = phase_kernels("cuda", iters=args.iters)
     records += phase_kv_kernels("cuda", iters=args.iters)
     records += phase_ga_kernels("cuda", iters=args.iters)

@@ -4,24 +4,25 @@
 //
 // Replaces src/repro/kernels/gemm_allgather.py::_ga_kernel (the Pallas
 // kernel behind gemm_allgather_sharded and gemm_allgather). It computes the
-// same function in f32: the K sum runs in f32, every output element is
-// written once into each of the n outputs.
+// same function at f32 accuracy; every output element is written once into
+// each of the n outputs.
 //
 // Layout: the n ranks are n partitions of ONE cooperative launch over one
 // allocation (CTA b is rank b % n). A "remote copy" is a store into the
 // receiving rank's output; a flag word per (receiver, source, chunk)
 // stands in for each receive semaphore and counts the elements landed
-// (flags.cuh: the sender's CTA stores, __syncthreads, __threadfence,
-// atomicAdd; the receiver spins on an acquire load). Realizations:
-//   TILE_FUSED  a 64x64 GEMM tile is stored into the own output and every
-//               peer's (round order: offset 1, 2, ...) the moment its K loop
-//               ends; its flag ticks go to every tile_m chunk it overlaps, so
-//               a tile_m of 16 or 32 changes the flag granularity, not the
-//               GEMM tile (no half-empty 64-row tiles).
+// (flags.cuh: the sender's threads store, meet, one fences and adds; the
+// receiver spins on an acquire load, inline: the kernel calls no function,
+// which would serialize its wgmma). Realizations:
+//   TILE_FUSED  a 128 x 128 GEMM tile is stored into the own output and
+//               every peer's (round order: offset 0, 1, 2, ...) from the
+//               consumers' registers the moment its K loop ends; its flag
+//               ticks go to every tile_m chunk it overlaps, so tile_m
+//               changes the flag granularity, not the GEMM tile.
 //   DEFERRED    the rank's CTAs store their tiles into the own slab and meet
-//               at a rank-wide counter (the GEMM is done); then each CTA ships
-//               its share of the slab to every peer, reading it through L2
-//               (__ldcg: other CTAs wrote it).
+//               at a rank-wide counter (the GEMM is done); then each CTA
+//               reads its share of the slab once through L2 (__ldcg: other
+//               CTAs wrote it) and stores it to every peer.
 // Completion: COUNTER waits per (source, tile_m chunk) flag; SIGNAL and
 // DEFERRED wait once per inbound edge (one flag per source). The waits come
 // after the rank's own stores, spread over its CTAs (one warp each, a lane
@@ -31,30 +32,71 @@
 // and the rank counters on the launch stream before every launch.
 //
 // Bound: at GemmAllGather's defaults (n=4, M=K=N=4096, M_l=1024, f32) the
-// call does 137.4 GFLOP of f32 against 403 MB of traffic, so the f32
-// (non-tensor-core) rate bounds it (2.05 ms on an H100 SXM). This first
-// version is a plain SIMT GEMM (64x64 tiles, 4x4 per thread, no wgmma, no
-// TMA); the broadcast adds (n-1) stores of each tile.
+// call does 137.4 GFLOP against 403 MB of traffic. f32 accuracy on the
+// tensor cores is 3xTF32, three TF32 products per multiply-add, so the
+// operations bound it: 0.833 ms at 495 / 3 TFLOP/s on an H100 SXM. What
+// holds the kernel above it on the card is the split (device memory: it
+// writes twice the operands' bytes, a replica of B^T per rank) and the
+// GEMM's operand feed (hi and lo double what each tile reads through L2);
+// chip_smoke.py's ga_core line times the split, the GEMM and the
+// broadcast apart.
+//
+// Design (wgmma_gemm.cuh): one CTA an SM, persistent, warp-specialised.
+// Phase 1, the split: each rank's CTAs write A_r and B^T as TF32 hi / lo,
+// K-major and zero-padded to whole tiles, into scratch the wrapper
+// allocates (each rank splits its own replica of B, as each card of a node
+// holds its own), then meet at the rank's `split` counter. The split is
+// done once per call, not once per tile: each B element feeds M_l / 128
+// row tiles and each A element N / 128 column tiles, and the TPU kernel
+// likewise stages B once (sync_copy into VMEM) for every tile. Phase 2,
+// the GEMM: a producer warp keeps TMA loads of 128 x 32 hi / lo boxes in
+// flight into a 3-stage mbarrier ring; two consumer warpgroups run wgmma
+// m64n128k8 .tf32, three products a k step, each stage summed apart on the
+// f32 cores. The rank's tiles go to its CTAs in groups of GROUP_M = 4
+// row tiles, column by column inside a group: the CTAs that run together
+// then share a few A row tiles and B column tiles through L2. Row by row
+// (GROUP_M = 1), every wave of 33 CTAs reads all of the rank's B^T hi / lo
+// (128 MB at the defaults) from HBM again; ga_core times 1, 4 and 8.
+// Phase 3, the epilogue: thread stores from the accumulators (float2 when
+// N is even; any N works, so there is no separate unaligned kernel), then
+// the consumers meet at a named barrier and one thread fences and ticks.
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-#include <stdio.h>
 
 #include "flags.cuh"
-#include "simt_gemm.cuh"
+#include "wgmma_gemm.cuh"
+
+#ifndef GA_GROUP_M
+#define GA_GROUP_M 4
+#endif
+
+using wg::BK;
+using wg::BM;
+using wg::BN;
+using wg::NCONS;
+using wg::NTHREADS;
+
+constexpr int GROUP_M = GA_GROUP_M;
+constexpr int NWARPS = NTHREADS / 32;
 
 struct GaParams {
   int n, M_l, K, N;
-  int chunk_rows;   // rows per flag chunk: tile_m under fused COUNTER, else M_l
-  int nchunks;      // M_l / chunk_rows
-  int fused;        // TILE_FUSED (1) or DEFERRED (0)
-  int vec;          // K, N multiples of 4 and 16-byte aligned bases
-  int per_rank;     // CTAs per rank
+  int M_p, K_p, N_p;  // M_l, K, N padded to whole tiles (BM, BK, BN)
+  int chunk_rows;     // rows per flag chunk: tile_m under fused COUNTER, else M_l
+  int nchunks;        // M_l / chunk_rows
+  int fused;          // TILE_FUSED (1) or DEFERRED (0)
+  int vec;            // K, N multiples of 4 and 16-byte aligned bases
+  int per_rank;       // CTAs per rank
   int timeout_ms;
-  const float* a;   // (n, M_l, K)
-  const float* b;   // (K, N)
-  float* out;       // (n, n*M_l, N): rank r's gathered output at out[r]
-  unsigned* flag;   // (n receiver, n source, nchunks): elements landed
-  unsigned* done;   // (n): CTAs of the rank whose tiles are stored (DEFERRED)
+  const float* a;     // (n, M_l, K)
+  const float* b;     // (K, N)
+  float* out;         // (n, n*M_l, N): rank r's gathered output at out[r]
+  float* sa;          // (2, n, M_p, K_p): each rank's A, TF32 hi then lo
+  float* sb;          // (2, n, N_p, K_p): each rank's B^T, TF32 hi then lo
+  unsigned* flag;     // (n receiver, n source, nchunks): elements landed
+  unsigned* done;     // (n): CTAs of the rank whose tiles are stored (DEFERRED)
+  unsigned* split;    // (n): CTAs of the rank whose share of the split is stored
 };
 
 // where source `src`'s slab lands in receiver `dst`'s output
@@ -66,62 +108,162 @@ __device__ __forceinline__ unsigned* flag_of(const GaParams& P, int dst, int src
   return P.flag + ((size_t)dst * P.n + src) * P.nchunks + c;
 }
 
-// TILE_FUSED: GEMM tile -> own output and every peer's, then tick the
-// flags of each chunk the tile overlaps, for every peer
-__device__ void fused_tiles(const GaParams& P, int me, int pid, Smem& sm) {
+// ------------------------------------------------------------ phase 1: split
+
+__device__ __forceinline__ void split_store(float* hi, float* lo, float x) {
+  unsigned h, l;
+  tc::split_tf32(x, h, l);
+  *hi = __uint_as_float(h);
+  *lo = __uint_as_float(l);
+}
+
+// This CTA's share of rank `me`'s split: A_r (M_l, K) -> (M_p, K_p) hi and
+// lo, and B (K, N) -> B^T (N_p, K_p) hi and lo, 32 x 32 blocks a warp
+// through `tr` (shared memory, a 32 x 33 block a warp)
+__device__ void split_operands(const GaParams& P, int me, int pid, float* tr) {
+  const size_t plane_a = (size_t)P.n * P.M_p * P.K_p, plane_b = (size_t)P.n * P.N_p * P.K_p;
   const float* A = P.a + (size_t)me * P.M_l * P.K;
-  const int ctn = (P.N + BN - 1) / BN, rtn = (P.M_l + BM - 1) / BM;
-  float acc[4][4];
-  for (int u = pid; u < rtn * ctn; u += P.per_rank) {  // row-tile major
-    const int row0 = (u / ctn) * BM, col0 = (u % ctn) * BN;
-    const int nrows = min(BM, P.M_l - row0), ncols = min(BN, P.N - col0);
-    gemm_tile(A, row0, nrows, P.K, P.b, P.N, col0, ncols, P.vec, acc, sm);
-    for (int off = 0; off < P.n; ++off)
-      store_tile(slab_of(P, (me + off) % P.n, me), row0, nrows, P.N, col0, ncols, P.vec, acc);
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      __threadfence();
-      const int c0 = row0 / P.chunk_rows, c1 = (row0 + nrows - 1) / P.chunk_rows;
-      for (int off = 1; off < P.n; ++off)
-        for (int c = c0; c <= c1; ++c) {
-          const int lo = max(row0, c * P.chunk_rows);
-          const int hi = min(row0 + nrows, (c + 1) * P.chunk_rows);
-          atomicAdd(flag_of(P, (me + off) % P.n, me, c), (unsigned)((hi - lo) * ncols));
+  float* ahi = P.sa + (size_t)me * P.M_p * P.K_p;
+  const size_t quads = (size_t)P.M_p * P.K_p / 4;
+  for (size_t q = (size_t)pid * NTHREADS + threadIdx.x; q < quads;
+       q += (size_t)P.per_rank * NTHREADS) {
+    const size_t i = 4 * q;
+    const int m = (int)(i / P.K_p), k = (int)(i % P.K_p);
+    float v[4] = {0.f, 0.f, 0.f, 0.f};
+    if (m < P.M_l) {
+      const float* src = A + (size_t)m * P.K + k;
+      if (P.vec) {
+        if (k < P.K) {
+          const float4 x = __ldg(reinterpret_cast<const float4*>(src));
+          v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
         }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (k + e < P.K) v[e] = __ldg(src + e);
+      }
+    }
+    unsigned h[4], l[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) tc::split_tf32(v[e], h[e], l[e]);
+    *reinterpret_cast<uint4*>(ahi + i) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(ahi + plane_a + i) = make_uint4(l[0], l[1], l[2], l[3]);
+  }
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* t = tr + warp * 32 * 33;
+  float* bhi = P.sb + (size_t)me * P.N_p * P.K_p;
+  const int kb = P.K_p / 32, blocks = kb * (P.N_p / 32);
+  for (int blk = pid * NWARPS + warp; blk < blocks; blk += P.per_rank * NWARPS) {
+    const int k0 = (blk % kb) * 32, n0 = (blk / kb) * 32, col = n0 + lane;
+#pragma unroll 8
+    for (int r = 0; r < 32; ++r) {  // rows k0 + r of B, a lane a column
+      const int k = k0 + r;
+      t[r * 33 + lane] = k < P.K && col < P.N ? __ldg(P.b + (size_t)k * P.N + col) : 0.f;
+    }
+    __syncwarp();
+#pragma unroll 8
+    for (int r = 0; r < 32; ++r) {  // row n0 + r of B^T, a lane a k
+      const size_t o = (size_t)(n0 + r) * P.K_p + k0 + lane;
+      split_store(bhi + o, bhi + plane_b + o, t[lane * 33 + r]);
+    }
+    __syncwarp();
+  }
+}
+
+// ------------------------------------------------------------ phase 2: GEMM
+
+// tile u of a rank: groups of GROUP_M row tiles, column-major inside a group
+__device__ __forceinline__ void tile_of(const GaParams& P, int u, int& row0, int& col0) {
+  const int rtn = P.M_p / BM, ctn = P.N_p / BN;
+  const int g = u / (GROUP_M * ctn), first = g * GROUP_M;
+  const int rows = min(GROUP_M, rtn - first), local = u - g * GROUP_M * ctn;
+  row0 = (first + local % rows) * BM;
+  col0 = (local / rows) * BN;
+}
+
+// the consumers' stores of their accumulators into C (M_l, N) at tile
+// (row0, col0): consumer warp w (0-7) holds rows 16w + g and 16w + g + 8
+// (wg::consume_tile's layout); rows and columns past the edge are dropped
+__device__ __forceinline__ void store_acc(float* C, const GaParams& P, int row0, int col0,
+                                          const float (&acc)[64]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = row0 + (threadIdx.x >> 5) * 16 + g;
+  const bool pairs = (P.N & 1) == 0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 8 * h;
+    if (r >= P.M_l) continue;
+    float* row = C + (size_t)r * P.N;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int c = col0 + 8 * j + 2 * t;
+      const float x = acc[4 * j + 2 * h], y = acc[4 * j + 2 * h + 1];
+      if (pairs) {
+        if (c < P.N) *reinterpret_cast<float2*>(row + c) = make_float2(x, y);
+      } else {
+        if (c < P.N) row[c] = x;
+        if (c + 1 < P.N) row[c + 1] = y;
+      }
     }
   }
 }
 
-// DEFERRED: the whole GEMM into the own slab, a rank-wide meeting, then
-// this CTA's share of the slab to every peer (one flag per edge)
-__device__ void deferred_slab(const GaParams& P, int me, int pid, Smem& sm) {
-  const float* A = P.a + (size_t)me * P.M_l * P.K;
-  float* own = slab_of(P, me, me);
-  const int ctn = (P.N + BN - 1) / BN, rtn = (P.M_l + BM - 1) / BM;
-  float acc[4][4];
-  for (int u = pid; u < rtn * ctn; u += P.per_rank) {
-    const int row0 = (u / ctn) * BM, col0 = (u % ctn) * BN;
-    const int nrows = min(BM, P.M_l - row0), ncols = min(BN, P.N - col0);
-    gemm_tile(A, row0, nrows, P.K, P.b, P.N, col0, ncols, P.vec, acc, sm);
-    store_tile(own, row0, nrows, P.N, col0, ncols, P.vec, acc);
-  }
-  cta_signal(&P.done[me], 1u);
-  cta_wait(&P.done[me], (unsigned)P.per_rank, P.timeout_ms, "gemm_allgather", "rank GEMM",
-           me, 0);
+// TILE_FUSED (thread 0 of the consumers, after their stores met): tick the
+// flag of each chunk the tile overlaps, for every peer
+__device__ void tick_tile(const GaParams& P, int me, int row0, int col0) {
+  const int nrows = min(BM, P.M_l - row0), ncols = min(BN, P.N - col0);
+  __threadfence();
+  const int c0 = row0 / P.chunk_rows, c1 = (row0 + nrows - 1) / P.chunk_rows;
+  for (int off = 1; off < P.n; ++off)
+    for (int c = c0; c <= c1; ++c) {
+      const int lo = max(row0, c * P.chunk_rows);
+      const int hi = min(row0 + nrows, (c + 1) * P.chunk_rows);
+      atomicAdd(flag_of(P, (me + off) % P.n, me, c), (unsigned)((hi - lo) * ncols));
+    }
+}
+
+// DEFERRED (the consumers, after the rank's GEMM met): this CTA's share
+// of the own slab to every peer, read once (COPY_U loads in flight a
+// thread) and stored to each peer in round order; then one flag tick per
+// edge
+constexpr int COPY_U = 4;
+
+__device__ void ship_slab(const GaParams& P, int me, int pid) {
+  const float* own = slab_of(P, me, me);
   const size_t elems = (size_t)P.M_l * P.N;
   const size_t share = ((elems + P.per_rank - 1) / P.per_rank + 3) / 4 * 4;
   const size_t lo = (size_t)pid * share < elems ? (size_t)pid * share : elems;
   const size_t hi = lo + share < elems ? lo + share : elems;
-  for (int off = 1; off < P.n; ++off) {
-    const int dst = (me + off) % P.n;
-    float* to = slab_of(P, dst, me);
-    if (P.vec) {
-      for (size_t i = lo + 4 * threadIdx.x; i < hi; i += 4 * NT)
-        *reinterpret_cast<float4*>(to + i) = __ldcg(reinterpret_cast<const float4*>(own + i));
-    } else {
-      for (size_t i = lo + threadIdx.x; i < hi; i += NT) to[i] = __ldcg(own + i);
+  const int w = P.vec ? 4 : 1;  // floats a load
+  for (size_t i0 = lo + w * threadIdx.x; i0 < hi; i0 += COPY_U * w * NCONS) {
+    float4 v[COPY_U];
+#pragma unroll
+    for (int u = 0; u < COPY_U; ++u) {
+      const size_t i = i0 + (size_t)u * w * NCONS;
+      if (i >= hi) break;
+      if (P.vec)
+        v[u] = __ldcg(reinterpret_cast<const float4*>(own + i));
+      else
+        v[u].x = __ldcg(own + i);
     }
-    cta_signal(flag_of(P, dst, me, 0), (unsigned)(hi - lo));
+    for (int off = 1; off < P.n; ++off) {
+      float* to = slab_of(P, (me + off) % P.n, me);
+#pragma unroll
+      for (int u = 0; u < COPY_U; ++u) {
+        const size_t i = i0 + (size_t)u * w * NCONS;
+        if (i >= hi) break;
+        if (P.vec)
+          *reinterpret_cast<float4*>(to + i) = v[u];
+        else
+          to[i] = v[u].x;
+      }
+    }
+  }
+  group_sync(wg::CONS_BAR, NCONS);
+  if (threadIdx.x == 0) {
+    __threadfence();
+    for (int off = 1; off < P.n; ++off)
+      atomicAdd(flag_of(P, (me + off) % P.n, me, 0), (unsigned)(hi - lo));
   }
 }
 
@@ -134,22 +276,114 @@ __device__ void wait_inbound(const GaParams& P, int me, int pid) {
   for (int i = pid * 32 + threadIdx.x; i < total; i += P.per_rank * 32) {
     const int off = 1 + i / P.nchunks, c = i % P.nchunks;
     const int src = (me - off + P.n) % P.n;
-    spin_geq(flag_of(P, me, src, c), want, P.timeout_ms, "gemm_allgather", "arrival", src, c);
+    spin_geq_inline(flag_of(P, me, src, c), want, P.timeout_ms);
   }
   __threadfence();
 }
 
-__global__ void __launch_bounds__(NT) gemm_allgather_kernel(GaParams P) {
-  __shared__ Smem sm;
+__global__ void __launch_bounds__(NTHREADS, 1)
+    gemm_allgather_kernel(const GaParams P, const int split_only,
+                          const __grid_constant__ CUtensorMap ta,
+                          const __grid_constant__ CUtensorMap tb) {
+  extern __shared__ __align__(1024) char smem[];
   const int me = blockIdx.x % P.n, pid = blockIdx.x / P.n;
-  if (P.fused)
-    fused_tiles(P, me, pid, sm);
-  else
-    deferred_slab(P, me, pid, sm);
+  wg::Ring ring = wg::make_ring(smem);
+  split_operands(P, me, pid, reinterpret_cast<float*>(smem + (ring.smem - tc::smem_u32(smem))));
+  wg::fence_proxy_async();  // the split's stores, before any CTA's TMA reads them
+  cta_signal(&P.split[me], 1u);
+  group_wait(&P.split[me], (unsigned)P.per_rank, P.timeout_ms, 0, NTHREADS);
+  if (split_only) return;
+  const int tiles = (P.M_p / BM) * (P.N_p / BN), nk = P.K_p / BK;
+  if (threadIdx.x >= NCONS) {  // the producer warp
+    if (threadIdx.x == NCONS) {
+      wg::fence_proxy_async();
+      for (int u = pid; u < tiles; u += P.per_rank) {
+        int row0, col0;
+        tile_of(P, u, row0, col0);
+        wg::produce_tile(ring, &ta, &tb, me * P.M_p + row0, (P.n + me) * P.M_p + row0,
+                         me * P.N_p + col0, (P.n + me) * P.N_p + col0, nk, P.timeout_ms);
+      }
+    }
+    return;
+  }
+  float acc[64];  // the consumers
+  float* own = slab_of(P, me, me);
+  for (int u = pid; u < tiles; u += P.per_rank) {
+    int row0, col0;
+    tile_of(P, u, row0, col0);
+    wg::consume_tile(ring, nk, acc, P.timeout_ms);
+    if (P.fused) {
+      for (int off = 0; off < P.n; ++off)
+        store_acc(slab_of(P, (me + off) % P.n, me), P, row0, col0, acc);
+      group_sync(wg::CONS_BAR, NCONS);
+      if (threadIdx.x == 0) tick_tile(P, me, row0, col0);
+    } else {
+      store_acc(own, P, row0, col0, acc);
+    }
+  }
+  if (!P.fused) {
+    group_signal(&P.done[me], 1u, wg::CONS_BAR, NCONS);
+    group_wait(&P.done[me], (unsigned)P.per_rank, P.timeout_ms, wg::CONS_BAR, NCONS);
+    ship_slab(P, me, pid);
+  }
   wait_inbound(P, me, pid);
 }
 
 // ------------------------------------------------------------ C interface
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver (the build links no libcuda)
+static EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
+            cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// (rows, K_p) f32 scratch as 128 x 32 boxes in the 128-byte swizzle wgmma reads
+static int encode(CUtensorMap* map, float* base, int rows, int K_p) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return -3;
+  const cuuint64_t dims[2] = {(cuuint64_t)K_p, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)K_p * sizeof(float)};
+  const cuuint32_t box[2] = {(cuuint32_t)BK, 128u};
+  const cuuint32_t step[2] = {1u, 1u};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, base, dims, strides, box, step,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -4;
+}
+
+// the dynamic shared memory is above the 48 KB default: opt in before the
+// occupancy query and the launch
+static cudaError_t allow_smem() {
+  return cudaFuncSetAttribute((const void*)gemm_allgather_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, wg::SMEM);
+}
+
+static int launch(const GaParams* p, int grid, int split_only, void* stream) {
+  CUtensorMap ta, tb;
+  int rc = encode(&ta, p->sa, 2 * p->n * p->M_p, p->K_p);
+  if (rc == 0) rc = encode(&tb, p->sb, 2 * p->n * p->N_p, p->K_p);
+  if (rc != 0) return rc;
+  void* args[] = {const_cast<GaParams*>(p), &split_only, &ta, &tb};
+  cudaError_t e = allow_smem();
+  if (e == cudaSuccess)
+    e = cudaLaunchCooperativeKernel((const void*)gemm_allgather_kernel, dim3(grid),
+                                    dim3(NTHREADS), args, wg::SMEM, (cudaStream_t)stream);
+  if (e == cudaSuccess) e = cudaGetLastError();
+  return (int)e;
+}
 
 extern "C" {
 
@@ -161,8 +395,10 @@ int gemm_allgather_grid(int n, int* grid, int* per_sm) {
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e == cudaSuccess) e = allow_smem();
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, gemm_allgather_kernel, NT, 0);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, gemm_allgather_kernel, NTHREADS,
+                                                      wg::SMEM);
   if (e != cudaSuccess) return (int)e;
   if (!coop) return -1;
   const int per_rank = (*per_sm) * sms / n;
@@ -173,19 +409,26 @@ int gemm_allgather_grid(int n, int* grid, int* per_sm) {
 // Cooperative launch: the runtime refuses a grid whose CTAs cannot all be
 // resident at once, which the spin-waits require.
 int gemm_allgather_launch(const GaParams* p, int grid, void* stream) {
-  void* args[] = {const_cast<GaParams*>(p)};
-  cudaError_t e = cudaLaunchCooperativeKernel((const void*)gemm_allgather_kernel, dim3(grid),
-                                              dim3(NT), args, 0, (cudaStream_t)stream);
-  if (e == cudaSuccess) e = cudaGetLastError();
-  return (int)e;
+  return launch(p, grid, 0, stream);
+}
+
+// The split phase alone (the same kernel, returning after the rank
+// meeting), for the tests and chip_smoke.py's ga_core line: fills p->sa
+// and p->sb; the flags and the output are not touched.
+int gemm_allgather_split(const GaParams* p, int grid, void* stream) {
+  return launch(p, grid, 1, stream);
 }
 
 const char* gemm_allgather_error(int code) {
   if (code == -1) return "device does not support cooperative launch";
   if (code == -2) return "fewer co-resident CTAs than ranks";
+  if (code == -3) return "the driver has no cuTensorMapEncodeTiled";
+  if (code == -4) return "cuTensorMapEncodeTiled refused a scratch layout";
   return cudaGetErrorString((cudaError_t)code);
 }
 
 int gemm_allgather_params_size() { return (int)sizeof(GaParams); }
+
+int gemm_allgather_smem_bytes() { return wg::SMEM; }
 
 }  // extern "C"

@@ -11,6 +11,10 @@
 // tf32 it takes only K-major A and B, and the weights here are (K, N)
 // row-major (N-major); mma.sync fragments are gathered from shared memory
 // in any layout, so no weight is transposed or copied.
+// wgmma_gemm.cuh (gemm_allgather.cu) pays that copy once per call instead:
+// its operands are split and transposed into K-major hi / lo scratch, then
+// TMA + wgmma run with no split in the loop (chip_smoke.py's ga_core line
+// times it against this core's gemm_core line).
 //
 // Staging: A and B arrive through a ring of STAGES BK = 32 deep slices in
 // dynamic shared memory, by cp.async (16 bytes a copy, one commit group a

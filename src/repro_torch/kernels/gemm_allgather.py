@@ -17,6 +17,12 @@ compute :func:`gemm_allgather_plain`, the plain version the tests and
 send window is accepted and has no counterpart on the card (a store and
 its flag retire as they issue). ``LAUNCHES`` counts launches keyed by
 variant and shape; ``VARIANTS`` names the knob sets the main path launches.
+
+The kernel splits its operands into TF32 hi / lo once per call, into
+scratch the wrapper allocates (:func:`scratch_shapes`: A and B^T,
+zero-padded to whole tiles, one replica of B^T a rank);
+:func:`split_operands` runs that phase alone and
+:func:`split_operands_plain` is its plain version.
 """
 from __future__ import annotations
 
@@ -35,6 +41,9 @@ from repro_torch.core.schedule import (BroadcastSchedule,  # noqa: F401
 
 TIMEOUT_MS = 20_000           # a spin-wait traps after this long
 DEFAULT_TILE_M = 128
+# the kernel's GEMM tile (csrc/wgmma_gemm.cuh: BM, BN, BK): the scratch is
+# padded to whole tiles
+TILE_M, TILE_N, TILE_K = 128, 128, 32
 
 # (variant, n, M_l, K, N) -> kernel launches; read by chip_smoke.py
 LAUNCHES = collections.Counter()
@@ -96,6 +105,45 @@ def gemm_allgather_plain(a, b, *, tile_m=DEFAULT_TILE_M, fused=True,
     return c.reshape(n * M_l, N)[None].expand(n, n * M_l, N).contiguous()
 
 
+def _up(x, tile):
+    return -(-x // tile) * tile
+
+
+def padded(M_l, K, N):
+    """``(M_p, K_p, N_p)``: M_l, K and N padded to whole GEMM tiles."""
+    return _up(M_l, TILE_M), _up(K, TILE_K), _up(N, TILE_N)
+
+
+def scratch_shapes(n, M_l, K, N):
+    """Shapes of the split scratch: ``(2, n, M_p, K_p)`` (each rank's A as
+    TF32 hi, then lo) and ``(2, n, N_p, K_p)`` (each rank's B^T)."""
+    M_p, K_p, N_p = padded(M_l, K, N)
+    return (2, n, M_p, K_p), (2, n, N_p, K_p)
+
+
+def split_tf32_plain(x):
+    """``(hi, lo)`` of float32 ``x``, as the kernel splits it (``mma.cuh``'s
+    ``split_tf32``): hi rounds x to TF32 (half an ulp added to the
+    magnitude's bits, the 13 low bits cleared), lo = x - hi, exact."""
+    hi = ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    return hi, x - hi
+
+
+def split_operands_plain(a, b):
+    """Plain version of :func:`split_operands`: a (n, M_l, K), b (K, N)
+    float32 -> the scratch of :func:`scratch_shapes`, zero-padded."""
+    n, M_l, K = a.shape
+    N = b.shape[1]
+    shape_a, shape_b = scratch_shapes(n, M_l, K, N)
+    pa = a.new_zeros(shape_a[1:])
+    pa[:, :M_l, :K] = a
+    pb = b.new_zeros(shape_b[2:])
+    pb[:N, :K] = b.t()
+    return (torch.stack(split_tf32_plain(pa)),
+            torch.stack(split_tf32_plain(pb))[:, None].expand(shape_b)
+            .contiguous())
+
+
 # ------------------------------------------------------------ the kernel
 
 
@@ -103,53 +151,116 @@ class _Params(ctypes.Structure):
     """``GaParams`` of ``csrc/gemm_allgather.cu``, field for field."""
     _fields_ = (
         [(k, ctypes.c_int) for k in (
-            "n", "M_l", "K", "N", "chunk_rows", "nchunks", "fused", "vec",
-            "per_rank", "timeout_ms")]
-        + [(k, ctypes.c_void_p) for k in ("a", "b", "out", "flag", "done")])
+            "n", "M_l", "K", "N", "M_p", "K_p", "N_p", "chunk_rows",
+            "nchunks", "fused", "vec", "per_rank", "timeout_ms")]
+        + [(k, ctypes.c_void_p) for k in (
+            "a", "b", "out", "sa", "sb", "flag", "done", "split")])
 
 
-def load_kernel():
+def load_kernel(defines=()):
     """Build (if needed) and load the kernel without running it — the
-    fast path's stage A and the cascade's l1."""
-    return build.load_typed("gemm_allgather", _Params, grid_args=1)
+    fast path's stage A and the cascade's l1. ``defines``: ``-D`` tuning
+    knobs of a build other than the production one (``GA_PART_STAGES``,
+    ``GA_GROUP_M``; :func:`launch_built_with`)."""
+    return build.load_typed("gemm_allgather", _Params, grid_args=1,
+                            defines=defines)
 
 
-def grid_for(device, n):
+def grid_for(device, n, defines=()):
     """The co-resident grid the launch uses for ``n`` ranks: CTAs per SM x
     SMs, rounded down to a multiple of n. Raises when a rank would get no
     CTA."""
-    return build.grid(load_kernel(), device, int(n))
+    return build.grid(load_kernel(defines), device, int(n))
 
 
-def _launch(a, b, *, tile_m, fused, counter, contexts):
-    n, M_l, K, N, tm = _shape(a, b, tile_m=tile_m, contexts=contexts)
+def smem_bytes():
+    """Dynamic shared memory of one CTA of the kernel (bytes)."""
+    return load_kernel().gemm_allgather_smem_bytes()
+
+
+def _check_tensors(a, b):
     for t in (a, b):
         if t.device != a.device or not t.is_contiguous() \
                 or t.dtype != torch.float32:
             raise ValueError(f"gemm_allgather wants contiguous float32 "
                              f"tensors on {a.device}; got {t.dtype} on "
                              f"{t.device}")
+
+
+def _params(a, b, out, chunk_rows, fused, defines=()):
+    """``(params, grid, keep)``: the launch's parameters, its grid and the
+    tensors they point into (the scratch and the flags: freed when
+    ``keep`` goes, which the caching allocator reuses only in this
+    stream's order, after the launch)."""
+    (n, M_l, K), N = a.shape, b.shape[1]
+    grid, _ = grid_for(a.device, n, defines)
+    shape_a, shape_b = scratch_shapes(n, M_l, K, N)
+    sa = torch.empty(shape_a, dtype=torch.float32, device=a.device)
+    sb = torch.empty(shape_b, dtype=torch.float32, device=a.device)
+    nchunks = M_l // chunk_rows
+    flags = torch.zeros(n * n * nchunks + 2 * n, dtype=torch.int32,
+                        device=a.device)
+    vec = K % 4 == 0 and N % 4 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (a, b) + (() if out is None
+                                                  else (out,)))
+    M_p, K_p, N_p = padded(M_l, K, N)
+    words = flags.data_ptr() + 4 * n * n * nchunks
+    p = _Params(n=n, M_l=M_l, K=K, N=N, M_p=M_p, K_p=K_p, N_p=N_p,
+                chunk_rows=chunk_rows, nchunks=nchunks, fused=int(fused),
+                vec=int(vec), per_rank=grid // n, timeout_ms=TIMEOUT_MS,
+                a=a.data_ptr(), b=b.data_ptr(),
+                out=None if out is None else out.data_ptr(),
+                sa=sa.data_ptr(), sb=sb.data_ptr(), flag=flags.data_ptr(),
+                done=words, split=words + 4 * n)
+    return p, grid, (sa, sb, flags)
+
+
+def _launch(a, b, *, tile_m, fused, counter, contexts, defines=()):
+    n, M_l, K, N, tm = _shape(a, b, tile_m=tile_m, contexts=contexts)
+    _check_tensors(a, b)
     if M_l * N >= 2**32:
         raise ValueError(f"a {M_l} x {N} slab overflows its 32-bit flag")
-    chunk_rows = tm if fused and counter else M_l
-    grid, _ = grid_for(a.device, n)
     out = torch.empty((n, n * M_l, N), dtype=a.dtype, device=a.device)
-    nchunks = M_l // chunk_rows
-    flags = torch.zeros(n * n * nchunks + n, dtype=torch.int32,
-                        device=a.device)
-    vec = K % 4 == 0 and N % 4 == 0 \
-        and all(t.data_ptr() % 16 == 0 for t in (a, b, out))
-    p = _Params(n=n, M_l=M_l, K=K, N=N, chunk_rows=chunk_rows,
-                nchunks=nchunks, fused=int(fused), vec=int(vec),
-                per_rank=grid // n, timeout_ms=TIMEOUT_MS, a=a.data_ptr(),
-                b=b.data_ptr(), out=out.data_ptr(), flag=flags.data_ptr(),
-                done=flags[n * n * nchunks:].data_ptr())
-    build.launch(load_kernel(), p, a.device, grid)
+    p, grid, _keep = _params(a, b, out, tm if fused and counter else M_l,
+                             fused, defines)
+    build.launch(load_kernel(defines), p, a.device, grid)
     LAUNCHES[(variant_name(fused=fused, counter=counter, tile_m=tile_m,
                            M_l=M_l), n, M_l, K, N)] += 1
-    # the flags are freed here; the caching allocator reuses them only in
-    # this stream's order, after the launch
     return out
+
+
+def split_operands(a, b):
+    """The kernel's split phase alone (``gemm_allgather_split``: the same
+    launch, ending after each rank's split), for the tests and
+    ``chip_smoke.py``'s ``ga_core`` line: a (n, M_l, K), b (K, N) float32
+    -> the scratch of :func:`scratch_shapes`. CUDA tensors launch (or
+    raise); CPU tensors compute :func:`split_operands_plain`. Not counted
+    in ``LAUNCHES``."""
+    _shape(a, b, tile_m=DEFAULT_TILE_M, contexts=1)
+    if a.device.type == "cpu":
+        return split_operands_plain(a, b)
+    _check_tensors(a, b)
+    p, grid, (sa, sb, _flags) = _params(a, b, None, a.shape[1], True)
+    lib = load_kernel()
+    fn = lib.gemm_allgather_split
+    fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_int, ctypes.c_void_p]
+    with torch.cuda.device(a.device):
+        build._check(lib, fn(ctypes.byref(p), grid, torch.cuda.current_stream(
+            a.device).cuda_stream), "split launch")
+    return sa, sb
+
+
+def launch_built_with(defines, a, b, *, tile_m=DEFAULT_TILE_M, fused=True,
+                      counter=False):
+    """The kernel on CUDA tensors a (n, M_l, K), b (K, N) through a build
+    with ``-D`` ``defines`` (its tuning knobs: ``GA_PART_STAGES``, the
+    stages summed in one partial; ``GA_GROUP_M``, the row tiles of a
+    group), for ``chip_smoke.py``'s readings of the knobs against the
+    production build."""
+    if a.device.type != "cuda":
+        raise ValueError(f"launch_built_with runs on cuda, not {a.device}")
+    return _launch(a, b, tile_m=tile_m, fused=fused, counter=counter,
+                   contexts=1, defines=tuple(defines))
 
 
 def gemm_allgather(a_shards, b, mesh=None, *, axis="x",

@@ -127,6 +127,66 @@ def test_variant_names():
         assert kern.variant_name(M_l=1024, **knobs) == name
 
 
+# ------------------------------------------------------------- the split
+
+
+@pytest.mark.parametrize("shape,padded", [
+    ((4, 1024, 4096, 4096), (1024, 4096, 4096)),     # aligned: no pad
+    ((4, 200, 96, 72), (256, 96, 128)),               # ragged rows, columns
+    ((2, 130, 67, 65), (256, 96, 128))], ids=str)     # K, N not multiples of 4
+def test_scratch_shapes_padded_to_whole_tiles(shape, padded):
+    n, M_l, K, N = shape
+    assert kern.padded(M_l, K, N) == padded
+    M_p, K_p, N_p = padded
+    assert kern.scratch_shapes(n, M_l, K, N) == ((2, n, M_p, K_p),
+                                                 (2, n, N_p, K_p))
+    assert M_p % kern.TILE_M == 0 and N_p % kern.TILE_N == 0
+    assert K_p % kern.TILE_K == 0
+
+
+def test_split_plain_is_exact_and_zero_padded():
+    """hi is x rounded to TF32 (13 low bits clear), hi + lo == x exactly,
+    A keeps its layout and B arrives transposed, one replica a rank, the
+    pad zero."""
+    a, b = (torch.from_numpy(x) for x in ga_numpy(3, 130, 67, 65, seed=5))
+    sa, sb = kern.split_operands(a, b)        # the CPU takes the plain split
+    assert (sa.shape, sb.shape) == kern.scratch_shapes(3, 130, 67, 65)
+    for hi in (sa[0], sb[0]):
+        assert not (hi.view(torch.int32) & 0x1FFF).any()
+    full_a, full_b = sa[0] + sa[1], sb[0] + sb[1]
+    assert torch.equal(full_a[:, :130, :67], a)
+    for r in range(3):
+        assert torch.equal(full_b[r, :65, :67], b.t())
+    assert not full_a[:, 130:].any() and not full_a[:, :, 67:].any()
+    assert not full_b[:, 65:].any() and not full_b[:, :, 67:].any()
+    # |lo| is at most half a TF32 step of x
+    assert bool((sa[1].abs() <= a.abs().max() * 2.0 ** -11).all())
+
+
+def test_split_products_match_the_reference():
+    """The kernel's arithmetic on the CPU: the three TF32 products
+    a_lo b_hi + a_hi b_lo + a_hi b_hi of the plain split, lo read as the
+    tensor core reads it (its top 19 bits), against the reference's
+    oracle within the kernel's 1e-4 gate."""
+    n, M_l, K, N = 2, 64, 256, 40
+    a, b = ga_numpy(n, M_l, K, N, seed=9)
+    sa, sb = kern.split_operands(*inputs_from_numpy(a, b, device="cpu"))
+
+    def tf32(x):            # the tensor core keeps 10 mantissa bits
+        return (x.view(torch.int32) & -0x2000).view(torch.float32).double()
+
+    ah, al = tf32(sa[0]), tf32(sa[1])
+    bh, bl = tf32(sb[0]), tf32(sb[1])
+    t = lambda m: m.transpose(1, 2)  # noqa: E731
+    c = al @ t(bh) + ah @ t(bl) + ah @ t(bh)
+    got = c[:, :M_l, :N].float().reshape(n * M_l, N)
+    want = jref.gemm_allgather_ref(jnp.asarray(a), jnp.asarray(b))[0]
+    assert rel_err(got, want) <= 1e-4
+    # one TF32 product alone is not f32-accurate
+    assert rel_err((ah @ t(bh))[:, :M_l, :N].float().reshape(n * M_l, N),
+                   want) > 1e-4
+
+
 # ------------------------------------------------------------- the mesh
 
 
@@ -338,5 +398,38 @@ def test_chip_smoke_ga_bound_from_the_shapes():
     ms, by, flops, nbytes = chip_smoke.ga_bound(4, 1024, 4096, 4096)
     assert flops == 2 * 4 * 1024 * 4096 * 4096     # 137.4 GFLOP
     assert abs(flops / 1e9 - 137.4) < 0.05
-    assert by == "operations" and abs(ms - 2.05) < 0.005
+    # the kernel's GEMM runs as 3xTF32: three TF32 products per multiply-add
+    assert by == "operations" and abs(ms - 0.833) < 0.0005
+    assert abs(ms - flops / (495e12 / 3) * 1e3) < 1e-12
     assert abs(nbytes / 1e6 - 402.7) < 0.1          # a, b in; 4 outputs
+
+
+def test_chip_smoke_ga_core_on_the_cpu():
+    """The smoke's ga_core line at a tiny size on the CPU, where the
+    wrappers compute their plain versions (nothing launched)."""
+    rec = chip_smoke.phase_ga_core("cpu", chip_smoke.ga_workload(small=True),
+                                   iters=1)
+    for key in ("split_ms", "split1_ms", "one_ms", "matmul_ms", "bound_ms"):
+        assert rec[key] > 0
+    assert rec["gemm_ms"] == rec["one_ms"] - rec["split1_ms"]
+    assert rec["knobs"] == {}             # the -D builds need the card
+    assert kern.launches() == 0
+
+
+def test_chip_smoke_reads_ptxas_resources():
+    lines = [
+        "ptxas info    : Compiling entry function '_Z8other_kernelv' for "
+        "'sm_90a'",
+        "ptxas info    : Function properties for _Z8other_kernelv",
+        "    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads",
+        "ptxas info    : Used 255 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function "
+        "'_Z21gemm_allgather_kernel8GaParamsi' for 'sm_90a'",
+        "ptxas info    : Function properties for "
+        "_Z21gemm_allgather_kernel8GaParamsi",
+        "    40 bytes stack frame, 0 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 162 registers, used 2 barriers"]
+    assert chip_smoke.ptxas_resources(lines, "gemm_allgather_kernel") == (
+        162, 0, 4)
+    assert chip_smoke.ptxas_resources([], "gemm_allgather_kernel") == (
+        None, None, None)

@@ -7,8 +7,8 @@ card's machine, which has no JAX:
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu_gemm_allgather.py
 
 Inputs are made with numpy from a seed. Tolerance: 1e-4 max-abs-normalised
-(the kernel sums the K dimension in another order than cuBLAS; no TF32 on
-either side).
+(the kernel's 3xTF32 products carry f32 accuracy and sum the K dimension
+in another order than cuBLAS, which runs without TF32).
 """
 import numpy as np
 import pytest
@@ -27,9 +27,11 @@ def cuda_device():
     return torch.device("cuda")
 
 
-# every realization, and chunks smaller and larger than a 64-row GEMM tile
+# every realization, and chunks smaller than, half of and straddling a
+# 128-row GEMM tile
 GPU_VARIANTS = dict(kern.VARIANTS, **{
     "fused_counter_tm16": dict(fused=True, counter=True, tile_m=16),
+    "fused_counter_tm64": dict(fused=True, counter=True, tile_m=64),
     "fused_counter_tm96": dict(fused=True, counter=True, tile_m=96),
     "deferred_contexts1": dict(fused=False, contexts=1),
 })
@@ -46,12 +48,15 @@ def _inputs(n, M_l, K, N, device, seed):
 @pytest.mark.parametrize("variant", list(GPU_VARIANTS))
 @pytest.mark.parametrize("shape", [(4, 256, 128, 128), (4, 200, 96, 72),
                                    (2, 130, 67, 65), (3, 64, 64, 40),
+                                   (1, 300, 96, 136),
                                    (4, 1024, 512, 512),
+                                   (2, 256, 7168, 512),
                                    (4, 1024, 4096, 4096)])
 def test_kernel_matches_plain_version(cuda_device, variant, shape):
     """Every realization at aligned, ragged-row, ragged-column, unaligned
-    (K, N not multiples of 4) and odd-rank shapes, and at GemmAllGather's
-    defaults."""
+    (K, N not multiples of 4) and odd-rank shapes, at one rank (no peer),
+    at K = 7168 (the depth the summed-apart partials must carry within the
+    gate) and at GemmAllGather's defaults."""
     n, M_l, K, N = shape
     a, b = _inputs(n, M_l, K, N, cuda_device, seed=sum(shape))
     knobs = GPU_VARIANTS[variant]
@@ -75,6 +80,38 @@ def test_launch_after_launch_sees_fresh_flags(cuda_device):
     torch.cuda.synchronize()
     for got in outs:
         assert rel_err(got.cpu(), want.cpu()) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_back_to_back_launches_split_their_own_operands(cuda_device):
+    """Two launches in a row on one stream, on other inputs: the second
+    reuses the first's freed scratch and must read its own fresh split."""
+    a1, b1 = _inputs(3, 384, 160, 256, cuda_device, seed=11)
+    a2, b2 = _inputs(3, 384, 160, 256, cuda_device, seed=12)
+    for knobs in GPU_VARIANTS.values():
+        got1 = kern.gemm_allgather(a1, b1, **knobs)
+        got2 = kern.gemm_allgather(a2, b2, **knobs)
+        torch.cuda.synchronize()
+        assert rel_err(got1.cpu(), kern.gemm_allgather_plain(a1, b1).cpu()) \
+            <= 1e-4
+        assert rel_err(got2.cpu(), kern.gemm_allgather_plain(a2, b2).cpu()) \
+            <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(4, 256, 128, 128), (2, 130, 67, 65),
+                                   (3, 200, 96, 72)])
+def test_split_matches_plain_version_bit_for_bit(cuda_device, shape):
+    """The split phase alone: each rank's A and B^T as TF32 hi / lo,
+    zero-padded to whole tiles, equal to the plain split."""
+    n, M_l, K, N = shape
+    a, b = _inputs(n, M_l, K, N, cuda_device, seed=sum(shape))
+    got = kern.split_operands(a, b)
+    want = kern.split_operands_plain(a, b)
+    torch.cuda.synchronize()
+    for g, w, shp in zip(got, want, kern.scratch_shapes(n, M_l, K, N)):
+        assert g.shape == w.shape == shp
+        assert torch.equal(g, w)
 
 
 @pytest.mark.gpu
