@@ -94,12 +94,30 @@ sizes; every run runs all of them, and any failure exits non-zero):
     attended tile pairs, the even split and a closed form that balances
     each rank's tile pairs alone; every launch's credit counters must
     show its split and its output pass the variant's gate.
+15. ``moe_model_kernels`` (run with the kernel phases, before ``main``)
+    — moe_dispatch at the llama4 MoE engine's prefill and decode shapes
+    with the knobs ``models/moe.py::_pallas_body`` launches, held and
+    timed as in phase 5; the ``decode tiles:`` line times the decode
+    call's 64-row tiles with each weight read once (``gemm_core``).
+16. ``slow_main`` — the slow path on the card with the moe counter at 0:
+    ``fast_path`` then ``slow_path`` on ``ServingStep(n_dev=4)``, 3
+    islands x 4 generations; every candidate past l0 and l1 at level 3,
+    the kernel launched, the best at least the seed; then a 2-generation
+    warm start from the saved store must serve cache hits.
+17. ``serve_moe`` — llama4-maverick at its published widths (4 layers,
+    4 experts, one per rank of a 4-rank data mesh), counted: 8 prompts
+    of 512 tokens, ``generate`` 32 tokens through ``moe_dispatch.cu``
+    (launches = MoE layers x 32), the host body's logits on the same
+    token stream and its free-running tokens equal up to a first split
+    that is a one-bf16-step tie, decode against ``forward``, ``serve`` of
+    4 requests.
 
 ``--iters`` sets the timed launches per kernel (1 for a quick check after
 a kernel change). The line before the last is the ``kernels`` JSON
 record (launches from the counted paths: moe records from ``main``, the
 kv GEMM records from ``kv_main``, the pure records from ``serve``,
-gemm_allgather from ``ga_main``, flash and ring from ``ring_main``); the
+gemm_allgather from ``ga_main``, flash and ring from ``ring_main``, the
+moe records at the llama4 shapes from ``serve_moe``); the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 outside a checkout, the script exits non-zero and prints no result.
 """
@@ -108,6 +126,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import re
 import subprocess
 import sys
@@ -422,24 +441,81 @@ def phase_gemm_core(device="cuda", shapes=None, iters=5):
     return out
 
 
-def bound(w, counts):
-    """Least time of one call of ``w``'s kernel on an H100: its f32-accurate
+def moe_bound(n, counts, d, f, fs=0, Ts=0, xs_is_x=True):
+    """Least time of one moe_dispatch call on an H100: its f32-accurate
     operations over the 3xTF32 rate, or bytes (each input read once, each
-    output written once) over HBM — whichever is larger. Routed rows are
-    the tokens routed; T is their sum. The kernel runs its f32 GEMMs on
-    the tensor cores as 3xTF32 (``csrc/tc_gemm.cuh``), so three TF32
-    products per multiply-add are the least the card can do for this
-    accuracy; against the f32 SIMT rate a right kernel could read over
-    100% of its bound."""
-    n, T, d, f = w.n_dev, sum(counts), w.d, w.f
-    fs = w.f_shared if w.second_stream else 0
-    flops = sum(6 * n * c * d * f for c in counts) + 6 * n * T * d * fs
+    output written once) over HBM — whichever is larger. Each of the n
+    ranks routes ``counts[e]`` rows to expert e (T rows in all); the second
+    stream runs the shared expert (width ``fs``) over ``Ts`` rows a rank,
+    which are x itself (``xs_is_x``, read once) or an input of their own.
+    The kernel runs its f32 GEMMs on the tensor cores as 3xTF32
+    (``csrc/tc_gemm.cuh``), so three TF32 products per multiply-add are
+    the least the card can do for this accuracy; against the f32 SIMT rate
+    a right kernel could read over 100% of its bound. Returns (ms, bound
+    by, flops, bytes)."""
+    T = sum(counts)
+    flops = sum(6 * n * c * d * f for c in counts) + 6 * n * Ts * d * fs
     elems = n * T * d + n * d * 2 * f + n * f * d + n * T * d
     if fs:
-        elems += d * 2 * fs + fs * d + n * T * d
+        elems += d * 2 * fs + fs * d + n * Ts * d * (1 if xs_is_x else 2)
     t_ops, t_bytes = flops / TF32X3_FLOPS, 4 * elems / HBM_BYTES_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
-                                       else "bytes"), flops
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops, 4 * elems)
+
+
+def bound(w, counts):
+    """:func:`moe_bound` of one call of workload ``w``'s kernel (its shared
+    expert runs over x itself): (ms, bound by, flops)."""
+    fs = w.f_shared if w.second_stream else 0
+    return moe_bound(w.n_dev, counts, w.d, w.f, fs, sum(counts))[:3]
+
+
+def moe_library(bench, x, w1, w2, counts, shared):
+    """``("matmul", ms)``: the kernel's routed and shared GEMMs as one
+    ``torch.matmul`` each, on the same inputs."""
+    n, f = x.shape[0], w2.shape[1]
+    offs = [sum(counts[:e]) for e in range(n)]
+
+    def library():
+        for e in range(n):
+            h = torch.matmul(x[:, offs[e]:offs[e] + counts[e]], w1[e])
+            torch.matmul(h[..., :f], w2[e])
+        if shared is not None:
+            xs, s1, s2 = shared
+            h = torch.matmul(xs, s1)
+            torch.matmul(h[..., :s2.shape[0]], s2)
+
+    return "matmul", bench.ms(library)
+
+
+def moe_record(bench, label, x, w1, w2, counts, shared, knobs, block_tokens,
+               bnd, lib, path):
+    """Hold one moe_dispatch variant (``knobs``) against its plain version
+    on these inputs and time it (:meth:`Bench.record`); the launch count
+    comes from the counted run of ``path``."""
+    from repro_torch.kernels.moe_dispatch import (moe_dispatch_combine,
+                                                  moe_dispatch_combine_ref,
+                                                  variant_name)
+    n, T, d = x.shape
+    f = w2.shape[1]
+    fs = shared[2].shape[0] if shared is not None else 0
+    wire_i8 = knobs.get("wire_i8", False)
+    kw = dict(counts=counts, block_tokens=block_tokens, tight=True, **knobs)
+    key = variant_name(
+        barrier=knobs.get("barrier", False),
+        pipelined=knobs.get("pipelined", True),
+        tile_fused=knobs.get("tile_fused", False), wire_i8=wire_i8,
+        shared=shared is not None, combine_tile=knobs.get("combine_tile"),
+        block_tokens=block_tokens)
+    return bench.record(
+        f"moe_dispatch/{key}@{label}",
+        f"n={n} T={T} d={d} f={f} fs={fs} B={block_tokens} counts={counts}",
+        lambda: moe_dispatch_combine(x, w1, w2, shared=shared, **kw),
+        lambda: moe_dispatch_combine_ref(
+            x, w1, w2, counts=counts, block_tokens=block_tokens, tight=True,
+            wire_i8=wire_i8, shared=shared),
+        1e-3 if wire_i8 else 1e-4, bnd, lib, SOURCE, REPLACES,
+        (key, n, T, d, f), path)
 
 
 def phase_kernels(device="cuda", workloads=None, iters=5):
@@ -447,49 +523,19 @@ def phase_kernels(device="cuda", workloads=None, iters=5):
     inputs. Returns one record per (variant, workload) for the ``kernels``
     line; ``main`` fills in ``launches``."""
     from repro_torch.dist.mesh import VirtualMesh
-    from repro_torch.kernels.moe_dispatch import (VARIANTS,
-                                                  moe_dispatch_combine,
-                                                  moe_dispatch_combine_ref,
-                                                  variant_name)
+    from repro_torch.kernels.moe_dispatch import VARIANTS
     bench = Bench(device, iters)
     out = []
     for w in workloads or main_path_workloads():
         ins = w.example_inputs(0, VirtualMesh(w.n_dev, device=device))
         x, w1, w2 = ins[:3]
         shared = (x, *ins[3:]) if w.second_stream else None
-        n, T, d = x.shape
-        f, fs = w.f, (w.f_shared if shared else 0)
-        counts = [int(c) for c in w._counts(T)]
-        offs = [sum(counts[:e]) for e in range(n)]
-
-        def library():
-            # the same routed and shared GEMMs as one torch.matmul each
-            for e in range(n):
-                h = torch.matmul(x[:, offs[e]:offs[e] + counts[e]], w1[e])
-                torch.matmul(h[..., :f], w2[e])
-            if shared is not None:
-                h = torch.matmul(x, shared[1])
-                torch.matmul(h[..., :fs], shared[2])
-
-        lib = ("matmul", bench.ms(library))
+        counts = [int(c) for c in w._counts(x.shape[1])]
+        lib = moe_library(bench, x, w1, w2, counts, shared)
         for knobs in VARIANTS.values():
-            wire_i8 = knobs.get("wire_i8", False)
-            kw = dict(counts=counts, block_tokens=64, tight=True, **knobs)
-            key = variant_name(
-                barrier=knobs.get("barrier", False),
-                pipelined=knobs.get("pipelined", True),
-                tile_fused=knobs.get("tile_fused", False), wire_i8=wire_i8,
-                shared=shared is not None,
-                combine_tile=knobs.get("combine_tile"), block_tokens=64)
-            out.append(bench.record(
-                f"moe_dispatch/{key}@{w.name}",
-                f"n={n} T={T} d={d} f={f} fs={fs} counts={counts}",
-                lambda: moe_dispatch_combine(x, w1, w2, shared=shared, **kw),
-                lambda: moe_dispatch_combine_ref(
-                    x, w1, w2, counts=counts, block_tokens=64, tight=True,
-                    wire_i8=wire_i8, shared=shared),
-                1e-3 if wire_i8 else 1e-4, (*bound(w, counts), None), lib,
-                SOURCE, REPLACES, (key, n, T, d, f), "main"))
+            out.append(moe_record(bench, w.name, x, w1, w2, counts, shared,
+                                  knobs, 64, (*bound(w, counts), None), lib,
+                                  "main"))
         del x, w1, w2, shared, ins
     return out
 
@@ -1312,6 +1358,424 @@ def phase_ring_main(device="cuda", workload=None, deploy=None, iters=5):
     return counts, records
 
 
+# ------------------------------------------- the slow path and the MoE engine
+
+
+def slow_workload(small=False):
+    """The slow path's workload: ``ServingStep(n_dev=4)`` at DeepSeek-V3
+    width (d = 7168, f = fs = 2048; ``small``: test size)."""
+    from repro_torch.workloads.serving import ServingStep
+    if small:
+        return ServingStep(n_dev=4, tokens_per_rank=16, d=64, f=64,
+                           f_shared=64)
+    return ServingStep(n_dev=4)
+
+
+def store_path():
+    """Where ``slow_main`` saves its search store: ``build/`` of the
+    checkout (gitignored)."""
+    path = ROOT / "build" / "repro_torch" / "slow_main_store.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    return path
+
+
+def _generation_lines(res):
+    """Per generation of a slow-path run: best score, the least
+    ``t_wall_ms`` the card measured among its level-3 candidates (a
+    cached result carries none) and rejections by class."""
+    import collections
+    for g in sorted({c.gen for c in res.db.records}):
+        cands = [c for c in res.db.records if c.gen == g]
+        done = [c for c in cands if c.result is not None and c.result.ok]
+        walls = [c.result.t_wall_ms for c in done if not c.cached]
+        best = max((c.score for c in done), default=0.0)
+        rej = collections.Counter(c.result.rejection for c in cands
+                                  if c.result is not None
+                                  and c.result.rejection)
+        log(f"slow_path gen {g}: {len(cands)} candidates "
+            f"({sum(c.cached for c in cands)} from cache), {len(done)} at "
+            f"level 3, best score {best:.3f}, best t_wall_ms "
+            f"{min(walls) if walls else float('nan'):.4f}; rejections "
+            f"{dict(rej)}")
+
+
+def phase_slow_main(device="cuda", workload=None):
+    """The slow path on the card, counted: ``fast_path`` then ``slow_path``
+    on ``ServingStep(n_dev=4)`` at DeepSeek-V3 width,
+    ``SlowPathConfig(islands=3, generations=4, seed=0)``, through the
+    card's evaluator (``wallclock=True``), with the moe counter at 0.
+    Every candidate that passes l0 and l1 must reach level 3 (no ``l2:*``
+    rejection, no evaluator error or quarantine), the kernel must have
+    been launched and the best score must be at least the seed's. The
+    store is saved and a 2-generation warm start from it must serve
+    directives from cache (its fingerprints match). Returns the moe
+    launch counter of the cold search."""
+    from repro_torch.core import SlowPathConfig, slow_path
+    from repro_torch.core.cascade import CascadeEvaluator
+    from repro_torch.core.fast_path import fast_path
+    from repro_torch.core.hardware import H100, extract_hardware_context
+    from repro_torch.dist.mesh import VirtualMesh
+    from repro_torch.kernels import moe_dispatch as kern
+    w = workload or slow_workload()
+    mesh = VirtualMesh(w.n_dev, device=device)
+    hw = extract_hardware_context(mesh, H100)
+    ev = CascadeEvaluator(w, mesh, hw, wallclock=True)
+    store = store_path()
+    kern.reset_launches()
+    t0 = time.perf_counter()
+    seed = fast_path(w, mesh, hw, evaluator=ev)
+    res = slow_path(seed, mesh, hw, SlowPathConfig(islands=3, generations=4,
+                                                   seed=0),
+                    evaluator=ev, save_to=str(store))
+    wall = time.perf_counter() - t0
+    counts = dict(kern.LAUNCHES)
+    evaluated = len(ev.records)
+    log(f"slow_path {w.name} n={w.n_dev} d={w.d} f={w.f} fs={w.f_shared}: "
+        f"{evaluated} candidates evaluated (fast path included) in "
+        f"{wall:.1f} s, {wall / evaluated:.3f} s per candidate; kernel "
+        f"launches {sum(counts.values())}")
+    _generation_lines(res)
+    bad = [r for r in ev.records if r.rejection.startswith("l2")
+           or r.rejection in ("error", "quarantine")]
+    for r in bad:
+        log(f"slow_path rejected on the card: {r.rejection} {r.directive}: "
+            f"{r.diagnostic[-300:]}")
+    if bad:
+        raise SystemExit(f"slow_path: {len(bad)} candidates passed l0 and "
+                         "l1 but not l2 on the card")
+    if torch.device(device).type == "cuda" and not counts:
+        raise SystemExit("slow_path launched no moe_dispatch kernel")
+    if res.best.score < res.seed_score:
+        raise SystemExit(f"slow_path best {res.best.score} < seed "
+                         f"{res.seed_score}")
+    summary = res.telemetry.payload()
+    log(f"slow_path best: score {res.best.score:.3f} (seed "
+        f"{res.seed_score:.3f}) t_wall_ms {res.best.result.t_wall_ms:.4f} "
+        f"directive {res.best.directive!r}")
+    log("slow_path telemetry: " + json.dumps(
+        {k: summary[k] for k in ("schema", "workload", "scale", "totals",
+                                 "mutations")}, sort_keys=True))
+    ev2 = CascadeEvaluator(w, mesh, hw, wallclock=True)
+    warm = slow_path(seed, mesh, hw, SlowPathConfig(islands=3, generations=2,
+                                                    seed=0),
+                     evaluator=ev2, warm_start=str(store))
+    scale = warm.telemetry.payload()["scale"]
+    log(f"slow_path warm start from {store.name}: {scale}; "
+        f"{len(ev2.records)} candidates re-run through the cascade")
+    _generation_lines(warm)
+    if not scale["warm_start"] or scale["cache_hits"] <= 0 \
+            or scale["transferred_seeds"]:
+        raise SystemExit(f"slow_path warm start missed its cache: {scale}")
+    return counts
+
+
+def moe_engine_config(small=False):
+    """The model ``serve_moe`` serves: llama4-maverick at every published
+    width (d_model 5120, 40 heads, 8 KV heads, head_dim 128, expert d_ff
+    8192, dense d_ff 16384, shared expert, vocab 202048, top-1, capacity
+    1.25, bf16) with two cuts: depth one repeat unit (4 layers, 2 of them
+    MoE) and 4 experts, one per rank of a 4-rank data mesh (the kernel
+    takes one expert per rank, at most 8 ranks); ``small``: the reduced
+    test size with the same cuts."""
+    from repro_torch.configs import get_arch, reduced
+    cfg = get_arch("llama4-maverick-400b-a17b")
+    if small:
+        return reduced(cfg, num_experts=4, experts_per_token=1, pad_to=2)
+    return dataclasses.replace(cfg, num_layers=4, num_experts=4, pad_to=4)
+
+
+def moe_serve_shape(small=False):
+    """(batch, prompt tokens, new tokens) of ``serve_moe``: the batch is a
+    multiple of the 4 data ranks."""
+    return (8, 16, 4) if small else (8, 512, 32)
+
+
+def moe_call_shapes(cfg, shape, n=4):
+    """``(label, T_local, C)`` of the kernel's two calls in the engine:
+    prefill (B / n prompts a rank) and decode (B / n tokens a rank), C =
+    ceil(capacity_factor * T_local * k / E)."""
+    from repro_torch.models.moe import _capacity
+    batch, prompt, _ = shape
+    out = []
+    for label, T in (("prefill", batch // n * prompt), ("decode", batch // n)):
+        out.append((label, T, _capacity(T, cfg.experts_per_token,
+                                         cfg.num_experts,
+                                         cfg.capacity_factor)))
+    return out
+
+
+def phase_moe_model_kernels(device="cuda", cfg=None, shape=None, iters=5):
+    """moe_dispatch at the MoE engine's two shapes (``moe_call_shapes``:
+    prefill and decode, ``block_tokens = min(64, C)``), the knobs
+    ``_pallas_body`` launches (tile-fused COUNTER, pipelined, the shared
+    expert as second stream), on inputs from a seed: held against the
+    plain version within 1e-4 and timed beside the same GEMMs'
+    ``torch.matmul`` and the bound. At the decode shape it also takes the
+    kernel's time apart: every (source, expert) pair's one-row microblock
+    is a segment of its own, so each expert's weights are read once a
+    source, and each segment (and each rank's shared-expert rows) runs a
+    whole 64-row tile. The ``decode tiles:`` line times the same tile work
+    with each weight read once: ``gemm_core`` over one expert's n tiles
+    stacked (n * 64 rows: GEMM1 with SwiGLU, then GEMM2), once for each
+    expert and the shared expert, beside the kernel. Returns one record
+    per shape; the launches come from ``serve_moe``."""
+    from repro_torch.kernels.moe_dispatch import TILE, gemm_core
+    cfg = cfg or moe_engine_config()
+    shape = shape or moe_serve_shape()
+    bench = Bench(device, iters)
+    n, d, f = 4, cfg.d_model, cfg.moe_d_ff
+    out = []
+    for label, T, C in moe_call_shapes(cfg, shape, n):
+        g = torch.Generator(device=device).manual_seed(T)
+        kw = dict(generator=g, device=device, dtype=torch.float32)
+        x = torch.randn((n, n * C, d), **kw)
+        w1 = torch.randn((n, d, 2 * f), **kw) / d ** 0.5
+        w2 = torch.randn((n, f, d), **kw) / f ** 0.5
+        shared = (torch.randn((n, T, d), **kw),
+                  torch.randn((d, 2 * f), **kw) / d ** 0.5,
+                  torch.randn((f, d), **kw) / f ** 0.5)
+        counts, B = [C] * n, min(64, C)
+        out.append(moe_record(
+            bench, f"llama4_{label}", x, w1, w2, counts, shared,
+            dict(tile_fused=True, pipelined=True), B,
+            moe_bound(n, counts, d, f, f, T, xs_is_x=False),
+            moe_library(bench, x, w1, w2, counts, shared), "serve_moe"))
+        if label == "decode":
+            # one expert's n segments (one shared-expert tile a rank) as
+            # n stacked 64-row tiles, its weights read once
+            a = torch.randn((n * TILE, d), **kw)
+            h = torch.randn((n * TILE, f), **kw)
+            g1 = bench.ms(lambda: gemm_core(a, w1[0], swiglu=True))
+            g2 = bench.ms(lambda: gemm_core(h, w2[0]))
+            tiles = n * n * -(-C // B) + n * -(-T // TILE)
+            gflop = tiles * TILE * 6 * d * f / 1e9
+            gb = 4 * 3 * d * f / 1e9
+            log(f"decode tiles: {n} sources x {n} experts one-row microblocks "
+                f"+ {n} ranks' shared rows run {tiles} tiles of {TILE} rows "
+                f"for {n * n * C + n * T} rows: {gflop:.1f} GFLOP of tile "
+                f"work; the same tiles with each weight read once "
+                f"(gemm_core over {n * TILE} rows, GEMM1 {g1:.3f} + GEMM2 "
+                f"{g2:.3f} ms, x {n + 1} weights) {(n + 1) * (g1 + g2):.3f} "
+                f"ms, against the kernel's {out[-1]['ms']:.3f} ms, which "
+                f"reads each weight once a segment: {tiles * gb:.2f} GB "
+                f"against {(n + 1) * gb:.2f} GB once")
+            del a, h
+        del x, w1, w2, shared
+    return out
+
+
+def _bf16_step(v):
+    """The gap between neighbouring bf16 values at magnitude ``v`` (8
+    significant bits)."""
+    return math.ldexp(1.0, math.frexp(v)[1] - 8) if v else 0.0
+
+
+def phase_serve_moe(device="cuda", cfg=None, shape=None):
+    """The MoE engine at full width (``moe_engine_config``; its two cuts
+    are listed there), counted: weights from seed 0; a ``VirtualMesh(4)``
+    data mesh; 8 prompts of 512 tokens; ``generate`` 32 tokens with
+    ``StepOptions(moe_backend="pallas", moe_overlap=True)`` after a
+    warm-up on an engine of its own. It must hold:
+
+    * the moe counter reads MoE layers x (1 prefill + 31 decode steps);
+    * against the same engine with ``moe_backend="xla"`` (the all-to-all
+      body on the card's operators): on the pallas engine's token stream
+      the two backends' logits agree within 5e-2 (max-abs-normalised,
+      bf16) at every step, and the pallas engine replays its own tokens.
+      Both compute the MoE in f32 and round it to bf16, so they differ
+      only where f32 sums taken in another order round to neighbouring
+      bf16 values; the free-running greedy streams are equal up to their
+      first split, and there the xla pick leads the pallas token by at
+      most one bf16 step at that logit size (a tie that such a rounding
+      tips);
+    * the first decode step's logits are within 5e-2 (max-abs-normalised,
+      bf16) of ``forward`` over the 513 tokens. That holds where no token
+      is dropped: a decode step routes 2 tokens a rank at capacity
+      ceil(1.25 * 2 / 4) = 1, a forward over 513 tokens 1026 at 321, so at
+      the config's capacity the capacity rule drops different tokens in
+      the two and they are different functions. The check runs at
+      capacity 4, where C >= T_local and no token can drop; the reading
+      at 1.25 is printed beside it;
+    * ``serve`` answers 4 requests of one prompt length with
+      ``Scheduler(max_batch=4)``, so every batch shards over the 4 ranks,
+      and its tokens equal ``generate``'s for the same prompts.
+
+    Prints prefill ms, decode ms per step and tokens/s (host clock after a
+    synchronize). Returns the moe launch counter of the ``generate``."""
+    from repro_torch.dist.mesh import VirtualMesh
+    from repro_torch.dist.sharding import Rules
+    from repro_torch.kernels import moe_dispatch as kern
+    from repro_torch.models import (StepOptions, decode_step, forward,
+                                    init_params, prefill_step)
+    from repro_torch.models.model import lm_logits, with_kernel_weights
+    from repro_torch.serve import Engine, Request, Scheduler, ServeConfig
+    cfg = cfg or moe_engine_config()
+    batch, prompt, new = shape or moe_serve_shape()
+    cuda = torch.device(device).type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(device)) if cuda else (lambda: None)
+    n_moe = sum(cfg.layer_is_moe(i) for i in range(cfg.num_layers))
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator(device=device).manual_seed(0), cfg,
+                         device=device)
+    g = torch.Generator(device=device).manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=g,
+                           device=device)
+    sync()
+    log(f"serve_moe {cfg.name}: {cfg.num_layers} layers ({n_moe} MoE, "
+        f"{cfg.num_experts} experts top-{cfg.experts_per_token}, capacity "
+        f"{cfg.capacity_factor}) d={cfg.d_model} heads "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} expert d_ff {cfg.moe_d_ff} "
+        f"dense d_ff {cfg.d_ff} vocab {cfg.vocab_size} {cfg.dtype}; "
+        f"{cfg.param_count() / 1e9:.2f} B parameters from seed 0 in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rules = Rules(VirtualMesh(4, device=device, axis="data"), "decode")
+    b = {"tokens": tokens}
+    max_seq = prompt + new + 1
+
+    def engine(backend):
+        return Engine(cfg, params, ServeConfig(
+            max_seq=max_seq, opts=StepOptions(moe_backend=backend,
+                                              moe_overlap=True)),
+                      rules=rules)
+
+    def timed_generate(eng, what):
+        t0 = time.perf_counter()
+        toks = eng.generate(what, new)
+        sync()
+        gen_s = time.perf_counter() - t0
+        snap = eng.metrics.snapshot()["histograms"]
+        return toks, gen_s, snap["serve.prefill_ms"]["mean"], \
+            snap["serve.decode_step_ms"]["mean"]
+
+    # warm-up on an engine of its own: kernel loading and the BLAS
+    # handles' set-up stay out of the timed engine's metrics
+    engine("pallas").generate(b, 2)
+    eng = engine("pallas")
+    kern.reset_launches()
+    toks, gen_s, pre_ms, dec_ms = timed_generate(eng, b)
+    counts = dict(kern.LAUNCHES)
+    want = n_moe * new if cuda else 0
+    log(f"serve_moe generate (pallas): {batch} x {prompt} prompt tokens -> "
+        f"{new} new in {gen_s:.3f} s; prefill {pre_ms:.3f} ms "
+        f"({batch * prompt / pre_ms * 1e3:.0f} prompt tok/s), decode "
+        f"{dec_ms:.3f} ms/step ({batch / dec_ms * 1e3:.0f} tok/s); moe "
+        f"launches {counts}")
+    if sum(counts.values()) != want:
+        raise SystemExit(f"serve_moe launched moe_dispatch "
+                         f"{sum(counts.values())} times, not {n_moe} MoE "
+                         f"layers x {new} steps = {want}")
+    xla = engine("xla")
+    xla_toks, xla_s, xla_pre, xla_dec = timed_generate(xla, b)
+    split = (toks != xla_toks).nonzero()
+    log(f"serve_moe generate (xla body): prefill {xla_pre:.3f} ms, decode "
+        f"{xla_dec:.3f} ms/step; free-running greedy tokens equal the "
+        f"pallas engine's: {not len(split)}"
+        + (f" (first apart at (row, step) {split[0].tolist()})"
+           if len(split) else ""))
+
+    V = cfg.vocab_size                # the padded vocab's logits are -1e30
+
+    def forced(e):
+        """Every step's logits of engine ``e`` over the real vocab, on the
+        pallas engine's token stream (B, new, V)."""
+        with torch.no_grad():
+            lg, cache = e._prefill(b)
+            out = [lg[..., :V]]
+            for i in range(new - 1):
+                lg, cache = e._decode(cache, toks[:, i:i + 1], prompt + i)
+                out.append(lg[..., :V])
+        return torch.cat(out, 1)
+
+    lp = forced(eng)
+    if not torch.equal(lp.argmax(-1).to(toks.dtype), toks):
+        raise SystemExit("serve_moe: the pallas engine does not replay its "
+                         "own greedy tokens")
+    lx = forced(xla)
+    del xla
+    step_err = ((lx - lp).abs().amax(dim=(0, 2))
+                / lp.abs().amax(dim=(0, 2)).clamp_min(1e-9))
+    apart = lx.argmax(-1).to(toks.dtype) != toks
+    # where the xla engine picks another token: how far its pick leads the
+    # pallas token in its own logits, against the two engines' difference
+    lead = (lx.amax(-1) - lx.gather(-1, toks[..., None].long())[..., 0])
+    diff = (lx - lp).abs().amax(-1)
+    worst = int(step_err.argmax())
+    log(f"serve_moe pallas vs xla on the pallas token stream: logits within "
+        f"rel err {float(step_err.max()):.3e} of each other at every step "
+        f"(worst step {worst}; tol {LOGIT_TOL:.0e}); greedy choices apart "
+        f"at {int(apart.sum())} of {toks.numel()} (row, step) points, where "
+        f"the xla pick leads the pallas token by at most "
+        f"{float(lead[apart].max()) if apart.any() else 0.0:.4f} against a "
+        f"logit difference of "
+        f"{float(diff[apart].max()) if apart.any() else 0.0:.4f} there "
+        f"(largest logit {float(lp.abs().max()):.3f})")
+    if float(step_err.max()) > LOGIT_TOL or not torch.isfinite(lp).all():
+        raise SystemExit(f"serve_moe: pallas and xla logits disagree at "
+                         f"step {worst}: rel err {float(step_err.max()):.3e}")
+    first = int(split[:, 1].min()) if len(split) else new - 1
+    if not torch.equal(lx[:, :first + 1].argmax(-1).to(toks.dtype),
+                       xla_toks[:, :first + 1]):
+        raise SystemExit("serve_moe: up to the free-running streams' first "
+                         "split the xla engine does not replay its tokens")
+    for r in (xla_toks[:, first] != toks[:, first]).nonzero()[:, 0].tolist():
+        pick, ours = lx[r, first, xla_toks[r, first]], lx[r, first,
+                                                         toks[r, first]]
+        step = _bf16_step(max(abs(float(pick)), abs(float(ours))))
+        log(f"serve_moe first split (row {r}, step {first}): the xla pick "
+            f"leads the pallas token by {float(pick - ours):.4f}, one bf16 "
+            f"step at that logit size is {step:.4f}")
+        if float(pick - ours) > step:
+            raise SystemExit(f"serve_moe: the greedy streams split at (row "
+                             f"{r}, step {first}) where the xla pick leads "
+                             f"by more than one bf16 step: not a tie")
+    del lp, lx
+    readings = {}
+    for cap in (cfg.capacity_factor, 4.0):
+        ccfg = dataclasses.replace(cfg, capacity_factor=cap)
+        kp = with_kernel_weights(params, ccfg)
+        opts = StepOptions(moe_backend="pallas", moe_overlap=True)
+        with torch.no_grad():
+            pl, cache = prefill_step(kp, b, ccfg, rules, seq_len=max_seq,
+                                     opts=opts)
+            first = torch.argmax(pl[:, -1], dim=-1)
+            dl, _ = decode_step(kp, cache, first[:, None], prompt, ccfg,
+                                rules, opts=opts)
+            grown = torch.cat([tokens, first[:, None]], 1)
+            x, _ = forward(kp, {"tokens": grown}, ccfg, rules, opts)
+            fl = lm_logits(kp, x[:, -1:], ccfg)[..., :cfg.vocab_size]
+            dl = dl[..., :cfg.vocab_size]
+        del kp, cache, x
+        if cap == 4.0:
+            readings[cap], _ = _close("moe decode logits vs forward", dl, fl,
+                                      LOGIT_TOL)
+        else:
+            readings[cap] = float((dl - fl).abs().max()
+                                  / (fl.abs().max() + 1e-9))
+    log(f"serve_moe decode step vs forward over {prompt + 1} tokens: logits "
+        f"{tuple(dl.shape)} (the real vocab), "
+        f"{_reading(readings[4.0], LOGIT_TOL)} at capacity "
+        f"4 (no token can drop); rel err {readings[cfg.capacity_factor]:.3e} "
+        f"at the config's {cfg.capacity_factor} (not held: decode and "
+        f"forward drop different tokens)")
+    sched = Scheduler(token_budget=4 * prompt, max_batch=4,
+                      metrics=eng.metrics)
+    for rid in range(4):
+        sched.submit(Request(rid, tokens[rid].tolist(),
+                             max_new_tokens=max(2, new // 4)))
+    t0 = time.perf_counter()
+    done = eng.serve(sched)
+    sync()
+    serve_s = time.perf_counter() - t0
+    four = eng.generate({"tokens": tokens[:4]}, max(2, new // 4))
+    equal = sorted(done) == list(range(4)) and all(
+        torch.equal(done[r].to(four.device), four[r]) for r in range(4))
+    log(f"serve_moe scheduler: {len(done)} of 4 requests of {prompt} tokens "
+        f"done in {serve_s:.3f} s; tokens equal generate's: {equal}")
+    if not equal:
+        raise SystemExit("serve_moe: serve's tokens differ from generate's")
+    return counts
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=5,
@@ -1331,6 +1795,7 @@ def main(argv=None):
     records += phase_kv_kernels("cuda", iters=args.iters)
     records += phase_ga_kernels("cuda", iters=args.iters)
     records += phase_attn_kernels("cuda", iters=args.iters)
+    records += phase_moe_model_kernels("cuda", iters=args.iters)
     counted = {"main": phase_main("cuda")}
     counted["kv_main"] = phase_kv_main("cuda")
     counted["serve"] = phase_serve("cuda")
@@ -1338,6 +1803,8 @@ def main(argv=None):
     counted["ring_main"], deployed = phase_ring_main("cuda", iters=args.iters)
     records += deployed
     phase_ring_split("cuda", iters=args.iters)
+    counted["slow_main"] = phase_slow_main("cuda")
+    counted["serve_moe"] = phase_serve_moe("cuda")
     for path, counts in counted.items():
         log(f"launches on the {path} path: {counts}")
     for rec in records:

@@ -7,21 +7,24 @@
 * :class:`EvalRecord` — one structured row per evaluated candidate, JSON
   round-trippable (non-finite floats map to ``null``), naming the device
   the candidate ran on.
+* :class:`SearchTelemetry` — aggregates the records of one ``slow_path``
+  run into per-generation / per-island series and mutation win rates; its
+  ``payload()`` is the reference's ``BENCH_search.json`` JSON for the same
+  records (wall-clock fields stay out).
 * :class:`MetricsRegistry` — counters / gauges / histograms with a JSON
   snapshot.
-
-``SearchTelemetry`` (the slow path's aggregation) waits for the slow path.
 """
 from __future__ import annotations
 
 import json
 import math
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
 import torch
 
-__all__ = ["wallclock_us", "EvalRecord", "MetricsRegistry"]
+__all__ = ["wallclock_us", "EvalRecord", "SearchTelemetry",
+           "MetricsRegistry"]
 
 
 def wallclock_us(fn, inputs, iters=3):
@@ -129,6 +132,160 @@ class EvalRecord:
         for k in ("levels_s", "elapsed_s", "t_wall_ms", "stage"):
             d.pop(k)
         return d
+
+
+# ------------------------------------------------------------ search series
+
+
+class SearchTelemetry:
+    """Aggregates one search run's :class:`EvalRecord` stream.
+
+    ``observe`` ingests records in evaluation order (the win-rate
+    accounting is order-sensitive: a record *wins* when it strictly beats
+    the best score seen before it); ``note_coverage`` stamps the archive
+    coverage after a generation closes."""
+
+    def __init__(self, workload=""):
+        self.workload = str(workload)
+        self.records = []
+        self.coverage = {}           # gen -> archive cells occupied
+        self._best = 0.0
+        self._wins = {}              # mutation form -> win count
+        # warm-start / transfer counters (docs/search.md). Deliberately
+        # batch-invariant: the batched and sequential evaluators produce
+        # byte-identical payloads, so batching stats stay OUT of here.
+        self.scale = {"warm_start": False, "cache_hits": 0,
+                      "transferred_seeds": 0}
+
+    def note_scale(self, **kw):
+        """Stamp warm-start/transfer counters onto the run (slow_path)."""
+        for k, v in kw.items():
+            self.scale[k] = v
+
+    def observe(self, record: EvalRecord):
+        self.records.append(record)
+        if record.score > self._best:
+            self._best = record.score
+            self._wins[record.mutation] = \
+                self._wins.get(record.mutation, 0) + 1
+
+    def note_coverage(self, gen, coverage):
+        self.coverage[int(gen)] = float(coverage)
+
+    # ------------------------------------------------------------- series
+    def generation_series(self):
+        gens = sorted({r.gen for r in self.records})
+        out = []
+        for g in gens:
+            rs = [r for r in self.records if r.gen == g]
+            scored = [r.score for r in rs]
+            out.append({
+                "gen": g,
+                "evals": len(rs),
+                "best_score": max(scored),
+                "mean_score": sum(scored) / len(scored),
+                "ok": sum(1 for r in rs if r.level >= 3),
+                "quarantined": sum(1 for r in rs if r.quarantined),
+                "retries": sum(r.retries for r in rs),
+                "archive_coverage": self.coverage.get(g),
+            })
+        return out
+
+    def island_series(self):
+        isls = sorted({r.island for r in self.records})
+        out = []
+        for i in isls:
+            rs = [r for r in self.records if r.island == i]
+            out.append({
+                "island": i,
+                "evals": len(rs),
+                "best_score": max(r.score for r in rs),
+                "mean_score": sum(r.score for r in rs) / len(rs),
+                "quarantined": sum(1 for r in rs if r.quarantined),
+            })
+        return out
+
+    def mutation_stats(self):
+        """Per-mutation-operator attempt/success/win table. A *win* is a
+        new global best at observe time — the cross-strategy signal the
+        meta-summarizer coordinates on."""
+        forms = sorted({r.mutation for r in self.records})
+        out = []
+        for f in forms:
+            rs = [r for r in self.records if r.mutation == f]
+            out.append({
+                "mutation": f,
+                "attempts": len(rs),
+                "ok": sum(1 for r in rs if r.level >= 3),
+                "wins": self._wins.get(f, 0),
+                "win_rate": self._wins.get(f, 0) / len(rs),
+            })
+        return out
+
+    # ------------------------------------------------------------ artifact
+    def payload(self, meta=None):
+        """The ``BENCH_search.json`` payload: deterministic aggregates
+        only (wall-clock fields excluded — regenerating on any machine
+        must be diff-stable for a checked-in artifact)."""
+        best = max(self.records, key=lambda r: r.score, default=None)
+        return {
+            "schema": "bench-search/v2",
+            "workload": self.workload,
+            "meta": dict(meta or {}),
+            "scale": {"warm_start": bool(self.scale["warm_start"]),
+                      "cache_hits": int(self.scale["cache_hits"]),
+                      "transferred_seeds":
+                          int(self.scale["transferred_seeds"])},
+            "totals": {
+                "evals": len(self.records),
+                "ok": sum(1 for r in self.records if r.level >= 3),
+                "quarantined": sum(1 for r in self.records if r.quarantined),
+                "retries": sum(r.retries for r in self.records),
+                "best_score": self._best,
+            },
+            "best": None if best is None else {
+                "cid": best.cid, "gen": best.gen, "island": best.island,
+                "mutation": best.mutation, "directive": best.directive,
+                "score": best.score, "t_model_ms": _jsonable(best.t_model_ms),
+                "knobs": dict(best.knobs),
+            },
+            "generations": self.generation_series(),
+            "islands": self.island_series(),
+            "mutations": self.mutation_stats(),
+        }
+
+    def write(self, path, meta=None):
+        with open(path, "w") as f:
+            json.dump(self.payload(meta), f, indent=2, sort_keys=True)
+            f.write("\n")
+
+    @classmethod
+    def from_candidates(cls, candidates, workload="", coverage=None):
+        """Build telemetry from evaluated ``Candidate``s (the slow-path
+        aggregation seam): candidates whose results carry an attached
+        :class:`EvalRecord` contribute it; results from a custom evaluator
+        without records are synthesized from the candidate itself."""
+        tel = cls(workload)
+        for c in candidates:
+            rec = getattr(c.result, "record", None) if c.result else None
+            if rec is None:
+                res = c.result
+                rec = EvalRecord(
+                    cid=c.cid, gen=c.gen, island=c.island,
+                    mutation=c.mutation, directive=repr(c.directive),
+                    level=res.level if res else 0,
+                    score=res.score if res else 0.0,
+                    t_model_ms=_jsonable(res.t_model_ms) if res else None,
+                    t_wall_ms=_jsonable(res.t_wall_ms) if res else None,
+                    retries=res.retries if res else 0,
+                    quarantined=bool(res and res.quarantined),
+                    diagnostic=res.diagnostic if res else "never evaluated")
+            else:
+                rec = replace(rec)          # observe order owns win stats
+            tel.observe(rec)
+        for g, cov in (coverage or {}).items():
+            tel.note_coverage(g, cov)
+        return tel
 
 
 # ----------------------------------------------------------------- metrics

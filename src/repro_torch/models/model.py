@@ -1,5 +1,6 @@
 """Model assembly: init / prefill / decode (port of
-``repro/models/model.py`` for the attention architectures).
+``repro/models/model.py`` for the attention architectures, dense and
+MoE).
 
 Layers are stacked over *repeat units* (the lcm of the block pattern and
 the MoE interleave): every parameter and cache leaf carries the repeat
@@ -9,10 +10,14 @@ nested dicts of tensors with the reference's keys, so
 :func:`params_from_numpy` carries the JAX package's weights across leaf
 for leaf.
 
+``rules`` (a ``dist.sharding.Rules`` over a ``VirtualMesh``, or None)
+reaches the MoE layers, which shard the batch and the experts over the
+mesh's data ranks (``models/moe.py``); every other operator computes the
+same on one device whatever the sharding.
+
 Not ported yet (each raises ``NotImplementedError``): the recurrent block
-kinds (xLSTM, RG-LRU), the encoder-decoder (whisper) and MoE layers
-(ROADMAP queue 1, items 9 and 14); training (``train_loss``, remat) and
-the sharding rules, which run on one device here.
+kinds (xLSTM, RG-LRU) and the encoder-decoder (whisper) (ROADMAP queue 1,
+item 4); training (``train_loss``, remat).
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ import torch
 
 from repro_torch.configs.base import RECURRENT_KINDS
 from repro_torch.models.layers import apply_norm, dense_init, norm_init
+from repro_torch.models.moe import kernel_weights
 from repro_torch.models.transformer import (EMPTY, attn_block_apply,
                                             attn_block_init, cache_size)
 
@@ -33,8 +39,11 @@ MAX_LEARNED_POS = 32768
 @dataclass(frozen=True)
 class StepOptions:
     """Step-level knobs of the reference's ``StepOptions`` that the port's
-    attention reads (the MoE, remat and sharding knobs arrive with their
-    slices)."""
+    attention and MoE read (remat and the sequence-parallel knobs arrive
+    with training)."""
+    moe_overlap: bool = False        # CUCo self/remote split dispatch hiding
+    moe_quantize: bool = False       # int8 dispatch (paper's quantize phase)
+    moe_backend: str = "xla"         # "pallas": the moe_dispatch.cu kernel
     kv_block: int = 1024             # flash KV block
     flash_threshold: int = 8192
 
@@ -47,12 +56,12 @@ def _check_supported(cfg):
     if cfg.is_encoder_decoder:
         raise NotImplementedError(
             f"{cfg.name}: the encoder-decoder is not ported yet (ROADMAP "
-            "queue 1, item 14)")
+            "queue 1, item 4)")
     kinds = [k for k in cfg.block_pattern if k in RECURRENT_KINDS]
     if kinds:
         raise NotImplementedError(
             f"{cfg.name}: recurrent blocks {kinds} are not ported yet "
-            "(ROADMAP queue 1, item 14)")
+            "(ROADMAP queue 1, item 4)")
 
 
 def _stack(trees):
@@ -100,15 +109,35 @@ def params_from_numpy(tree, cfg, device="cuda"):
     nesting, stacked ``(R, ...)`` leaves), as the port's params on
     ``device``. bf16 leaves arrive as ``ml_dtypes.bfloat16``, which
     ``torch.from_numpy`` refuses: they cross as float32 (bf16 -> f32 ->
-    bf16 is exact)."""
+    bf16 is exact). The MoE router stays float32, as the reference keeps
+    it."""
     _check_supported(cfg)
     dtype = _dtype(cfg)
 
-    def leaf(a):
-        t = torch.from_numpy(np.array(a, dtype=np.float32))
-        return t.to(device=device, dtype=dtype)
+    def convert(node, name=None):
+        if isinstance(node, dict):
+            return {k: convert(v, k) for k, v in node.items()}
+        t = torch.from_numpy(np.array(node, dtype=np.float32))
+        return t.to(device=device, dtype=F32 if name == "router" else dtype)
 
-    return _map(leaf, tree)
+    return convert(tree)
+
+
+def with_kernel_weights(params, cfg):
+    """``params`` with each MoE layer's f32 kernel operands built once
+    (``moe.kernel_weights`` under ``["moe"]["kernel"]``, stacked like the
+    other leaves), for ``moe_backend="pallas"``: the kernel wants f32
+    ``[wg | wu]`` and ``wd``, and a cast per call would read and write
+    every expert weight again at each step. The input is left as it was;
+    the new tree shares its tensors."""
+    blocks = dict(params["blocks"])
+    for i in range(cfg.repeat_unit):
+        key = f"s{i}"
+        if "moe" in blocks[key]:
+            moe = dict(blocks[key]["moe"])
+            moe["kernel"] = kernel_weights(moe)
+            blocks[key] = dict(blocks[key], moe=moe)
+    return dict(params, blocks=blocks)
 
 
 # ============================================================ embed / logits
@@ -149,7 +178,7 @@ def init_cache(cfg, B, seq_len, dtype=None, device="cuda"):
 
 # ================================================================ forward
 
-def apply_blocks(params_blocks, x, cfg, positions, *, causal=True,
+def apply_blocks(params_blocks, x, cfg, rules, positions, *, causal=True,
                  cache=None, pos=None, opts=None, return_cache=False):
     """Every layer in order: repeat ``r`` applies slot ``s0..s{unit-1}``
     with their ``[r]`` parameters (and cache). Returns ``(x, caches)``,
@@ -166,18 +195,18 @@ def apply_blocks(params_blocks, x, cfg, positions, *, causal=True,
             c = _map(lambda a: a[r], cache[key]) if cache is not None \
                 else None
             x, new[key] = attn_block_apply(p, x, cfg, cfg.block_kind(i),
-                                           positions, causal=causal, cache=c,
-                                           pos=pos, opts=opts)
+                                           rules, positions, causal=causal,
+                                           cache=c, pos=pos, opts=opts)
         per_r.append(new)
     if not return_cache or per_r[0]["s0"] is None:
         return x, None
     return x, {key: _stack([c[key] for c in per_r]) for key in per_r[0]}
 
 
-def forward(params, batch, cfg, opts=None, return_cache=False, cache=None):
-    """Prefill forward (the reference's, ``rules=None``). batch:
-    ``{"tokens"[, "patches"]}``. Returns the final-normed hidden states and
-    the filled cache."""
+def forward(params, batch, cfg, rules=None, opts=None, return_cache=False,
+            cache=None):
+    """Prefill forward. batch: ``{"tokens"[, "patches"]}``. Returns the
+    final-normed hidden states and the filled cache."""
     _check_supported(cfg)
     opts = opts or StepOptions()
     tokens = batch["tokens"]
@@ -189,23 +218,23 @@ def forward(params, batch, cfg, opts=None, return_cache=False, cache=None):
     if cfg.learned_pos:
         x = x + params["pos"][:S][None].to(x.dtype)
     positions = torch.arange(S, device=tokens.device)
-    x, new_cache = apply_blocks(params["blocks"], x, cfg, positions,
+    x, new_cache = apply_blocks(params["blocks"], x, cfg, rules, positions,
                                 causal=True, cache=cache, opts=opts,
                                 return_cache=return_cache)
     return apply_norm(params["final_norm"], x, cfg.norm), new_cache
 
 
-def prefill_step(params, batch, cfg, seq_len=None, opts=None):
+def prefill_step(params, batch, cfg, rules=None, seq_len=None, opts=None):
     """Prefill: build the decode cache + last-position logits."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     cache = init_cache(cfg, B, seq_len or S, device=tokens.device)
-    x, new_cache = forward(params, batch, cfg, opts, return_cache=True,
+    x, new_cache = forward(params, batch, cfg, rules, opts, return_cache=True,
                            cache=cache)
     return lm_logits(params, x[:, -1:], cfg), new_cache
 
 
-def decode_step(params, cache, token, pos, cfg, opts=None):
+def decode_step(params, cache, token, pos, cfg, rules=None, opts=None):
     """One decode step. token: (B, 1) int; pos: int. The cache passed in
     is left unchanged."""
     _check_supported(cfg)
@@ -215,7 +244,7 @@ def decode_step(params, cache, token, pos, cfg, opts=None):
         p = pos % MAX_LEARNED_POS
         x = x + params["pos"][p:p + 1][None].to(x.dtype)
     positions = torch.tensor([pos], device=token.device)
-    x, new_cache = apply_blocks(params["blocks"], x, cfg, positions,
+    x, new_cache = apply_blocks(params["blocks"], x, cfg, rules, positions,
                                 causal=True, cache=cache, pos=pos, opts=opts,
                                 return_cache=True)
     x = apply_norm(params["final_norm"], x, cfg.norm)

@@ -19,28 +19,26 @@ import torch
 
 from repro_torch.models.layers import (apply_norm, attention, attn_init,
                                        mlp_apply, mlp_init, norm_init, qkv)
+from repro_torch.models.moe import moe_apply, moe_init
 
 EMPTY = -10**9                   # kpos of a slot that holds no position
-
-
-def _no_moe():
-    return NotImplementedError(
-        "MoE layers wait for the port of models/moe.py (ROADMAP queue 1, "
-        "item 9)")
 
 
 def attn_block_init(gen, cfg, layer_idx, dtype, device, cross=False):
     if cross:
         raise NotImplementedError("encoder-decoder cross attention is not "
-                                  "ported yet (ROADMAP queue 1, item 14)")
-    if cfg.layer_is_moe(layer_idx):
-        raise _no_moe()
-    return {
+                                  "ported yet (ROADMAP queue 1, item 4)")
+    p = {
         "norm": norm_init(cfg.d_model, cfg.norm, dtype, device),
         "attn": attn_init(gen, cfg, dtype, device),
         "mlp_norm": norm_init(cfg.d_model, cfg.norm, dtype, device),
-        "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.act, dtype, device),
     }
+    if cfg.layer_is_moe(layer_idx):
+        p["moe"] = moe_init(gen, cfg, dtype, device)
+    else:
+        p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.act, dtype,
+                            device)
+    return p
 
 
 def cache_size(cfg, kind, seq_len):
@@ -72,11 +70,14 @@ def _prefill_cache(cache, k, v, positions):
     return {"k": kc, "v": vc, "kpos": kpos}
 
 
-def attn_block_apply(p, x, cfg, kind, positions, *, causal=True, cache=None,
-                     pos=None, opts=None):
+def attn_block_apply(p, x, cfg, kind, rules, positions, *, causal=True,
+                     cache=None, pos=None, opts=None):
     """Returns (x, new_cache). cache: {"k","v","kpos"} or None (forward).
     With ``pos`` (a decode step) the cache is updated out of place: the
-    caller's cache is left as it was, as in the reference."""
+    caller's cache is left as it was, as in the reference. ``rules``
+    (``dist.sharding.Rules`` or None) reaches the MoE slot only: every
+    other operator is the same computation on one device whatever the
+    batch's sharding."""
     B, S, d = x.shape
     H, hd = cfg.num_heads, cfg.hd
     xn = apply_norm(p["norm"], x, cfg.norm)
@@ -102,7 +103,12 @@ def attn_block_apply(p, x, cfg, kind, positions, *, causal=True, cache=None,
         if cache is not None:                        # prefill: fill the cache
             new_cache = _prefill_cache(cache, k, v, positions)
     x = x + o.reshape(B, S, H * hd) @ p["attn"]["o"]
-    if "moe" in p:
-        raise _no_moe()
     xn3 = apply_norm(p["mlp_norm"], x, cfg.norm)
-    return x + mlp_apply(p["mlp"], xn3, cfg.act), new_cache
+    if "moe" in p:
+        y = moe_apply(p["moe"], xn3, cfg, rules,
+                      overlap=(opts.moe_overlap if opts else False),
+                      quantize=(opts.moe_quantize if opts else False),
+                      backend=(opts.moe_backend if opts else "xla"))
+    else:
+        y = mlp_apply(p["mlp"], xn3, cfg.act)
+    return x + y, new_cache

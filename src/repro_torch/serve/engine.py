@@ -15,11 +15,20 @@ while a new engine with the same seed replays the stream. ``serve`` draws
 from one generator per request, seeded from ``(seed, rid)``, so a
 request's samples do not depend on which requests share its batch.
 
+Expert parallelism: with ``rules`` (a ``dist.sharding.Rules`` over a
+data ``VirtualMesh``) every step passes them to the model, whose MoE layers
+shard the batch and the experts over the ranks (``models/moe.py``); a
+batch then shards when its size is a multiple of the mesh's data ranks.
+Under ``StepOptions(moe_backend="pallas")`` the engine builds the
+kernel's f32 expert operands once (``models.model.with_kernel_weights``),
+and ``serve`` raises for a decode or prefill group that does not shard:
+it serves lock-step traffic only (``Engine._check_shards``).
+
 Serving metrics ride a :class:`repro_torch.core.telemetry.MetricsRegistry`
 (``metrics=``, one per engine otherwise): decode step-latency and prefill
 latency histograms, tokens generated, decode steps, prefills and handoffs.
 ``Engine.degrade`` and the straggler watchdog wait for the fault-loop
-slice (ROADMAP queue 1, item 9).
+slice (ROADMAP queue 1, item 3).
 """
 from __future__ import annotations
 
@@ -30,6 +39,7 @@ import torch
 
 from repro_torch.core.telemetry import MetricsRegistry
 from repro_torch.models import StepOptions, decode_step, prefill_step
+from repro_torch.models.model import with_kernel_weights
 
 _KV_LEAVES = ("k", "v", "ck", "cv")
 
@@ -86,10 +96,16 @@ class ServeConfig:
 
 class Engine:
     """Serves ``cfg`` with ``params`` (the port's params, on the device the
-    engine runs on: that of ``params["embed"]``)."""
+    engine runs on: that of ``params["embed"]``), its MoE layers sharded by
+    ``rules`` (None: one device)."""
 
-    def __init__(self, cfg, params, serve_cfg: ServeConfig, metrics=None):
+    def __init__(self, cfg, params, serve_cfg: ServeConfig, rules=None,
+                 metrics=None):
         self.cfg = cfg
+        self.rules = rules
+        if rules is not None and cfg.is_moe \
+                and serve_cfg.opts.moe_backend == "pallas":
+            params = with_kernel_weights(params, cfg)
         self.params = params
         self.scfg = serve_cfg
         self.device = params["embed"].device
@@ -99,13 +115,13 @@ class Engine:
 
     def _prefill(self, batch):
         with torch.no_grad():
-            return prefill_step(self.params, batch, self.cfg,
+            return prefill_step(self.params, batch, self.cfg, self.rules,
                                 seq_len=self.scfg.max_seq, opts=self.scfg.opts)
 
     def _decode(self, cache, tok, pos):
         with torch.no_grad():
             return decode_step(self.params, cache, tok, pos, self.cfg,
-                               opts=self.scfg.opts)
+                               self.rules, opts=self.scfg.opts)
 
     def _sample(self, logits, gen):
         if self.scfg.temperature <= 0:
@@ -180,6 +196,8 @@ class Engine:
             for rid in decode_rids:
                 groups.setdefault(states[rid]["pos"], []).append(rid)
             for pos, rids in sorted(groups.items()):
+                self._check_shards(len(rids),
+                                   f"decode group at position {pos}")
                 toks = torch.cat([states[r]["tok"] for r in rids])
                 cache = _stack_caches([states[r]["cache"] for r in rids])
                 t0 = time.perf_counter()
@@ -197,18 +215,23 @@ class Engine:
                     st.update(tok=tok, cache=parts[i], pos=pos + 1)
                     st["out"].append(int(tok[0]))
 
-            for req in admits:
-                batch = {"tokens": torch.tensor([req.prompt], dtype=torch.long,
+            for group in self._prefill_groups(admits):
+                self._check_shards(len(group), f"prefill group of prompt "
+                                   f"length {group[0].prompt_len}")
+                batch = {"tokens": torch.tensor([r.prompt for r in group],
+                                                dtype=torch.long,
                                                 device=self.device)}
                 logits, cache = self._prefill(batch)
-                gen = self._req_gen(req.rid)
-                tok = self._sample(logits, gen)
-                states[req.rid] = {"cache": cache, "pos": req.prompt_len,
-                                   "tok": tok, "gen": gen,
-                                   "out": [int(tok[0])]}
-                self.metrics.counter("serve.prefills").inc()
-                self.metrics.counter("serve.prefill_tokens").inc(
-                    req.prompt_len)
+                parts = _split_cache(cache, len(group))
+                for i, req in enumerate(group):
+                    gen = self._req_gen(req.rid)
+                    tok = self._sample(logits[i:i + 1], gen)
+                    states[req.rid] = {"cache": parts[i],
+                                       "pos": req.prompt_len, "tok": tok,
+                                       "gen": gen, "out": [int(tok[0])]}
+                    self.metrics.counter("serve.prefills").inc()
+                    self.metrics.counter("serve.prefill_tokens").inc(
+                        req.prompt_len)
 
             for rid in list(states):
                 if len(states[rid]["out"]) >= \
@@ -222,6 +245,46 @@ class Engine:
                 on_step(step_no, self)
             step_no += 1
         return done
+
+    def _check_shards(self, n, what):
+        """Under ``moe_backend="pallas"`` with ``rules``, every batch
+        ``serve`` steps must shard over the data ranks, as the kernel takes
+        no other batch. ``serve`` groups decode steps by position and
+        prefills by prompt length, so only lock-step traffic meets this:
+        requests of one prompt length, admitted together, with one
+        ``max_new_tokens``. Raise before the step, naming why."""
+        dp = self.rules.dp_size() if self.rules is not None else 1
+        if (dp <= 1 or not self.cfg.is_moe
+                or self.scfg.opts.moe_backend != "pallas" or n % dp == 0):
+            return
+        raise ValueError(
+            f"serve under moe_backend='pallas': a {what} holds {n} "
+            f"request(s), not a multiple of the {dp} data ranks, so it is "
+            "not eligible for the kernel. serve groups decode steps by "
+            "position and prefills by prompt length: requests admitted on "
+            "other steps, with other prompt lengths or other "
+            "max_new_tokens fall into groups that do not shard. Send such "
+            "traffic through moe_backend='xla' (ROADMAP queue 1, item 3)")
+
+    def _prefill_groups(self, admits):
+        """A step's admissions as prefill batches: one request each, as in
+        the reference, except under ``rules`` over dp > 1 data ranks, where
+        requests of one prompt length go dp at a time, one request a rank,
+        so the batch shards over the data axis (the kernel takes no other
+        batch). Each rank's MoE capacity is then its request's own, as in
+        a prefill of that request alone, so the tokens are the same."""
+        dp = self.rules.dp_size() if self.rules is not None else 1
+        if dp <= 1:
+            return [[r] for r in admits]
+        by_len = {}
+        for r in admits:
+            by_len.setdefault(r.prompt_len, []).append(r)
+        groups = []
+        for reqs in by_len.values():
+            full = len(reqs) - len(reqs) % dp
+            groups += [reqs[i:i + dp] for i in range(0, full, dp)]
+            groups += [[r] for r in reqs[full:]]
+        return groups
 
     # ---- disaggregated prefill/decode tiers ------------------------------
     def _check_shuttle_mesh(self, mesh):

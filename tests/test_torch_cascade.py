@@ -272,6 +272,41 @@ def test_chip_smoke_bound_counts_routed_tokens():
     assert by == "operations" and abs(ms - flops / rate * 1e3) < 1e-12
 
 
+def test_chip_smoke_moe_model_records_on_the_cpu():
+    """The ``kernels`` line's moe records at the MoE engine's prefill and
+    decode shapes: the knobs ``_pallas_body`` launches, every key of the
+    line, launches taken from ``serve_moe`` under the key the wrapper
+    counts; at full size the prefill is bound by operations and the
+    decode by the bytes of its f32 weights."""
+    cfg = chip_smoke.moe_engine_config(small=True)
+    shape = chip_smoke.moe_serve_shape(small=True)
+    recs = chip_smoke.phase_moe_model_kernels("cpu", cfg, shape, iters=1)
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    d, f = cfg.d_model, cfg.moe_d_ff
+    assert [r["name"] for r in recs] == [
+        "moe_dispatch/tile_fused+shared@llama4_prefill",
+        "moe_dispatch/tile_fused+shared@llama4_decode"]
+    for rec, (_, T, C) in zip(recs, chip_smoke.moe_call_shapes(cfg, shape)):
+        assert keys <= set(rec) and rec["max_abs_err"] == 0.0
+        assert rec["_path"] == "serve_moe"
+        assert rec["_key"] == ("tile_fused+shared", 4, 4 * C, d, f)
+        ms, by, _, _ = chip_smoke.moe_bound(4, [C] * 4, d, f, f, T,
+                                            xs_is_x=False)
+        assert (rec["bound_ms"], rec["bound_by"]) == (ms, by)
+    full = chip_smoke.moe_engine_config()
+    (_, Tp, Cp), (_, Td, Cd) = chip_smoke.moe_call_shapes(full, (8, 512, 32))
+    ms, by, flops, _ = chip_smoke.moe_bound(4, [Cp] * 4, 5120, 8192, 8192,
+                                            Tp, xs_is_x=False)
+    assert by == "operations" and flops == 6 * 4 * 5120 * 8192 * (
+        4 * Cp + Tp)
+    ms, by, _, nbytes = chip_smoke.moe_bound(4, [Cd] * 4, 5120, 8192, 8192,
+                                             Td, xs_is_x=False)
+    weights = 4 * (4 * 3 * 5120 * 8192 + 3 * 5120 * 8192)
+    assert by == "bytes" and weights < nbytes < weights * 1.001
+    assert abs(ms - nbytes / 3.35e12 * 1e3) < 1e-12
+
+
 def test_chip_smoke_fails_without_a_card_or_a_checkout(tmp_path):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     env.pop("PYTHONPATH", None)

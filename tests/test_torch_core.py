@@ -297,3 +297,8 @@ def test_port_imports_no_jax_and_no_repro():
             "repro_torch.workloads.kv_transfer", "repro_torch.configs.registry",
             "repro_torch.models.model", "repro_torch.serve.engine",
             "repro_torch.serve.scheduler"} <= names
+    # the seventh slice's: the slow path's copies and the MoE serving path
+    assert {"repro_torch.core.slow_path", "repro_torch.core.mutation",
+            "repro_torch.core.archive", "repro_torch.core.database",
+            "repro_torch.core.meta", "repro_torch.models.moe",
+            "repro_torch.dist.sharding", "repro_torch.launch.serve"} <= names
