@@ -111,14 +111,33 @@ sizes; every run runs all of them, and any failure exits non-zero):
     token stream and its free-running tokens equal up to a first split
     that is a one-bf16-step tie, decode against ``forward``, ``serve`` of
     4 requests.
+18. ``faults`` — the reference's fault suite on the card, counted: each
+    of the five workloads at its full default width drops rank 1
+    (``degrade``, unpadded) and the cascade on FLUX over a
+    ``VirtualMesh`` of the survivors must reach level 3 through the
+    kernels (moe_dispatch, gemm_allgather and the ring launched at n = 3);
+    ``fault_cost`` above ``analytic_cost`` (H100 model); every modeled
+    timeline valid and equal to its cost within 1e-6 s; the straggler
+    stall falling with ``contexts``; a ``fault_report`` under two plans;
+    wire faults classified at l2; a wedged build quarantined. Each of the
+    three kernels is then held to its plain version on the degraded inputs
+    and timed (records with a ``faults`` launch count), and the ring's
+    test build times a slowed rank 2 at contexts 1 and 4 beside the
+    modeled stall.
+19. ``serve_degrade`` — ``serve_moe``'s engine loses rank 3 at step 1 of
+    ``serve`` (an ``ElasticController`` and a ``StragglerWatchdog``
+    attached): the pallas degrade onto 2 ranks must raise, the hook
+    switches to ``moe_backend="xla"`` and degrades, every request
+    completes; at capacity 4 the degraded stream equals an undegraded
+    engine's up to a first split that is a one-bf16-step tie.
 
 ``--iters`` sets the timed launches per kernel (1 for a quick check after
 a kernel change). The line before the last is the ``kernels`` JSON
 record (launches from the counted paths: moe records from ``main``, the
 kv GEMM records from ``kv_main``, the pure records from ``serve``,
 gemm_allgather from ``ga_main``, flash and ring from ``ring_main``, the
-moe records at the llama4 shapes from ``serve_moe``); the
-last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
+moe records at the llama4 shapes from ``serve_moe``, the n = 3 records
+from ``faults``); the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 outside a checkout, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -1776,6 +1795,558 @@ def phase_serve_moe(device="cuda", cfg=None, shape=None):
     return counts
 
 
+
+# ------------------------------------------------ the fault loop on the card
+
+
+def fault_plans():
+    """The reference's fault suite's two plans: rank 1 dropped, and rank 2
+    a straggler whose DMAs land 100 us late for 8 rounds."""
+    from repro_torch.core.faults import (DROPPED_PEER, STRAGGLER, FaultPlan,
+                                         FaultSpec)
+    return (FaultPlan("drop-rank-1", (FaultSpec(DROPPED_PEER, rank=1),)),
+            FaultPlan("straggler-8x100us", (FaultSpec(
+                STRAGGLER, rank=2, rounds=8, delay_s=100e-6),)))
+
+
+def fault_workloads(small=False):
+    """The five workloads at their defaults, in the fault suite's order
+    (``small``: test size)."""
+    from repro_torch.workloads.gemm_allgather import GemmAllGather
+    from repro_torch.workloads.kv_transfer import KVTransfer
+    from repro_torch.workloads.moe_dispatch import MoEDispatch
+    from repro_torch.workloads.ring_attention import RingAttention
+    from repro_torch.workloads.serving import ServingStep
+    if small:
+        return [MoEDispatch(n_dev=4, tokens_per_rank=256, d=64, f=128),
+                ServingStep(n_dev=4, tokens_per_rank=64, d=64, f=64,
+                            f_shared=64),
+                GemmAllGather(M=256, K=64, N=48),
+                RingAttention(BH=2, seq=512, hd=16),
+                KVTransfer(T=128, d=64, dk=32)]
+    return [MoEDispatch(), ServingStep(), GemmAllGather(), RingAttention(),
+            KVTransfer()]
+
+
+def fault_inputs(w, device, seed=0):
+    """The inputs a fault-phase cascade verifies and a kernel record runs
+    on: gemm_allgather and the ring at their full width (a (n, M_l, K) and
+    b; q, k, v (n, BH, Sl, hd)), the MoE workloads and kv_transfer at
+    their ``example_inputs`` (256 tokens a rank; T <= 128)."""
+    from repro_torch.dist.mesh import VirtualMesh
+    if w.name == "gemm_allgather":
+        return ga_inputs(w, device, seed)
+    if w.name == "ring_attention":
+        return ring_inputs(w, device, seed)
+    return w.example_inputs(1234, VirtualMesh(w.n_dev, device=device))
+
+
+def _flux_call(w, ins):
+    """``(run, plain, knobs)``: workload ``w``'s FLUX point as a direct
+    call of its kernel and of the kernel's plain version on ``ins``, with
+    the knobs its build passes."""
+    from repro_torch.core.design_space import EXPERT_SYSTEMS
+    flux = EXPERT_SYSTEMS["FLUX"]
+    if w.name == "gemm_allgather":
+        from repro_torch.kernels import gemm_allgather as kern
+        k = w.kernel_knobs(flux, ins[0].shape[1])
+        knobs = dict(fused=k["fused"], counter=k["counter"],
+                     tile_m=k["tile_m"])
+        return (lambda: kern.gemm_allgather(*ins, **knobs),
+                lambda: kern.gemm_allgather_plain(*ins, **knobs), knobs)
+    if w.name == "ring_attention":
+        from repro_torch.kernels import ring_attention as kern
+        k = w.kernel_knobs(flux)
+        knobs = dict(fused=k["fused"], counter=k["counter"],
+                     kv_chunk=k["kv_chunk"], pipelined=k["pipelined"],
+                     eager_wait=k["eager"])
+        return (lambda: kern.ring_attention(*ins, **knobs),
+                lambda: kern.ring_attention_plain(*ins, **knobs), knobs)
+    from repro_torch.kernels import moe_dispatch as kern
+    k = w.kernel_knobs(flux)
+    knobs = dict(tile_fused=k["tile_fused"], pipelined=k["pipelined"],
+                 barrier=k["barrier"], combine_tile=k["combine_tile"])
+    x, w1, w2 = ins[:3]
+    shared = (x, *ins[3:]) if w.second_stream else None
+    kw = dict(counts=[int(c) for c in w._counts(x.shape[1])],
+              block_tokens=k["block_tokens"], tight=k["tight"])
+    return (lambda: kern.moe_dispatch_combine(x, w1, w2, shared=shared,
+                                              **kw, **knobs),
+            lambda: kern.moe_dispatch_combine_ref(x, w1, w2, shared=shared,
+                                                  **kw),
+            dict(knobs, block_tokens=k["block_tokens"]))
+
+
+def _fault_record(bench, w, ins):
+    """The kernels-line record of ``w``'s FLUX kernel on ``ins`` (held to
+    its plain version at PERF.md's tolerances, timed beside its bound and
+    library call); the launches come from the counted ``faults`` path."""
+    run, plain, knobs = _flux_call(w, ins)
+    if w.name == "gemm_allgather":
+        from repro_torch.kernels.gemm_allgather import variant_name
+        a, b = ins
+        n, M_l, K = a.shape
+        N = b.shape[1]
+        sink = torch.empty((n, n * M_l, N), device=a.device)
+        key = variant_name(M_l=M_l, **knobs)
+        return bench.record(
+            f"gemm_allgather/{key}", f"n={n} M_l={M_l} K={K} N={N} f32",
+            run, plain, 1e-4, ga_bound(n, M_l, K, N),
+            ("matmul+copy", bench.ms(lambda: sink.copy_(torch.matmul(
+                a.reshape(-1, K), b)[None].expand_as(sink)))),
+            GA_SOURCE, GA_REPLACES, ("gemm_allgather", key, n, M_l, K, N),
+            "faults")
+    if w.name == "ring_attention":
+        from repro_torch.kernels.ring_attention import variant_name
+        n, BH, Sl, hd = ins[0].shape
+        key = variant_name(n=n, Sl=Sl, **knobs)
+        whole = [gathered(t).contiguous() for t in ins]
+        lib = ("sdpa", bench.ms(lambda: _sdpa(*whole, True)))
+        del whole
+        return bench.record(
+            f"ring_attention/{key}", f"n={n} BH={BH} Sl={Sl} hd={hd} f32",
+            run, plain, 1e-4, attn_bound(BH, n * Sl, hd, True), lib,
+            RING_SOURCE, RING_REPLACES, ("ring_attention", key, n, BH, Sl,
+                                         hd), "faults")
+    x, w1, w2 = ins[:3]
+    shared = (x, *ins[3:]) if w.second_stream else None
+    counts = [int(c) for c in w._counts(x.shape[1])]
+    block_tokens = knobs.pop("block_tokens")
+    return moe_record(bench, f"{w.name}_n{w.n_dev}", x, w1, w2, counts,
+                      shared, knobs, block_tokens, (*bound(w, counts), None),
+                      moe_library(bench, x, w1, w2, counts, shared), "faults")
+
+
+def _check_timeline(w, d, hw, *, live_ranks=None, plan=None):
+    """Render one modeled timeline, validate it and hold its critical path
+    to the cost it renders (``analytic_cost`` of the workload, degraded
+    when ``live_ranks`` drop a rank, or ``fault_cost`` under ``plan``)
+    within 1e-6 s. Returns (events, critical path s)."""
+    from repro_torch.core.faults import fault_cost
+    from repro_torch.core.trace import schedule_timeline, validate_trace
+    tl = schedule_timeline(w, d, hw, live_ranks=live_ranks, plan=plan)
+    events = validate_trace(tl.to_dict())
+    if plan is not None:
+        want = fault_cost(w, d, hw, plan)
+    elif live_ranks is not None:
+        want = w.degrade(live_ranks).analytic_cost(d, hw)
+    else:
+        want = w.analytic_cost(d, hw)
+    if not abs(tl.critical_path_s - want) <= 1e-6:
+        raise SystemExit(f"timeline {w.name} ({getattr(plan, 'name', live_ranks)}"
+                         f"): critical path {tl.critical_path_s!r} s, cost "
+                         f"{want!r} s")
+    return events, tl.critical_path_s
+
+
+STALL_US = 100             # the slowed rank's idle before each ring step
+
+
+def _apart():
+    """The degraded calls ``phase_faults`` times beside FLUX: the ring's
+    pipelined rotation (one whole-shard round a step) and gemm_allgather's
+    fused SIGNAL (one flag a source), neither cut into 2-row chunks."""
+    from repro_torch.kernels import gemm_allgather as ga
+    from repro_torch.kernels import ring_attention as ra
+    return {"ring_attention": (ra.ring_attention, ra.VARIANTS["pipelined"]),
+            "gemm_allgather": (ga.gemm_allgather,
+                               ga.VARIANTS["fused_signal"])}
+
+
+def phase_faults(device="cuda", workloads=None, iters=5):
+    """The reference's fault suite on the card (``tests/scripts/
+    fault_suite.py``), with every launch counter at 0 for the counted
+    part. For each of the five workloads at its full default width:
+    ``degrade`` onto the survivors of a dropped rank 1 (kv_transfer: the
+    solo tier) and ``CascadeEvaluator`` on FLUX over a ``VirtualMesh`` of
+    the survivors' width must reach level 3 (gemm_allgather and the ring
+    verify on their full-width degraded inputs); ``fault_cost`` of the
+    plan must be finite and above ``analytic_cost`` (H100 model); the
+    modeled timelines (healthy, degraded, under each plan) must validate
+    and match their costs within 1e-6 s. Then, on the ring: the straggler
+    stall at contexts 1 above contexts 4 above 0 (model); a degraded ring
+    evaluator under two more plans with ``fault_weight=1.0`` at level 3
+    with both in its ``fault_report``. On kv_transfer's built program:
+    ``CORRUPT_WIRE`` classified ``l2:nonfinite``, ``TRUNCATED_WIRE``
+    ``l2:mismatch``; a wedged build (a Python sleep) quarantined at
+    ``timeout_s`` and the next candidate scored to level 3. The counters
+    are read there: moe_dispatch, gemm_allgather and the ring must show
+    launches at n = 3. Then each of those kernels (both MoE workloads) is
+    held to its plain version on the degraded inputs and timed (its
+    kernels-line record), and timed at n = 4 on the healthy inputs, for
+    one line a workload: modeled ms healthy and degraded beside the
+    kernel's measured ms. Last, on the card, the straggler observation:
+    the ring's test build with rank 2 idling ``STALL_US`` before each
+    step, at contexts 1 and 4, against the unslowed ring, beside
+    ``fault_cost``'s modeled stall for that plan (printed, not held).
+    Returns (the faults path's launch counter, the records)."""
+    from repro_torch.core.cascade import Candidate, CascadeEvaluator
+    from repro_torch.core.design_space import EXPERT_SYSTEMS, Directive
+    from repro_torch.core.faults import (CORRUPT_WIRE, DROPPED_PEER,
+                                         STRAGGLER, TRUNCATED_WIRE,
+                                         FaultPlan, FaultSpec, fault_cost,
+                                         inject_wire_fault)
+    from repro_torch.core.hardware import H100, extract_hardware_context
+    from repro_torch.dist.mesh import VirtualMesh
+    from repro_torch.kernels import gemm_allgather as ga
+    from repro_torch.kernels import moe_dispatch as moe
+    from repro_torch.kernels import ring_attention as ra
+    flux = EXPERT_SYSTEMS["FLUX"]
+    drop1, strag = fault_plans()
+    cuda = torch.device(device).type == "cuda"
+    ws = workloads or fault_workloads()
+
+    def context(n):
+        return extract_hardware_context(VirtualMesh(n, device=device), H100)
+
+    for kern in (moe, ga, ra):
+        kern.reset_launches()
+    degraded = {}
+    for w in ws:
+        hw = context(w.n_dev)
+        live = drop1.live_ranks(w.n_dev)
+        dw = w.degrade(live)
+        if dw.n_dev != len(live):
+            raise SystemExit(f"{w.name} degraded to {dw.n_dev} ranks, not "
+                             f"{len(live)}")
+        ins = fault_inputs(dw, device, seed=2)
+        ev = CascadeEvaluator(dw, VirtualMesh(dw.n_dev, device=device),
+                              context(dw.n_dev), verify_inputs=ins)
+        t0 = time.perf_counter()
+        res = ev.evaluate(Candidate(flux, mutation="FLUX"))
+        healthy_ms = w.analytic_cost(flux, hw) * 1e3
+        degraded_ms = fault_cost(w, flux, hw, drop1) * 1e3
+        log(f"faults {w.name}: {drop1.name} -> n={dw.n_dev}"
+            f"{' (solo)' if getattr(dw, 'solo', False) else ''}; degraded "
+            f"cascade FLUX level {res.level} in {time.perf_counter() - t0:.1f}"
+            f" s, knobs {res.record.knobs}; modeled (H100 model) healthy "
+            f"{healthy_ms:.6f} ms, under the plan {degraded_ms:.6f} ms")
+        if res.level != 3:
+            raise SystemExit(f"degraded {w.name} stopped at level "
+                             f"{res.level}: {res.diagnostic}")
+        if not (math.isfinite(res.t_model_ms) and math.isfinite(degraded_ms)
+                and degraded_ms > healthy_ms):
+            raise SystemExit(f"{w.name}: fault_cost {degraded_ms} ms is not "
+                             f"finite above analytic_cost {healthy_ms} ms")
+        events = 0
+        for kw in ({}, {"live_ranks": live}, {"plan": drop1},
+                   {"plan": strag}):
+            events += _check_timeline(w, flux, hw, **kw)[0]
+        log(f"faults {w.name}: 4 timelines (healthy, degraded, "
+            f"{drop1.name}, {strag.name}), {events} events, valid, critical "
+            f"paths equal their costs within 1e-6 s")
+        degraded[w.name] = (w, dw, ins, healthy_ms, degraded_ms)
+
+    # straggler: charged through window_stall_factor (model)
+    ring = next(w for w in ws if w.name == "ring_attention")
+    hw = context(ring.n_dev)
+    shallow = Directive("PALLAS_RDMA", "COUNTER", "TILE_FUSED", "LOCAL",
+                        "GRID_STEP", "PER_TILE", "ACQREL", 1)
+    deep = dataclasses.replace(shallow, contexts=4)
+    stall_1 = fault_cost(ring, shallow, hw, strag) - ring.analytic_cost(
+        shallow, hw)
+    stall_4 = fault_cost(ring, deep, hw, strag) - ring.analytic_cost(deep, hw)
+    log(f"faults straggler {strag.name} on {ring.name} (H100 model): stall "
+        f"{stall_1 * 1e3:.6f} ms at contexts 1, {stall_4 * 1e3:.6f} ms at "
+        f"contexts 4")
+    if not stall_1 > stall_4 > 0:
+        raise SystemExit(f"straggler stall {stall_1} !> {stall_4} !> 0")
+    _, rdw, rins, _, _ = degraded[ring.name]
+    plans = (FaultPlan("drop-another", (FaultSpec(DROPPED_PEER, rank=2),)),
+             strag)
+    ev = CascadeEvaluator(rdw, VirtualMesh(rdw.n_dev, device=device),
+                          context(rdw.n_dev), verify_inputs=rins,
+                          fault_plans=plans, fault_weight=1.0)
+    res = ev.evaluate(Candidate(flux, mutation="FLUX"))
+    log(f"faults fault_report of the degraded ring (H100 model): level "
+        f"{res.level} score {res.score:.3f} fault_penalty_ms "
+        f"{res.record.fault_penalty_ms:.6f}; "
+        + ", ".join(f"{k}: {v['healthy_ms']:.6f} -> {v['degraded_ms']:.6f} "
+                    f"ms survives {v['survives']}"
+                    for k, v in res.fault_report.items()))
+    if res.level != 3 or set(res.fault_report) != {p.name for p in plans} \
+            or not all(e["survives"] for e in res.fault_report.values()):
+        raise SystemExit(f"degraded ring under plans: level {res.level}, "
+                         f"report {res.fault_report}: {res.diagnostic}")
+
+    # wire faults on kv_transfer's built program, classified at l2
+    kv = next(w for w in ws if w.name == "kv_transfer")
+    kmesh = VirtualMesh(kv.n_dev, device=device)
+
+    class FaultyWire(type(kv)):
+        spec = None
+
+        def build(self, d, mesh):
+            fn = super().build(d, mesh)
+            return lambda *xs: inject_wire_fault(fn(*xs), self.spec)
+
+    fw = FaultyWire(T=kv.T, d=kv.d, dk=kv.dk)
+    for spec, want in ((FaultSpec(CORRUPT_WIRE, rows=4), "l2:nonfinite"),
+                       (FaultSpec(TRUNCATED_WIRE, rows=64), "l2:mismatch")):
+        fw.spec = spec
+        res = CascadeEvaluator(fw, kmesh, context(kv.n_dev)).evaluate(
+            Candidate(flux, mutation=spec.kind))
+        log(f"faults wire {spec.kind} rows={spec.rows} on {kv.name}: level "
+            f"{res.level}, rejection {res.rejection!r}")
+        if (res.level, res.rejection) != (1, want):
+            raise SystemExit(f"{spec.kind}: level {res.level} rejection "
+                             f"{res.rejection!r}, want 1 {want!r}: "
+                             f"{res.diagnostic}")
+
+    # a wedged build is quarantined; the evaluator scores the next one
+    import threading
+    release = threading.Event()
+    wedge = type(kv)(T=kv.T, d=kv.d, dk=kv.dk)
+    orig_build = wedge.build
+
+    def wedged_build(d, mesh):
+        if d.placement == "TILE_FUSED":
+            def hang(*xs):
+                release.wait(60.0)           # wedges the execution
+                raise RuntimeError("wedged candidate released")
+            return hang
+        return orig_build(d, mesh)
+
+    wedge.build = wedged_build
+    ev = CascadeEvaluator(wedge, kmesh, context(kv.n_dev), timeout_s=2.0)
+    t0 = time.perf_counter()
+    res = ev.evaluate(Candidate(flux, mutation="wedged"))
+    wedged_s = time.perf_counter() - t0
+    release.set()
+    nxt = ev.evaluate(Candidate(Directive(
+        "PALLAS_RDMA", "SIGNAL", "STREAM_SPLIT", contexts=2),
+        mutation="next"))
+    log(f"faults wedge on {kv.name}: quarantined {res.quarantined} after "
+        f"{wedged_s:.1f} s at {ev.quarantine_report()[0]['stage']!r}; the "
+        f"next candidate level {nxt.level}")
+    if not (res.quarantined and res.score == 0.0 and wedged_s < 30.0
+            and len(ev.quarantine_report()) == 1 and nxt.level == 3):
+        raise SystemExit(f"wedge: quarantined {res.quarantined}, next "
+                         f"level {nxt.level}: {nxt.diagnostic}")
+
+    counts = {**moe.LAUNCHES, **_prefixed("gemm_allgather", ga.LAUNCHES),
+              **_prefixed("ring_attention", ra.LAUNCHES)}
+    log(f"faults launches: {counts}")
+    if cuda:
+        for what, kern in (("moe_dispatch", moe), ("gemm_allgather", ga),
+                           ("ring_attention", ra)):
+            # every key is (variant, n, ...)
+            if not any(key[1] == 3 for key in kern.LAUNCHES):
+                raise SystemExit(f"faults: {what} was not launched at n = 3")
+
+    # the kernels on the degraded inputs, and at n = 4 for the summary
+    bench = Bench(device, iters)
+    apart = _apart()
+    records = []
+    for name in ("moe_dispatch", "serving_step", "gemm_allgather",
+                 "ring_attention", "kv_transfer"):
+        w, dw, ins, healthy_ms, degraded_ms = degraded[name]
+        if name == "kv_transfer":
+            log(f"faults summary {name}: modeled (H100 model) healthy "
+                f"{healthy_ms:.6f} ms, degraded {degraded_ms:.6f} ms; the "
+                "solo tier runs no kernel (kernel ms at n = 4 and n = 3 not "
+                "measured: the workload has 2 ranks)")
+            continue
+        records.append(_fault_record(bench, dw, ins))
+        hins = fault_inputs(w, device, seed=2)
+        k4 = bench.ms(_flux_call(w, hins)[0])
+        del hins
+        log(f"faults summary {name}: modeled (H100 model) healthy "
+            f"{healthy_ms:.6f} ms, degraded {degraded_ms:.6f} ms; FLUX "
+            f"kernel measured {k4:.3f} ms at n={w.n_dev}, "
+            f"{records[-1]['ms']:.3f} ms at n={dw.n_dev}")
+        if name in apart:
+            # the same degraded call with one flag per source (no 2-row
+            # chunks): what the chunks cost at n = 3
+            kern, knobs = apart[name]
+            whole = bench.ms(lambda: kern(*ins, **knobs))
+            log(f"faults apart {name} n={dw.n_dev}: {knobs} {whole:.3f} ms "
+                f"against FLUX's {records[-1]['ms']:.3f} ms")
+
+    # the straggler observation: the ring's test build, rank 2 slowed
+    if not cuda:
+        log("faults straggler observation: skipped on the cpu (the slowed "
+            "ring is a kernel build)")
+        return counts, records
+    q, k, v = ring_inputs(ring, device, seed=4)
+    plan = FaultPlan(f"slowed-rank-2-{STALL_US}us", (FaultSpec(
+        STRAGGLER, rank=2, rounds=ring.n_dev, delay_s=STALL_US * 1e-6),))
+    kn = ra.VARIANTS["fused_counter"]
+    with torch.no_grad():
+        _close("slowed ring", ra.slowed_ring_attention(
+            q, k, v, rank=2, us=STALL_US, **kn),
+            ra.ring_attention_plain(q, k, v, **kn), 1e-4)
+    for contexts in (1, 4):
+        d = dataclasses.replace(flux, contexts=contexts)
+        plain_ms = bench.ms(lambda: ra.ring_attention(
+            q, k, v, contexts=contexts, **kn))
+        slow_ms = bench.ms(lambda: ra.slowed_ring_attention(
+            q, k, v, rank=2, us=STALL_US, contexts=contexts, **kn))
+        model = fault_cost(ring, d, hw, plan) - ring.analytic_cost(d, hw)
+        log(f"faults straggler observation contexts={contexts}: rank 2 idles "
+            f"{STALL_US} us before each of {ring.n_dev} steps; ring "
+            f"{plain_ms:.3f} ms, slowed {slow_ms:.3f} ms, measured stall "
+            f"{slow_ms - plain_ms:.3f} ms; fault_cost's modeled stall for "
+            f"{plan.name} {model * 1e3:.3f} ms (H100 model)")
+    del q, k, v
+    return counts, records
+
+
+def phase_serve_degrade(device="cuda", cfg=None, shape=None):
+    """Elastic serving on the MoE engine of ``serve_moe`` (the same config,
+    weights from seed 0, prompts from seed 5) on ``VirtualMesh(4,
+    axis="data")``: 4 requests of ``prompt`` tokens, ``new`` new tokens,
+    ``moe_backend="pallas"``, one request a rank, through
+    ``serve(on_step=...)`` with an ``ElasticController(4)`` and a
+    ``StragglerWatchdog``. At step 1 (after the first decode step) the
+    controller drops rank 3 and the engine degrades to the even width 2:
+    under pallas that must raise (4 experts on 2 ranks: the kernel takes
+    one expert a rank), so the hook switches the engine's options to
+    ``moe_backend="xla"`` in the open and degrades. All 4 requests must
+    complete with ``serve.degrades`` 1, the tokens counted right and the
+    controller's live ranks (0, 1, 2). Prints prefill ms (before the
+    degrade in the run; after it, one prefill of the same prompts on the
+    degraded engine) and decode ms a step before and after. Then, at
+    capacity 4 (no token can drop, as ``serve_moe``'s decode check), the
+    same elastic run against an undegraded pallas engine's ``serve``: the
+    streams must be equal up to their first split, and there the
+    undegraded pick may lead the degraded one by at most one bf16 step in
+    the undegraded engine's logits (a tie that f32 sums in another order
+    tip). Returns the counters of the elastic run."""
+    from repro_torch.dist.mesh import VirtualMesh
+    from repro_torch.dist.sharding import Rules
+    from repro_torch.models import StepOptions, init_params
+    from repro_torch.serve import Engine, Request, Scheduler, ServeConfig
+    from repro_torch.train import ElasticController, StragglerWatchdog
+    cfg = cfg or moe_engine_config()
+    _, prompt, new = shape or moe_serve_shape()
+    cuda = torch.device(device).type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(device)) if cuda else (lambda: None)
+    params = init_params(torch.Generator(device=device).manual_seed(0), cfg,
+                         device=device)
+    g = torch.Generator(device=device).manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (4, prompt), generator=g,
+                           device=device)
+    pallas = StepOptions(moe_backend="pallas", moe_overlap=True)
+
+    def engine(c, watchdog=None):
+        return Engine(c, params, ServeConfig(max_seq=prompt + new + 1,
+                                             opts=pallas),
+                      rules=Rules(VirtualMesh(4, device=device, axis="data"),
+                                  "decode"), watchdog=watchdog)
+
+    def run(eng, ctl=None):
+        sched = Scheduler(token_budget=4 * prompt, max_batch=4,
+                          metrics=eng.metrics)
+        for rid in range(4):
+            sched.submit(Request(rid, tokens[rid].tolist(),
+                                 max_new_tokens=new))
+        marks = {"t": [time.perf_counter()]}
+
+        def on_step(step_no, e):
+            sync()
+            marks["t"].append(time.perf_counter())
+            if ctl is None or step_no != 1:
+                return
+            ctl.drop(3)
+            live = len(ctl.live_ranks) // 2 * 2     # even data width
+            try:
+                e.degrade(live)
+            except ValueError as err:
+                marks["refused"] = str(err)
+            else:
+                raise SystemExit("serve_degrade: the pallas engine degraded "
+                                 f"onto {live} ranks; the kernel cannot "
+                                 "take that width")
+            e.scfg.opts = dataclasses.replace(e.scfg.opts, moe_backend="xla")
+            e.degrade(live)
+            marks["steps"] = len(marks["t"]) - 1
+            marks["t"].append(time.perf_counter())   # the degrade's time out
+
+        done = eng.serve(sched, on_step=on_step)
+        return done, marks
+
+    # the elastic run at the config's capacity
+    ctl = ElasticController(4)
+    eng = engine(cfg, StragglerWatchdog())
+    engine(cfg).generate({"tokens": tokens[:4, :8]}, 2)   # warm-up
+    t0 = time.perf_counter()
+    done, marks = run(eng, ctl)
+    run_s = time.perf_counter() - t0
+    snap = eng.metrics.snapshot()
+    c = snap["counters"]
+    t = marks["t"]
+    k = marks["steps"]
+    pre_ms = (t[1] - t[0]) * 1e3
+    dec_before = [(t[i + 1] - t[i]) * 1e3 for i in range(1, k)]
+    dec_after = [(t[i + 1] - t[i]) * 1e3 for i in range(k + 1, len(t) - 1)]
+    sync()
+    t1 = time.perf_counter()
+    eng.prefill({"tokens": tokens})
+    sync()
+    pre_after = (time.perf_counter() - t1) * 1e3
+    log(f"serve_degrade {cfg.name}: pallas degrade onto 2 ranks refused: "
+        f"{marks.get('refused', '')!r}")
+    log(f"serve_degrade: 4 requests of {prompt} tokens, {new} new, rank 3 "
+        f"dropped at step 1 (live {ctl.live_ranks}, degraded to 2 ranks, "
+        f"xla) in {run_s:.3f} s; prefill {pre_ms:.3f} ms at n=4 (pallas), "
+        f"{pre_after:.3f} ms after the degrade (n=2, xla); decode "
+        f"{sum(dec_before) / max(1, len(dec_before)):.3f} ms a step before "
+        f"({len(dec_before)} step), "
+        f"{sum(dec_after) / max(1, len(dec_after)):.3f} ms after "
+        f"({len(dec_after)} steps); counters degrades "
+        f"{c.get('serve.degrades')}, tokens {c.get('serve.tokens_generated')}"
+        f", watchdog incidents {c.get('serve.watchdog_incidents', 0)}; "
+        f"controller {ctl.metrics.snapshot()['counters']}")
+    if "refused" not in marks or "num_experts_padded" not in marks["refused"]:
+        raise SystemExit("serve_degrade: the pallas degrade did not name "
+                         "num_experts_padded")
+    want_tokens = 4 * (new - 1)
+    if (sorted(done) != [0, 1, 2, 3]
+            or any(len(done[r]) != new for r in done)
+            or c.get("serve.degrades") != 1
+            or c.get("serve.tokens_generated") != want_tokens
+            or ctl.live_ranks != (0, 1, 2)):
+        raise SystemExit(f"serve_degrade: done {sorted(done)}, counters {c}, "
+                         f"live {ctl.live_ranks}")
+    del eng
+
+    # the streams at a capacity where no token drops
+    nodrop = dataclasses.replace(cfg, capacity_factor=4.0)
+    deg, _ = run(engine(nodrop), ElasticController(4))
+    ref_eng = engine(nodrop)
+    ref, _ = run(ref_eng)
+    got = torch.stack([deg[r] for r in range(4)])
+    want = torch.stack([ref[r] for r in range(4)])
+    split = (got != want).nonzero()
+    log(f"serve_degrade at capacity 4: the degraded stream equals the "
+        f"undegraded engine's: {not len(split)}"
+        + (f" (first apart at (request, token) {split[0].tolist()})"
+           if len(split) else ""))
+    if len(split):
+        first = int(split[:, 1].min())
+        V = cfg.vocab_size
+        b = {"tokens": tokens}
+        with torch.no_grad():               # the undegraded engine's logits
+            lg, cache = ref_eng._prefill(b)
+            wt = want.to(device)
+            for i in range(first):
+                lg, cache = ref_eng._decode(cache, wt[:, i:i + 1].long(),
+                                            prompt + i)
+        lg = lg[:, -1, :V].float()
+        for r in (got[:, first] != want[:, first]).nonzero()[:, 0].tolist():
+            pick, other = lg[r, int(want[r, first])], lg[r, int(got[r, first])]
+            step = _bf16_step(max(abs(float(pick)), abs(float(other))))
+            log(f"serve_degrade first split (request {r}, token {first}): "
+                f"the undegraded pick leads the degraded one by "
+                f"{float(pick - other):.4f}, one bf16 step at that logit "
+                f"size is {step:.4f}")
+            if float(pick - other) > step:
+                raise SystemExit(f"serve_degrade: the streams split at "
+                                 f"(request {r}, token {first}) by more "
+                                 "than one bf16 step")
+    return c
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=5,
@@ -1805,6 +2376,9 @@ def main(argv=None):
     phase_ring_split("cuda", iters=args.iters)
     counted["slow_main"] = phase_slow_main("cuda")
     counted["serve_moe"] = phase_serve_moe("cuda")
+    counted["faults"], faulted = phase_faults("cuda", iters=args.iters)
+    records += faulted
+    phase_serve_degrade("cuda")
     for path, counts in counted.items():
         log(f"launches on the {path} path: {counts}")
     for rec in records:

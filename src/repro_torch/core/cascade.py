@@ -12,13 +12,15 @@ verification inputs (host clock on the CPU; the record names the device).
 
 Hardened for unattended search as the reference is: ``timeout_s`` abandons
 a wedged candidate into ``quarantine``; one retry with backoff for flaky
-l2 executions. :meth:`CascadeEvaluator.evaluate_batch` keeps the
+l2 executions; ``fault_plans`` (``core/faults.py``) priced at l3 into
+``EvalResult.fault_report``, with ``fault_weight`` folding the mean
+degraded-ms penalty into the score, so the search optimizes a
+(throughput, fault-survival) trade-off.
+:meth:`CascadeEvaluator.evaluate_batch` keeps the
 reference's parity contract (results, records and quarantine entries equal
 to per-candidate :meth:`evaluate` in order). On a CUDA device the batch's
 l2 runs are serialized onto one stream: two persistent spin-waiting
 kernels on two streams could starve each other of multiprocessors.
-
-The reference's fault plans (``core/faults.py``) are not ported yet.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ import threading
 import time
 import traceback
 from concurrent.futures import ThreadPoolExecutor
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
@@ -71,6 +73,7 @@ class EvalResult:
     t_model_ms: float = float("inf")
     t_wall_ms: float = float("inf")
     diagnostic: str = ""
+    fault_report: dict = field(default_factory=dict)  # plan -> healthy/degraded ms
     quarantined: bool = False     # abandoned at the wall-clock deadline
     retries: int = 0              # flaky-l2 re-executions that were needed
     rejection: str = ""           # deterministic rejection class ("" = passed)
@@ -101,7 +104,8 @@ class Candidate:
 class CascadeEvaluator:
     def __init__(self, workload, mesh, hw, *, rtol=2e-3, wallclock=False,
                  verify_inputs=None, timeout_s=None, l2_retries=1,
-                 backoff_s=0.05, batch_workers=None):
+                 backoff_s=0.05, fault_plans=(), fault_weight=0.0,
+                 batch_workers=None):
         self.workload = workload
         self.mesh = mesh
         self.hw = hw
@@ -110,6 +114,8 @@ class CascadeEvaluator:
         self.timeout_s = timeout_s
         self.l2_retries = max(0, int(l2_retries))
         self.backoff_s = backoff_s
+        self.fault_plans = tuple(fault_plans)
+        self.fault_weight = fault_weight
         self.batch_workers = max(1, int(
             batch_workers or min(4, os.cpu_count() or 1)))
         self.quarantine = []          # wedged-candidate diagnostics
@@ -367,6 +373,20 @@ class CascadeEvaluator:
         t3 = time.perf_counter()
         t_model = self.workload.analytic_cost(d, self.hw)
         t_ms = t_model * 1e3
+        fault_report = {}
+        if self.fault_plans:
+            from repro_torch.core.faults import survival_report
+            fault_report = survival_report(self.workload, d, self.hw,
+                                           self.fault_plans)
+        # fault-survival trade-off: the score price of a plan is its mean
+        # degraded-over-healthy penalty; a plan the candidate cannot
+        # survive prices as +inf and zeroes the score (level stays 3 — the
+        # candidate is correct, just fragile)
+        t_eff = t_ms
+        if fault_report and self.fault_weight:
+            pens = [max(0.0, e["degraded_ms"] - e["healthy_ms"])
+                    for e in fault_report.values()]
+            t_eff = t_ms + self.fault_weight * sum(pens) / len(pens)
         levels["l3"] = time.perf_counter() - t3
         t_wall = float("inf")
         if self.wallclock:
@@ -376,7 +396,8 @@ class CascadeEvaluator:
                 t_wall = wallclock_us(fn, self.inputs) / 1e3
             levels["wallclock"] = time.perf_counter() - tw
         return self._record(
-            cand, EvalResult(3, 10000.0 / (1.0 + t_ms), t_model_ms=t_ms,
-                             t_wall_ms=t_wall, retries=retries,
+            cand, EvalResult(3, 10000.0 / (1.0 + t_eff), t_model_ms=t_ms,
+                             t_wall_ms=t_wall, fault_report=fault_report,
+                             retries=retries,
                              diagnostic=f"ok: modeled {t_ms:.3f} ms"),
-            levels, publish=publish)
+            levels, fault_penalty_ms=t_eff - t_ms, publish=publish)

@@ -30,7 +30,10 @@ Two divergences from the reference, on purpose:
 * The reference quietly takes the XLA bodies when a shape is not eligible
   for its kernel (:func:`pallas_moe_eligible`). With ``backend="pallas"``
   the port raises ``ValueError`` instead, so the kernel is never silently
-  skipped on the main path.
+  skipped on the main path. The serving engine extends the rule to its
+  elastic path: ``Engine.degrade`` onto a width the kernel cannot take
+  raises at the degrade, and the caller switches to ``backend="xla"`` in
+  the open.
 * Every body computes the routed and the shared expert FFNs in float32
   and rounds their outputs to the activation type: the kernel's
   arithmetic (it takes f32 operands). The reference's XLA bodies compute

@@ -24,11 +24,20 @@ kernel's f32 expert operands once (``models.model.with_kernel_weights``),
 and ``serve`` raises for a decode or prefill group that does not shard:
 it serves lock-step traffic only (``Engine._check_shards``).
 
+Elastic serving, the serving side of the fault loop: an optional
+:class:`repro_torch.train.fault_tolerance.StragglerWatchdog` (``watchdog=``)
+receives every decode step's wall time (after a synchronize on a card),
+and :meth:`Engine.degrade` shrinks the engine onto the surviving ranks
+(``should_replace`` -> drop the rank, degrade, keep serving), also from
+``serve``'s ``on_step`` hook in the middle of a run. Under
+``moe_backend="pallas"`` a degrade onto a width the kernel cannot take
+raises, as ``models/moe.py`` does for such a shape; a caller that wants to
+keep serving switches ``scfg.opts`` to ``moe_backend="xla"`` first.
+
 Serving metrics ride a :class:`repro_torch.core.telemetry.MetricsRegistry`
 (``metrics=``, one per engine otherwise): decode step-latency and prefill
-latency histograms, tokens generated, decode steps, prefills and handoffs.
-``Engine.degrade`` and the straggler watchdog wait for the fault-loop
-slice (ROADMAP queue 1, item 3).
+latency histograms, tokens generated, decode steps, prefills, handoffs,
+watchdog incidents and degrades.
 """
 from __future__ import annotations
 
@@ -38,6 +47,8 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.core.telemetry import MetricsRegistry
+from repro_torch.dist.mesh import VirtualMesh
+from repro_torch.dist.sharding import Rules
 from repro_torch.models import StepOptions, decode_step, prefill_step
 from repro_torch.models.model import with_kernel_weights
 
@@ -100,7 +111,7 @@ class Engine:
     ``rules`` (None: one device)."""
 
     def __init__(self, cfg, params, serve_cfg: ServeConfig, rules=None,
-                 metrics=None):
+                 watchdog=None, metrics=None):
         self.cfg = cfg
         self.rules = rules
         if rules is not None and cfg.is_moe \
@@ -109,9 +120,51 @@ class Engine:
         self.params = params
         self.scfg = serve_cfg
         self.device = params["embed"].device
+        self.watchdog = watchdog          # optional StragglerWatchdog
         self.metrics = metrics if metrics is not None else MetricsRegistry()
-        self._gen = torch.Generator(device=self.device)
-        self._gen.manual_seed(int(serve_cfg.seed))
+        self._rng = torch.Generator(device=self.device)
+        self._rng.manual_seed(int(serve_cfg.seed))
+        self._gen = 0                     # bumped by degrade()
+
+    def degrade(self, devices_or_n):
+        """Elastic serving: shrink onto the survivors, given as their
+        count or a sequence of them (devices or ranks).
+
+        Rebuilds :class:`Rules` of the same kind over a ``VirtualMesh`` of
+        the survivors' width on the engine's device, with the old mesh's
+        axis; a single survivor drops the engine to the local (unsharded)
+        path. Under ``moe_backend="pallas"`` with MoE layers, a width the
+        kernel cannot take (it wants one expert per data rank,
+        ``num_experts_padded == width``) raises ``ValueError`` here, before
+        anything changes. Every rank of a ``VirtualMesh`` lives on the
+        engine's device, so a running ``serve`` loop's request state
+        (caches, last tokens, generators) stays valid as it is. Returns the
+        new rules."""
+        width = devices_or_n if isinstance(devices_or_n, int) \
+            else len(list(devices_or_n))
+        if width < 1:
+            raise ValueError(f"degrade onto {width} survivors: serving "
+                             "needs one at least")
+        if (self.cfg.is_moe and self.scfg.opts.moe_backend == "pallas"
+                and (width <= 1 or self.cfg.num_experts_padded != width)):
+            raise ValueError(
+                f"degrade under moe_backend='pallas': the kernel takes one "
+                f"expert per data rank (num_experts_padded == width), and "
+                f"this config has num_experts_padded="
+                f"{self.cfg.num_experts_padded} for a new width of {width}"
+                + (" (one survivor runs the local path, which has no "
+                   "kernel)" if width <= 1 else "")
+                + "; switch the engine's StepOptions to moe_backend='xla' "
+                "to keep serving")
+        if self.rules is None or width <= 1:
+            self.rules = None
+        else:
+            mesh = VirtualMesh(width, device=self.device,
+                               axis=self.rules.mesh.axis)
+            self.rules = Rules(mesh, self.rules.kind)
+        self.metrics.counter("serve.degrades").inc()
+        self._gen += 1
+        return self.rules
 
     def _prefill(self, batch):
         with torch.no_grad():
@@ -134,12 +187,18 @@ class Engine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _watch(self, step_s):
+        """Feed one decode step's wall time to the watchdog, if any."""
+        if self.watchdog is not None and self.watchdog.record(step_s):
+            self.metrics.counter("serve.watchdog_incidents").inc()
+
     def _decode_one(self, cache, tok, pos):
         t0 = time.perf_counter()
         logits, cache = self._decode(cache, tok[:, None], pos)
-        tok = self._sample(logits, self._gen)
+        tok = self._sample(logits, self._rng)
         self._sync()
         step_s = time.perf_counter() - t0
+        self._watch(step_s)
         self.metrics.histogram("serve.decode_step_ms").observe(step_s * 1e3)
         self.metrics.counter("serve.decode_steps").inc()
         self.metrics.counter("serve.tokens_generated").inc(int(tok.shape[0]))
@@ -149,7 +208,7 @@ class Engine:
         """batch: {"tokens": (B, S0), ...} -> (first_token, cache, pos)."""
         t0 = time.perf_counter()
         logits, cache = self._prefill(batch)
-        tok = self._sample(logits, self._gen)
+        tok = self._sample(logits, self._rng)
         self._sync()
         self.metrics.histogram("serve.prefill_ms").observe(
             (time.perf_counter() - t0) * 1e3)
@@ -183,7 +242,9 @@ class Engine:
         scheduler.Scheduler`: each step decodes the scheduler's claims
         (grouped by position so one ``decode_step`` serves each group) and
         prefills its admissions. ``on_step(step_no, engine)`` runs after
-        every step. Returns ``{rid: (tokens,) int32}``."""
+        every step — the fault-injection hook for elastic serving: it may
+        :meth:`degrade` the engine, and the requests go on from their
+        state. Returns ``{rid: (tokens,) int32}``."""
         states, done = {}, {}
         step_no = 0
         while scheduler.pending:
@@ -204,6 +265,7 @@ class Engine:
                 logits, cache = self._decode(cache, toks[:, None], pos)
                 self._sync()
                 step_s = time.perf_counter() - t0
+                self._watch(step_s)
                 self.metrics.histogram("serve.decode_step_ms").observe(
                     step_s * 1e3)
                 self.metrics.counter("serve.decode_steps").inc()
