@@ -122,7 +122,7 @@ sizes; every run runs all of them, and any failure exits non-zero):
     wire faults classified at l2; a wedged build quarantined. Each of the
     three kernels is then held to its plain version on the degraded inputs
     and timed (records with a ``faults`` launch count), and the ring's
-    test build times a slowed rank 2 at contexts 1 and 4 beside the
+    test build times a slowed rank 2 at contexts 1, 2 and 4 beside the
     modeled stall.
 19. ``serve_degrade`` — ``serve_moe``'s engine loses rank 3 at step 1 of
     ``serve`` (an ``ElasticController`` and a ``StragglerWatchdog``
@@ -130,10 +130,24 @@ sizes; every run runs all of them, and any failure exits non-zero):
     switches to ``moe_backend="xla"`` and degrades, every request
     completes; at capacity 4 the degraded stream equals an undegraded
     engine's up to a first split that is a one-bf16-step tie.
+20. ``window`` (run after ``moe_model_kernels``) — the send window of
+    ``csrc/window.cuh`` on the card: every cooperative variant (moe on
+    the serving and skewed cells, FLUX's also on the dropped rank's n = 3
+    cells and the llama4 engine's shapes, kv_shuttle at KVTransfer's width and
+    the engine's handoff, gemm_allgather at its defaults and the dropped
+    rank's n = 3 slab, the ring at its defaults, bf16, fig3's row and
+    n = 3) at contexts 1, 2 and 4, held to its plain version and timed,
+    one ``window:`` line each; the probe builds' logs (``-DCUCO_PROBE``)
+    held to the window contract by each kernel's ``check_log``; and
+    gemm_allgather at one CTA a rank against ``ScheduleProbe.check``.
+    Every counted path also prints the ``contexts`` its kernels launched
+    at (``CONTEXTS_LAUNCHED``) and fails where a directive's did not
+    reach the kernel.
 
 ``--iters`` sets the timed launches per kernel (1 for a quick check after
 a kernel change). The line before the last is the ``kernels`` JSON
-record (launches from the counted paths: moe records from ``main``, the
+record (each row's ``contexts`` the send window it was timed at; launches
+from the counted paths: moe records from ``main``, the
 kv GEMM records from ``kv_main``, the pure records from ``serve``,
 gemm_allgather from ``ga_main``, flash and ring from ``ring_main``, the
 moe records at the llama4 shapes from ``serve_moe``, the n = 3 records
@@ -375,13 +389,15 @@ class Bench:
         return time_ms(fn, self.device, self.iters, self.flush, hide_host)
 
     def record(self, name, shape_txt, run, plain, tol, bnd, lib, source,
-               replaces, key, path, got=None):
+               replaces, key, path, got=None, contexts=2):
         """Hold ``run()`` (or ``got``, the output of a counted run) against
         ``plain()`` within ``tol`` (:func:`_close`), time the kernel (with
         and without the host's time), the plain version, and log them
         beside ``lib`` (its name and ms) and ``bnd`` (ms, bound by, flops,
         bytes or None). ``key`` and ``path`` name the launch count the
-        record takes from the counted run of ``path``."""
+        record takes from the counted run of ``path``; ``contexts`` is the
+        send window ``run`` launches at (the wrappers' default 2; None for
+        a kernel without one)."""
         with torch.no_grad():
             got = run() if got is None else got
             want = plain()
@@ -396,15 +412,16 @@ class Bench:
         lib_name, lib_ms = lib
         work = f"{flops / 1e9:.1f} GFLOP" + (
             "" if nbytes is None else f", {nbytes / 1e6:.1f} MB")
-        log(f"kernel {name} {shape_txt}: {_reading(reading, tol)}, max abs "
+        log(f"kernel {name} {shape_txt} contexts={contexts}: "
+            f"{_reading(reading, tol)}, max abs "
             f"err {abs_err:.3e}; kernel {k_ms:.3f} ms (call {call_ms:.3f} ms "
             f"with the host's time), plain {p_ms:.3f} ms, {lib_name} "
             f"{lib_ms:.3f} ms, bound {b_ms:.3f} ms by {b_by} ({work}) -> ok")
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": None, "max_abs_err": abs_err,
                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                "bound_by": b_by, "library_ms": lib_ms, "_key": key,
-                "_path": path}
+                "bound_by": b_by, "library_ms": lib_ms, "contexts": contexts,
+                "_key": key, "_path": path}
 
 
 def gemm_core_shapes(small=False):
@@ -592,6 +609,7 @@ def phase_main(device="cuda", workloads=None):
     for w in workloads or main_path_workloads():
         _search(device, w, None, main_path_directives(), kern,
                 f"n={w.n_dev} d={w.d} f={w.f}")
+    _contexts_seen("main", [kern], _asked(main_path_directives()))
     return dict(kern.LAUNCHES)
 
 
@@ -731,6 +749,7 @@ def phase_kv_main(device="cuda", workload=None):
     kern.reset_launches()
     _search(device, w, kv_inputs(w, device, seed=2), kv_directives(), kern,
             f"T={w.T} d={w.d} dk={w.dk}")
+    _contexts_seen("kv_main", [kern], _asked(kv_directives()))
     return dict(kern.LAUNCHES)
 
 
@@ -776,9 +795,10 @@ def phase_serve(device="cuda", cfg=None, shape=None):
         f"({batch * prompt / pre_ms * 1e3:.0f} prompt tok/s), decode "
         f"{dec_ms:.3f} ms/step ({batch / dec_ms * 1e3:.0f} tok/s)")
     direct = eng.prefill_remote(b)
-    for name, kw in (("chained", {}),
-                     ("fused COUNTER kc1024",
-                      dict(fused=True, counter=True, kv_chunk=1024))):
+    for name, kw in (("chained contexts=1", dict(contexts=1)),
+                     ("fused COUNTER kc1024 contexts=4",
+                      dict(fused=True, counter=True, kv_chunk=1024,
+                           contexts=4))):
         t0 = time.perf_counter()
         h = eng.prefill_remote(b, shuttle_mesh=VirtualMesh(2, device=device),
                                **kw)
@@ -821,6 +841,7 @@ def phase_serve(device="cuda", cfg=None, shape=None):
             len(done[r]) != new // 4 + r for r in done) \
             or counters.get("sched.finished") != len(lens):
         raise SystemExit("serve left requests unfinished")
+    _contexts_seen("serve", [kern], {1, 4})
     return dict(kern.LAUNCHES)
 
 
@@ -1045,6 +1066,29 @@ def _prefixed(name, launches):
     return {(name, *key): count for key, count in launches.items()}
 
 
+KERNEL_BACKENDS = ("PALLAS_RDMA", "HYBRID")
+
+
+def _asked(directives):
+    """The ``contexts`` of the directives that build a kernel."""
+    return {d.contexts for d in directives.values()
+            if d.backend in KERNEL_BACKENDS}
+
+
+def _contexts_seen(path, kerns, want=None):
+    """The send windows ``kerns`` launched at on ``path`` (their
+    ``CONTEXTS_LAUNCHED``, reset with the launch counters): printed, and
+    on a card each of ``want`` must be among them."""
+    seen = sorted({c for k in kerns for c in k.CONTEXTS_LAUNCHED})
+    log(f"contexts on the {path} path: launched at {seen}"
+        + ("" if want is None else f", the directives ask {sorted(want)}"))
+    cuda = any(k.launches() for k in kerns)
+    if cuda and not set(want or ()) <= set(seen):
+        raise SystemExit(f"{path}: the directives' contexts {sorted(want)} "
+                         f"did not all reach the kernel ({seen})")
+    return seen
+
+
 def phase_ga_main(device="cuda", workload=None):
     """The GEMM+AllGather search, counted: fast_path, then every directive
     of :func:`ga_directives`, on full-width verification inputs. Returns
@@ -1054,6 +1098,7 @@ def phase_ga_main(device="cuda", workload=None):
     kern.reset_launches()
     _search(device, w, ga_inputs(w, device, seed=2), ga_directives(), kern,
             f"M={w.M} K={w.K} N={w.N}")
+    _contexts_seen("ga_main", [kern], _asked(ga_directives()))
     return _prefixed("gemm_allgather", kern.LAUNCHES)
 
 
@@ -1151,7 +1196,7 @@ def phase_attn_kernels(device="cuda", workload=None, iters=5):
             attn_bound(BH, S, hd, causal, esize=2 if bf16 else 4),
             ("sdpa", bench.ms(lambda: _sdpa(fq, fk, fv, causal))),
             FA_SOURCE, FA_REPLACES, ("flash_attention", key, BH, S, S, hd),
-            "ring_main"))
+            "ring_main", contexts=None))
         del fq, fk, fv
     n, BH, Sl, hd = q.shape
     for dtype, variants in ((torch.float32, ra.VARIANTS),
@@ -1351,6 +1396,7 @@ def phase_ring_main(device="cuda", workload=None, deploy=None, iters=5):
         run_s = time.perf_counter() - t0
         counts = {**_prefixed("ring_attention", ra.LAUNCHES),
                   **_prefixed("flash_attention", fa.LAUNCHES)}
+        _contexts_seen("ring_main", [ra], _asked(ring_directives()))
         log(f"deployment BH={BH} S={seq}: two rings and flash in "
             f"{run_s:.3f} s (host clock, first calls)")
         heads = flash_attention_ref(fq[:2], fk[:2], fv[:2], causal=True)
@@ -1448,6 +1494,7 @@ def phase_slow_main(device="cuda", workload=None):
                     evaluator=ev, save_to=str(store))
     wall = time.perf_counter() - t0
     counts = dict(kern.LAUNCHES)
+    _contexts_seen("slow_main", [kern])
     evaluated = len(ev.records)
     log(f"slow_path {w.name} n={w.n_dev} d={w.d} f={w.f} fs={w.f_shared}: "
         f"{evaluated} candidates evaluated (fast path included) in "
@@ -1521,6 +1568,263 @@ def moe_call_shapes(cfg, shape, n=4):
                                          cfg.num_experts,
                                          cfg.capacity_factor)))
     return out
+
+
+# ------------------------------------------------------------ the window
+
+WINDOW_CONTEXTS = (1, 2, 4)
+WINDOW_KERNELS = ("moe_dispatch", "kv_shuttle", "gemm_allgather",
+                  "ring_attention")
+
+
+def _moe_window_cells(device, small=False):
+    """``(label, x, w1, w2, counts, shared, block_tokens, variants)`` of
+    the moe cells the window phase runs: every variant on the serving and
+    skewed cells; FLUX's (tile-fused) on the dropped rank's n = 3 cells
+    and at the llama4 engine's prefill and decode shapes."""
+    from repro_torch.dist.mesh import VirtualMesh
+    from repro_torch.kernels import moe_dispatch as moe
+    for w in main_path_workloads(small):
+        ins = w.example_inputs(0, VirtualMesh(w.n_dev, device=device))
+        yield (f"{w.name} n={w.n_dev} d={w.d}", *ins[:3],
+               [int(c) for c in w._counts(ins[0].shape[1])],
+               (ins[0], *ins[3:]) if w.second_stream else None, 64,
+               moe.VARIANTS)
+    fused = {"tile_fused": moe.VARIANTS["tile_fused"]}
+    for w in fault_workloads(small)[:2]:
+        dw = w.degrade((0, 2, 3))
+        ins = fault_inputs(dw, device)
+        yield (f"{dw.name} n=3 (dropped rank 1)", *ins[:3],
+               [int(c) for c in dw._counts(ins[0].shape[1])],
+               (ins[0], *ins[3:]) if dw.second_stream else None, 64, fused)
+    cfg = moe_engine_config(small)
+    n, d, f = 4, cfg.d_model, cfg.moe_d_ff
+    for label, T, C in moe_call_shapes(cfg, moe_serve_shape(small), n):
+        g = torch.Generator(device=device).manual_seed(T)
+        kw = dict(generator=g, device=device, dtype=torch.float32)
+        x = torch.randn((n, n * C, d), **kw)
+        w1 = torch.randn((n, d, 2 * f), **kw) / d ** 0.5
+        w2 = torch.randn((n, f, d), **kw) / f ** 0.5
+        shared = (torch.randn((n, T, d), **kw),
+                  torch.randn((d, 2 * f), **kw) / d ** 0.5,
+                  torch.randn((f, d), **kw) / f ** 0.5)
+        yield (f"llama4_{label} d={d}", x, w1, w2, [C] * n, shared,
+               min(64, C), fused)
+
+
+def _window_cases(device, small=False):
+    """``(kernel, variant, shape text, run(contexts), plain, tol,
+    logged(contexts) or None)`` for every cooperative variant at PERF.md
+    §4's shapes: moe_dispatch's variants on the serving and skewed cells
+    (FLUX's on the n = 3 cells and the llama4 engine's two shapes),
+    kv_shuttle's at KVTransfer's width and the engine's handoff,
+    gemm_allgather's at GemmAllGather's defaults and the dropped rank's
+    n = 3 slab (683 two-row chunks), the ring's at RingAttention's
+    defaults (bf16 too), fig3's row and n = 3 (683 two-row chunks).
+    ``logged`` runs the probe build and returns its checked summary."""
+    from repro_torch.kernels import gemm_allgather as ga
+    from repro_torch.kernels import kv_shuttle as kv
+    from repro_torch.kernels import moe_dispatch as moe
+    from repro_torch.kernels import ring_attention as ra
+    probe_moe = ("tile_fused", "deferred_signal")
+    for label, x, w1, w2, counts, shared, B, variants in _moe_window_cells(
+            device, small):
+        d = x.shape[2]
+        for name, knobs in variants.items():
+            kw = dict(counts=counts, shared=shared, block_tokens=B, **knobs)
+
+            def logged(c, kw=kw):
+                out, events, starts = moe.moe_dispatch_logged(
+                    x, w1, w2, contexts=c, **kw)
+                return moe.check_log(events, starts, moe.make_schedule(
+                    counts, B), d=d, contexts=c, tile_fused=kw.get(
+                        "tile_fused", False), shared=shared is not None)
+            yield ("moe_dispatch", name, label,
+                   lambda c, kw=kw: moe.moe_dispatch_combine(
+                       x, w1, w2, contexts=c, **kw),
+                   lambda kw=kw: moe.moe_dispatch_combine_ref(
+                       x, w1, w2, counts=counts, block_tokens=B,
+                       shared=shared, wire_i8=kw.get("wire_i8", False)),
+                   1e-3 if knobs.get("wire_i8") else 1e-4,
+                   logged if name in probe_moe else None)
+        del x, w1, w2, shared
+    w = kv_workload(small)
+    x, wk, wv = kv_inputs(w, device)
+    for name, knobs in kv.VARIANTS.items():
+        def logged(c, knobs=knobs):
+            *_, events, meta = kv.kv_shuttle_logged(x, wk, wv, contexts=c,
+                                                    **knobs)
+            return kv.check_log(events, **meta)
+        yield ("kv_shuttle", name, f"T={w.T} d={w.d} dk={w.dk}",
+               lambda c, knobs=knobs: kv.kv_shuttle(x, wk, wv, contexts=c,
+                                                    **knobs),
+               lambda knobs=knobs: kv.kv_shuttle_plain(x, wk, wv, **knobs),
+               1e-4, logged if name in ("sequential", "fused_counter")
+               else None)
+    cfg = engine_config(small)
+    batch, prompt, new = serve_shape(small)
+    rows = cache_rows(cfg, batch, prompt + new + 1)
+    g = torch.Generator(device=device).manual_seed(1)
+    cache = torch.zeros((2, 2 * rows, cfg.hd), dtype=torch.bfloat16,
+                        device=device)
+    cache[0] = torch.randn((2 * rows, cfg.hd), generator=g, device=device)
+    for name, knobs in kv.PURE_VARIANTS.items():
+        def logged(c, knobs=knobs):
+            *_, events, meta = kv.kv_shuttle_logged(cache, pure=True,
+                                                    contexts=c, **knobs)
+            return kv.check_log(events, **meta)
+        yield ("kv_shuttle", "pure_" + name, f"rows={rows} width={cfg.hd} "
+               "bf16", lambda c, knobs=knobs: kv.kv_cache_shuttle(
+                   cache, contexts=c, **knobs),
+               lambda knobs=knobs: kv.kv_shuttle_plain(cache, pure=True,
+                                                       **knobs),
+               "exact", logged)
+    del x, wk, wv, cache
+    w = ga_workload(small)
+    for (a, b), label, variants in (
+            (ga_inputs(w, device), f"n={w.n_dev} M={w.M} K={w.K} N={w.N}",
+             ga.VARIANTS),
+            (_ga_n3_inputs(w, device), "n=3 (dropped rank 1)",
+             {"fused_counter_tm2": dict(fused=True, counter=True,
+                                        tile_m=2)})):
+        n, M_l, _ = a.shape
+        N = b.shape[1]
+        for name, knobs in variants.items():
+            def logged(c, knobs=knobs, a=a, b=b, n=n, M_l=M_l, N=N):
+                _, events = ga.gemm_allgather_logged(a, b, contexts=c,
+                                                     **knobs)
+                return ga.check_log(events, n=n, M_l=M_l, N=N, contexts=c,
+                                    **knobs)
+            yield ("gemm_allgather", name, f"{label} M_l={M_l}",
+                   lambda c, knobs=knobs, a=a, b=b: ga.gemm_allgather(
+                       a, b, contexts=c, **knobs),
+                   lambda a=a, b=b: ga.gemm_allgather_plain(a, b), 1e-4,
+                   logged if name in ("deferred", "fused_counter",
+                                      "fused_counter_tm2") else None)
+    w = ring_workload(small)
+    (dBH, dseq) = deploy_shape(small)
+    ring_cases = [(ring_inputs(w, device), "defaults", dict(ra.VARIANTS)),
+                  (tuple(t.bfloat16() for t in ring_inputs(w, device)),
+                   "defaults bf16", dict(ra.BF16_VARIANTS)),
+                  (ring_inputs(w, device, BH=dBH, seq=dseq), "fig3 row",
+                   {k: ra.VARIANTS[k] for k in DEPLOY_VARIANTS}),
+                  (_ring_n3_inputs(w, device), "n=3 (dropped rank 1)",
+                   {"fused_counter_kc2": dict(fused=True, counter=True,
+                                              kv_chunk=2)})]
+    probe_ring = ("fused_counter", "fused_signal", "pipelined",
+                  "fused_counter_kc2")
+    for (q, k, v), label, variants in ring_cases:
+        n, BH, Sl, hd = q.shape
+        for name, knobs in variants.items():
+            def logged(c, knobs=knobs, q=q, k=k, v=v, n=n, Sl=Sl):
+                _, events, cta0 = ra.ring_attention_logged(
+                    q, k, v, contexts=c, **knobs)
+                return ra.check_log(events, cta0, n=n, Sl=Sl, contexts=c,
+                                    **knobs)
+            yield ("ring_attention", name, f"{label} n={n} BH={BH} Sl={Sl} "
+                   f"hd={hd}", lambda c, knobs=knobs, q=q, k=k, v=v:
+                   ra.ring_attention(q, k, v, contexts=c, **knobs),
+                   lambda knobs=knobs, q=q, k=k, v=v: ra.ring_attention_plain(
+                       q, k, v, **knobs),
+                   "bf16" if q.dtype == torch.bfloat16 else 1e-4,
+                   logged if label != "fig3 row" and name in probe_ring
+                   else None)
+
+
+def _ga_n3_inputs(w, device):
+    """The dropped rank's gemm_allgather slab: ``w`` degraded onto the
+    survivors of rank 1."""
+    return ga_inputs(w.degrade((0, 2, 3)), device, seed=3)
+
+
+def _ring_n3_inputs(w, device):
+    """The dropped rank's ring: ``w`` degraded onto the survivors of rank
+    1."""
+    return ring_inputs(w.degrade((0, 2, 3)), device, seed=3)
+
+
+def phase_window(device="cuda", iters=5, small=False):
+    """The send window on the card (``csrc/window.cuh``): every cooperative
+    variant of :func:`_window_cases` at contexts 1, 2 and 4, each output
+    held to its plain version under the kernel phases' gates and timed
+    (L2 flushed), one ``window:`` line a kernel, variant and contexts; for
+    the probed variants the probe build (``-DCUCO_PROBE``) logs every
+    CTA's window at the full grid and the kernel's ``check_log`` holds it
+    (depth profile equal to ``send_window_depths``, drained at every drain
+    point, rounds in the schedule's order, the rank's rounds all there,
+    receive waits equal to ``completion_ticks``): the line carries its
+    summary. Then gemm_allgather at one CTA a rank against the copied
+    ``ScheduleProbe.check``: it must pass where a card tile is the
+    schedule's round (N = 128, tile_m = 128), and at GemmAllGather's
+    defaults the check's divergence (a tile is a piece of a row of the
+    schedule's rounds) is printed as the gap it is. Returns the lines'
+    numbers: ``{(kernel, variant, shape): {contexts: ms}}``."""
+    from repro_torch.core.schedule import make_broadcast_schedule
+    from repro_torch.core.trace import ScheduleProbe
+    from repro_torch.kernels import build, window
+    from repro_torch.kernels import gemm_allgather as ga
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        t0 = time.perf_counter()
+        build.build(WINDOW_KERNELS, window.PROBE_DEFINES)
+        log(f"window: probe builds ({' + '.join(WINDOW_KERNELS)}, "
+            f"-D{window.PROBE_DEFINES[0]}) in {time.perf_counter() - t0:.1f} s")
+    bench = Bench(device, iters)
+    times = {}
+    for kernel, variant, shape, run, plain, tol, logged in _window_cases(
+            device, small):
+        with torch.no_grad():
+            want = plain()
+            row = times.setdefault((kernel, variant, shape), {})
+            for c in WINDOW_CONTEXTS:
+                got = run(c)
+                if cuda:
+                    torch.cuda.synchronize(device)
+                reading, _ = _close(f"window {kernel}/{variant} contexts={c}",
+                                    got, want, tol)
+                del got
+                row[c] = bench.ms(lambda: run(c))
+                probe = ""
+                if logged is not None and cuda:
+                    s = logged(c)
+                    probe = (f"; probe log of {s['ctas']} CTAs, {s['rounds']}"
+                             f" rounds: max depth {s['max_depth']}, drained, "
+                             "in order -> ok")
+                log(f"window: {kernel} {variant} {shape} contexts={c}: "
+                    f"{row[c]:.3f} ms, {_reading(reading, tol)}{probe}")
+        del want
+    if not cuda:
+        log("window: the one-CTA-a-rank check is a probe build: skipped on "
+            "the cpu")
+        return times
+    for label, (M_l, K, N) in (("tile = round", (1024, 4096, 128)),
+                               ("defaults", (1024, 4096, 4096))):
+        g = torch.Generator(device=device).manual_seed(5)
+        a = torch.randn((4, M_l, K), generator=g, device=device)
+        b = torch.randn((K, N), generator=g, device=device) / K ** 0.5
+        for c in WINDOW_CONTEXTS:
+            probe = ScheduleProbe()
+            out = ga.gemm_allgather(a, b, tile_m=128, fused=True,
+                                    counter=True, contexts=c, probe=probe)
+            _close("gemm_allgather one CTA a rank", out,
+                   ga.gemm_allgather_plain(a, b), 1e-4)
+            sched = make_broadcast_schedule(4, M_l, 128, True)
+            try:
+                s = probe.check(sched, c, True)
+                verdict = (f"passes ScheduleProbe.check: {s['rounds']} "
+                           f"rounds, max depth {s['max_depth']}, "
+                           f"{s['recv_waits']} receive waits")
+            except AssertionError as err:
+                if label == "tile = round":
+                    raise SystemExit(f"window: gemm_allgather at one CTA a "
+                                     f"rank fails the check: {err}")
+                verdict = ("differs from the schedule, as a 128 x 128 tile "
+                           "is a piece of a row of its rounds (ROADMAP §3): "
+                           + str(err).splitlines()[0])
+            log(f"window: gemm_allgather one CTA a rank ({label}, N={N}) "
+                f"contexts={c}: {verdict}")
+        del a, b
+    return times
 
 
 def phase_moe_model_kernels(device="cuda", cfg=None, shape=None, iters=5):
@@ -1673,6 +1977,7 @@ def phase_serve_moe(device="cuda", cfg=None, shape=None):
     kern.reset_launches()
     toks, gen_s, pre_ms, dec_ms = timed_generate(eng, b)
     counts = dict(kern.LAUNCHES)
+    _contexts_seen("serve_moe", [kern], {2})
     want = n_moe * new if cuda else 0
     log(f"serve_moe generate (pallas): {batch} x {prompt} prompt tokens -> "
         f"{new} new in {gen_s:.3f} s; prefill {pre_ms:.3f} ms "
@@ -1977,7 +2282,7 @@ def phase_faults(device="cuda", workloads=None, iters=5):
     one line a workload: modeled ms healthy and degraded beside the
     kernel's measured ms. Last, on the card, the straggler observation:
     the ring's test build with rank 2 idling ``STALL_US`` before each
-    step, at contexts 1 and 4, against the unslowed ring, beside
+    step, at contexts 1, 2 and 4, against the unslowed ring, beside
     ``fault_cost``'s modeled stall for that plan (printed, not held).
     Returns (the faults path's launch counter, the records)."""
     from repro_torch.core.cascade import Candidate, CascadeEvaluator
@@ -2127,6 +2432,7 @@ def phase_faults(device="cuda", workloads=None, iters=5):
     counts = {**moe.LAUNCHES, **_prefixed("gemm_allgather", ga.LAUNCHES),
               **_prefixed("ring_attention", ra.LAUNCHES)}
     log(f"faults launches: {counts}")
+    _contexts_seen("faults", [moe, ga, ra], {flux.contexts})
     if cuda:
         for what, kern in (("moe_dispatch", moe), ("gemm_allgather", ga),
                            ("ring_attention", ra)):
@@ -2176,7 +2482,7 @@ def phase_faults(device="cuda", workloads=None, iters=5):
         _close("slowed ring", ra.slowed_ring_attention(
             q, k, v, rank=2, us=STALL_US, **kn),
             ra.ring_attention_plain(q, k, v, **kn), 1e-4)
-    for contexts in (1, 4):
+    for contexts in WINDOW_CONTEXTS:
         d = dataclasses.replace(flux, contexts=contexts)
         plain_ms = bench.ms(lambda: ra.ring_attention(
             q, k, v, contexts=contexts, **kn))
@@ -2367,6 +2673,7 @@ def main(argv=None):
     records += phase_ga_kernels("cuda", iters=args.iters)
     records += phase_attn_kernels("cuda", iters=args.iters)
     records += phase_moe_model_kernels("cuda", iters=args.iters)
+    phase_window("cuda", iters=args.iters)
     counted = {"main": phase_main("cuda")}
     counted["kv_main"] = phase_kv_main("cuda")
     counted["serve"] = phase_serve("cuda")

@@ -30,9 +30,9 @@ the context's ``ChipSpec``: a model, not a measurement.
 its actual issue/wait sequence, and :meth:`ScheduleProbe.check` verifies
 it against the lockstep schedule — round order, window cap, and arrival
 count must match the ``CollectiveSchedule`` contract the cost model
-charged. No kernel of the port calls it yet: the Hopper kernels retire a
-store and its flag as they issue, so their in-flight depth is 1 under
-every cap, and the window check would refuse them.
+charged. ``kernels/gemm_allgather.py`` and ``kernels/moe_dispatch.py``
+record on it (``probe=``); the Hopper kernels' probe builds log each
+CTA's window, which ``kernels/window.py`` decodes into its events.
 
 Pure Python (no torch imports), mirroring core/schedule.py.
 """

@@ -27,9 +27,26 @@
 // DEFERRED wait once per inbound edge (one flag per source). The waits come
 // after the rank's own stores, spread over its CTAs (one warp each, a lane
 // per flag), since nothing in the kernel consumes the gathered rows. The
-// reference's `contexts` send window has no counterpart: a store and its
-// flag retire as they issue (ROADMAP queue 3). The wrapper zeroes the flags
-// and the rank counters on the launch stream before every launch.
+// wrapper zeroes the flags and the rank counters on the launch stream
+// before every launch.
+//
+// The send window (window.cuh, mechanism (a): TMA bulk stores). A round is
+// (offset, tile u) of one CTA: its 128 x 128 tile into one peer's output
+// (TILE_FUSED, tile-major: offsets 1, 2, ... of a tile, then the next
+// tile), or its share of the slab to one peer (DEFERRED). The fused
+// epilogue stores the own slab from registers as before; for each peer the
+// two consumer warpgroups stage their 64 rows in turn into a 33 KB slot
+// (what shared memory has left beside the 3-stage ring: the slot costs no
+// stage, but it takes 33 KB from the SM's L1 cache, and the split, which
+// reads A and B through L1, runs about 15% slower: chip_smoke.py's ga_core
+// line, PERF.md §6) and thread 0 sends each half with a bulk store a row. DEFERRED
+// stages its share through the ring itself, idle once the rank's GEMM is
+// done. At most `contexts` rounds a CTA are unretired; retiring one waits
+// for its bulk groups, fences and ticks its flags (a tile: every tile_m
+// chunk it overlaps, for its peer). The window drains before the receive
+// waits, which depend only on the other ranks' drains. Rows that are not
+// 16-byte multiples (N not a multiple of 4) keep the plain stores and only
+// defer the flag.
 //
 // Bound: at GemmAllGather's defaults (n=4, M=K=N=4096, M_l=1024, f32) the
 // call does 137.4 GFLOP against 403 MB of traffic. f32 accuracy on the
@@ -57,15 +74,17 @@
 // then share a few A row tiles and B column tiles through L2. Row by row
 // (GROUP_M = 1), every wave of 33 CTAs reads all of the rank's B^T hi / lo
 // (128 MB at the defaults) from HBM again; ga_core times 1, 4 and 8.
-// Phase 3, the epilogue: thread stores from the accumulators (float2 when
-// N is even; any N works, so there is no separate unaligned kernel), then
-// the consumers meet at a named barrier and one thread fences and ticks.
+// Phase 3, the epilogue: thread stores from the accumulators into the own
+// slab (float2 when N is even; any N works, so there is no separate
+// unaligned kernel), then the tile's rounds to the peers through the send
+// window below.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "flags.cuh"
 #include "wgmma_gemm.cuh"
+#include "window.cuh"
 
 #ifndef GA_GROUP_M
 #define GA_GROUP_M 4
@@ -89,6 +108,8 @@ struct GaParams {
   int vec;            // K, N multiples of 4 and 16-byte aligned bases
   int per_rank;       // CTAs per rank
   int timeout_ms;
+  int contexts;       // the send window's depth: 1, 2 or 4
+  int log_cap;        // events a CTA's probe log holds (-DCUCO_PROBE builds)
   const float* a;     // (n, M_l, K)
   const float* b;     // (K, N)
   float* out;         // (n, n*M_l, N): rank r's gathered output at out[r]
@@ -97,7 +118,22 @@ struct GaParams {
   unsigned* flag;     // (n receiver, n source, nchunks): elements landed
   unsigned* done;     // (n): CTAs of the rank whose tiles are stored (DEFERRED)
   unsigned* split;    // (n): CTAs of the rank whose share of the split is stored
+  int* log;           // (grid, log_cap, 4): window events (-DCUCO_PROBE builds)
+  int* log_n;         // (grid): events each CTA appended
 };
+
+// a round: tile (row0, col0) to peer `off` (TILE_FUSED), or `amount`
+// elements of the slab (DEFERRED)
+struct GaRound {
+  int off, row0, col0;
+  unsigned amount;
+};
+using GaWindow = win::Window<GaRound>;
+constexpr int GA_LDS = BN + 4;                 // a staged row (floats)
+constexpr int GA_SLOT = 64 * GA_LDS * 4;       // one warpgroup's 64 rows
+constexpr int GA_SHIP = 64 * 1024;             // DEFERRED's piece (in the ring)
+constexpr int GA_SMEM = wg::SMEM + GA_SLOT + (int)sizeof(GaWindow);
+static_assert(GA_SMEM <= 232448, "the send slot must fit beside the ring");
 
 // where source `src`'s slab lands in receiver `dst`'s output
 __device__ __forceinline__ float* slab_of(const GaParams& P, int dst, int src) {
@@ -208,68 +244,113 @@ __device__ __forceinline__ void store_acc(float* C, const GaParams& P, int row0,
   }
 }
 
-// TILE_FUSED (thread 0 of the consumers, after their stores met): tick the
-// flag of each chunk the tile overlaps, for every peer
-__device__ void tick_tile(const GaParams& P, int me, int row0, int col0) {
-  const int nrows = min(BM, P.M_l - row0), ncols = min(BN, P.N - col0);
-  __threadfence();
-  const int c0 = row0 / P.chunk_rows, c1 = (row0 + nrows - 1) / P.chunk_rows;
-  for (int off = 1; off < P.n; ++off)
-    for (int c = c0; c <= c1; ++c) {
-      const int lo = max(row0, c * P.chunk_rows);
-      const int hi = min(row0 + nrows, (c + 1) * P.chunk_rows);
-      atomicAdd(flag_of(P, (me + off) % P.n, me, c), (unsigned)((hi - lo) * ncols));
-    }
+// a round's release (thread 0 of the consumers, once its stores landed):
+// DEFERRED adds its share to the edge's flag; TILE_FUSED ticks the flag of
+// each chunk the tile overlaps, for its peer
+__device__ __forceinline__ void release_round(const GaParams& P, int me, const GaRound& r) {
+  unsigned* f = flag_of(P, (me + r.off) % P.n, me, 0);
+  if (!P.fused) {
+    if (r.amount) atomicAdd(f, r.amount);
+    return;
+  }
+  const int nrows = min(BM, P.M_l - r.row0), ncols = min(BN, P.N - r.col0);
+  const int c0 = r.row0 / P.chunk_rows, c1 = (r.row0 + nrows - 1) / P.chunk_rows;
+  for (int c = c0; c <= c1; ++c) {
+    const int lo = max(r.row0, c * P.chunk_rows);
+    const int hi = min(r.row0 + nrows, (c + 1) * P.chunk_rows);
+    atomicAdd(f + c, (unsigned)((hi - lo) * ncols));
+  }
 }
 
-// DEFERRED (the consumers, after the rank's GEMM met): this CTA's share
-// of the own slab to every peer, read once (COPY_U loads in flight a
-// thread) and stored to each peer in round order; then one flag tick per
-// edge
+// TILE_FUSED, the consumers: rounds (off, u) of tile u to every peer. Each
+// warpgroup stages its 64 rows of the accumulators into the slot in turn
+// and thread 0 sends them, a bulk store a row (rows past M_l and columns
+// past N stay home)
+template <class Release>
+__device__ __forceinline__ void send_tile(const GaParams& P, GaWindow& w, float* slot, int me,
+                                          int u, int row0, int col0, const float (&acc)[64],
+                                          Release& release) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int lr = ((threadIdx.x >> 5) & 3) * 16 + g;  // the thread's row in its half
+  const int ncols = min(BN, P.N - col0);
+  for (int off = 1; off < P.n; ++off) {
+    if (threadIdx.x == 0) win::push(w, GaRound{off, row0, col0, 0u}, off, u, release);
+    float* dst = slab_of(P, (me + off) % P.n, me);
+    for (int h = 0; h < 2; ++h) {
+      if (threadIdx.x == 0) win::wait_read_all();  // the slot's last bulk stores read it
+      group_sync(wg::CONS_BAR, NCONS);
+      if ((int)(threadIdx.x >> 7) == h) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+          for (int j = 0; j < 16; ++j)
+            *reinterpret_cast<float2*>(slot + (lr + 8 * e) * GA_LDS + 8 * j + 2 * t) =
+                make_float2(acc[4 * j + 2 * e], acc[4 * j + 2 * e + 1]);
+      }
+      win::fence_to_async();
+      group_sync(wg::CONS_BAR, NCONS);
+      if (threadIdx.x == 0) {
+        const int first = row0 + 64 * h, rows = min(64, P.M_l - first);
+        for (int r = 0; r < rows; ++r)
+          win::bulk_store(dst + (size_t)(first + r) * P.N + col0, slot + r * GA_LDS, ncols * 4);
+        win::commit_piece(w);
+      }
+    }
+  }
+}
+
+// DEFERRED (the consumers, after the rank's GEMM met): this CTA's share of
+// the own slab to every peer, round (off, 0) each: staged through `stage`
+// (the idle ring) and sent by bulk stores. Unaligned rows (N % 4) copy as
+// before, COPY_U loads in flight a thread, stored to each peer in round
+// order, and only the flags wait for the rounds' retirement.
 constexpr int COPY_U = 4;
 
-__device__ void ship_slab(const GaParams& P, int me, int pid) {
+template <class Release>
+__device__ __forceinline__ void ship_slab(const GaParams& P, GaWindow& w, char* stage, int me,
+                                          int pid, Release& release) {
   const float* own = slab_of(P, me, me);
   const size_t elems = (size_t)P.M_l * P.N;
   const size_t share = ((elems + P.per_rank - 1) / P.per_rank + 3) / 4 * 4;
   const size_t lo = (size_t)pid * share < elems ? (size_t)pid * share : elems;
   const size_t hi = lo + share < elems ? lo + share : elems;
-  const int w = P.vec ? 4 : 1;  // floats a load
-  for (size_t i0 = lo + w * threadIdx.x; i0 < hi; i0 += COPY_U * w * NCONS) {
-    float4 v[COPY_U];
+  if (P.vec) {
+    for (int off = 1; off < P.n; ++off) {
+      if (threadIdx.x == 0)
+        win::push(w, GaRound{off, 0, 0, (unsigned)(hi - lo)}, off, 0, release);
+      win::ship<NCONS, 8>(w, stage, GA_SHIP, own + lo, slab_of(P, (me + off) % P.n, me) + lo,
+                          (hi - lo) * 4, [] { group_sync(wg::CONS_BAR, NCONS); });
+    }
+    return;
+  }
+  for (size_t i0 = lo + threadIdx.x; i0 < hi; i0 += COPY_U * NCONS) {
+    float v[COPY_U];
 #pragma unroll
     for (int u = 0; u < COPY_U; ++u) {
-      const size_t i = i0 + (size_t)u * w * NCONS;
+      const size_t i = i0 + (size_t)u * NCONS;
       if (i >= hi) break;
-      if (P.vec)
-        v[u] = __ldcg(reinterpret_cast<const float4*>(own + i));
-      else
-        v[u].x = __ldcg(own + i);
+      v[u] = __ldcg(own + i);
     }
     for (int off = 1; off < P.n; ++off) {
       float* to = slab_of(P, (me + off) % P.n, me);
 #pragma unroll
       for (int u = 0; u < COPY_U; ++u) {
-        const size_t i = i0 + (size_t)u * w * NCONS;
+        const size_t i = i0 + (size_t)u * NCONS;
         if (i >= hi) break;
-        if (P.vec)
-          *reinterpret_cast<float4*>(to + i) = v[u];
-        else
-          to[i] = v[u].x;
+        to[i] = v[u];
       }
     }
   }
   group_sync(wg::CONS_BAR, NCONS);
-  if (threadIdx.x == 0) {
-    __threadfence();
+  if (threadIdx.x == 0)
     for (int off = 1; off < P.n; ++off)
-      atomicAdd(flag_of(P, (me + off) % P.n, me, 0), (unsigned)(hi - lo));
-  }
+      win::push(w, GaRound{off, 0, 0, (unsigned)(hi - lo)}, off, 0, release);
 }
 
 // the receive side: warp 0 of each CTA waits on its share of the rank's
 // inbound flags, a lane per flag, in round order (offset 1 first)
-__device__ void wait_inbound(const GaParams& P, int me, int pid) {
+__device__ __forceinline__ void wait_inbound(const GaParams& P, int me, int pid,
+                                             const win::Log& lg) {
   if (threadIdx.x >= 32) return;
   const int total = (P.n - 1) * P.nchunks;
   const unsigned want = (unsigned)P.chunk_rows * P.N;
@@ -277,6 +358,7 @@ __device__ void wait_inbound(const GaParams& P, int me, int pid) {
     const int off = 1 + i / P.nchunks, c = i % P.nchunks;
     const int src = (me - off + P.n) % P.n;
     spin_geq_inline(flag_of(P, me, src, c), want, P.timeout_ms);
+    win::note(lg, win::EV_RECV, off, c);
   }
   __threadfence();
 }
@@ -308,25 +390,35 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   }
   float acc[64];  // the consumers
   float* own = slab_of(P, me, me);
+  GaWindow& w = *reinterpret_cast<GaWindow*>(smem + wg::SMEM + GA_SLOT);
+  float* slot = reinterpret_cast<float*>(smem + wg::SMEM);
+  const win::Log lg = win::cta_log(P.log, P.log_n, P.log_cap);
+  if (threadIdx.x == 0) win::open(w, P.contexts, lg);
+  auto release = [&](const GaRound& r) { release_round(P, me, r); };
   for (int u = pid; u < tiles; u += P.per_rank) {
     int row0, col0;
     tile_of(P, u, row0, col0);
     wg::consume_tile(ring, nk, acc, P.timeout_ms);
-    if (P.fused) {
-      for (int off = 0; off < P.n; ++off)
+    store_acc(own, P, row0, col0, acc);
+    if (!P.fused) continue;
+    if (P.vec) {
+      send_tile(P, w, slot, me, u, row0, col0, acc, release);
+    } else {  // plain stores; the flags wait for the rounds' retirement
+      for (int off = 1; off < P.n; ++off)
         store_acc(slab_of(P, (me + off) % P.n, me), P, row0, col0, acc);
       group_sync(wg::CONS_BAR, NCONS);
-      if (threadIdx.x == 0) tick_tile(P, me, row0, col0);
-    } else {
-      store_acc(own, P, row0, col0, acc);
+      if (threadIdx.x == 0)
+        for (int off = 1; off < P.n; ++off)
+          win::push(w, GaRound{off, row0, col0, 0u}, off, u, release);
     }
   }
   if (!P.fused) {
     group_signal(&P.done[me], 1u, wg::CONS_BAR, NCONS);
     group_wait(&P.done[me], (unsigned)P.per_rank, P.timeout_ms, wg::CONS_BAR, NCONS);
-    ship_slab(P, me, pid);
+    ship_slab(P, w, smem + (ring.smem - tc::smem_u32(smem)), me, pid, release);
   }
-  wait_inbound(P, me, pid);
+  if (threadIdx.x == 0) win::drain(w, release, 0);
+  wait_inbound(P, me, pid, lg);
 }
 
 // ------------------------------------------------------------ C interface
@@ -368,7 +460,7 @@ static int encode(CUtensorMap* map, float* base, int rows, int K_p) {
 // occupancy query and the launch
 static cudaError_t allow_smem() {
   return cudaFuncSetAttribute((const void*)gemm_allgather_kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize, wg::SMEM);
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, GA_SMEM);
 }
 
 static int launch(const GaParams* p, int grid, int split_only, void* stream) {
@@ -380,7 +472,7 @@ static int launch(const GaParams* p, int grid, int split_only, void* stream) {
   cudaError_t e = allow_smem();
   if (e == cudaSuccess)
     e = cudaLaunchCooperativeKernel((const void*)gemm_allgather_kernel, dim3(grid),
-                                    dim3(NTHREADS), args, wg::SMEM, (cudaStream_t)stream);
+                                    dim3(NTHREADS), args, GA_SMEM, (cudaStream_t)stream);
   if (e == cudaSuccess) e = cudaGetLastError();
   return (int)e;
 }
@@ -398,7 +490,7 @@ int gemm_allgather_grid(int n, int* grid, int* per_sm) {
   if (e == cudaSuccess) e = allow_smem();
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, gemm_allgather_kernel, NTHREADS,
-                                                      wg::SMEM);
+                                                      GA_SMEM);
   if (e != cudaSuccess) return (int)e;
   if (!coop) return -1;
   const int per_rank = (*per_sm) * sms / n;
@@ -429,6 +521,6 @@ const char* gemm_allgather_error(int code) {
 
 int gemm_allgather_params_size() { return (int)sizeof(GaParams); }
 
-int gemm_allgather_smem_bytes() { return wg::SMEM; }
+int gemm_allgather_smem_bytes() { return GA_SMEM; }
 
 }  // extern "C"

@@ -14,8 +14,8 @@
 // each krecv / vrecv DMA semaphore and counts the elements landed. The
 // issue order is core/verify.py::lower_ring's for the n = 2 ring: a CTA
 // writes a tile (GEMM epilogue or row copy), stores it into the decode
-// slab (the send), then ticks the chunk's flag (__syncthreads,
-// __threadfence, atomicAdd). A kv_chunk x dk chunk spans several tiles
+// slab (the send), and the chunk's flag is ticked when that round
+// retires from the send window (below). A kv_chunk x dk chunk spans several tiles
 // written by several CTAs, so its flag completes only after every
 // contributing CTA's release. The decode rank waits with acquire loads:
 //   fused + COUNTER  per chunk, K then V (32 chunks in flight at a time);
@@ -29,8 +29,21 @@
 // Chained and sequential differ only in when V may start: sequential
 // CTAs wait until all of K has landed (the drain before the V GEMM),
 // chained ones go straight on.
-// The reference's `contexts` send window has no counterpart: a store and
-// its flag retire as they issue (ROADMAP queue 3).
+//
+// The send window (window.cuh, mechanism (a): TMA bulk stores). A round is
+// one work unit of one prefill CTA: a GEMM tile, or a row copy in `pure`
+// mode. The GEMM tile already sits in shared memory after its products
+// (tc_gemm.cuh's C[BM][LDC]), so thread 0 sends it row by row with bulk
+// stores and the CTA starts the next tile's loads at once (the stores
+// have only to have read the tile, not landed); a row copy goes through a
+// 32 KB slot (loads through registers, then bulk stores). At most
+// `contexts` units a CTA are unretired; retiring one waits for its bulk
+// groups, fences, then ticks the flags of the chunks it covers. The window
+// drains before a sequential CTA's K drain (its own K units must be
+// released before it waits for all of K) and at the end. The decode rank
+// waits on nothing the prefill CTAs hold, so no wait cycle forms. Rows
+// that are not 16-byte multiples (dk or the cache width, f32, not a
+// multiple of 4) keep plain stores and only defer the flag.
 //
 // The decode rank computes nothing, so it gets one CTA (one warp of it
 // waits, 32 chunks at a time) and the prefill partition every other
@@ -59,6 +72,7 @@
 
 #include "flags.cuh"
 #include "tc_gemm.cuh"
+#include "window.cuh"
 
 using tc::BM;
 using tc::BN;
@@ -75,13 +89,34 @@ struct ShuttleParams {
   int esize;        // pure mode: bytes per element
   int unit_rows;    // pure mode: rows per copy unit
   int timeout_ms;
+  int contexts;     // the send window's depth: 1, 2 or 4
+  int log_cap;      // events a CTA's probe log holds (-DCUCO_PROBE builds)
   const void* x;    // x[0] (rows, d) f32, or [K; V] (2*rows, w) in pure mode
   const float* wk;  // (d, dk)
   const float* wv;  // (d, dk)
   void* ko;         // the decode rank's K slab (rows, dk)
   void* vo;         // the decode rank's V slab (rows, dk)
   unsigned* flag;   // (2, nchunks): elements landed per (half, chunk)
+  int* log;         // (grid, log_cap, 4): window events (-DCUCO_PROBE builds)
+  int* log_n;       // (grid): events each CTA appended
 };
+
+// a round: rows [row0, row0 + nrows) x ncols of one half, whose release
+// ticks the flag of every chunk they overlap by the elements there
+struct KvRound {
+  unsigned* flag;  // the half's flags
+  int row0, nrows, ncols;
+};
+using KvWindow = win::Window<KvRound>;
+constexpr int KV_SLOT = 32 * 1024;  // pure mode's send slot
+
+__device__ __forceinline__ void release_round(const ShuttleParams& P, const KvRound& r) {
+  for (int c = r.row0 / P.chunk_rows; c <= (r.row0 + r.nrows - 1) / P.chunk_rows; ++c) {
+    const int lo = max(r.row0, c * P.chunk_rows);
+    const int hi = min(r.row0 + r.nrows, (c + 1) * P.chunk_rows);
+    atomicAdd(r.flag + c, (unsigned)((hi - lo) * r.ncols));
+  }
+}
 
 // pure mode: copy nbytes verbatim, 16 bytes a thread where aligned, four
 // loads in flight before their stores
@@ -108,48 +143,67 @@ __device__ void copy_bytes(const char* __restrict__ src, char* __restrict__ dst,
 
 // ------------------------------------------------------------------ roles
 
-// pure mode: one unit copies unit_rows rows of one (half, chunk)
-__device__ void copy_unit(const ShuttleParams& P, int half, int chunk, int sub) {
-  unsigned* flag = P.flag + (size_t)half * P.nchunks + chunk;
-  void* out = half ? P.vo : P.ko;
+// pure mode: one unit copies unit_rows rows of one (half, chunk): round
+// (half, unit u) of the window
+__device__ void copy_unit(const ShuttleParams& P, KvWindow& w, char* slot, int half, int chunk,
+                          int sub, int u) {
   const int r0 = sub * P.unit_rows;
   const int nrows = min(P.unit_rows, P.chunk_rows - r0);
   const size_t row = (size_t)chunk * P.chunk_rows + r0;
   const size_t rb = (size_t)P.dk * P.esize;
   const char* src = reinterpret_cast<const char*>(P.x) + ((size_t)half * P.rows + row) * rb;
-  copy_bytes(src, reinterpret_cast<char*>(out) + row * rb, nrows * rb, P.vec);
-  cta_signal(flag, (unsigned)(nrows * P.dk));
-}
-
-// one GEMM unit: the whole tile (m-tile mt, column tile ct) of one half,
-// stored into the decode slab (the send); then a tick of every
-// (half, chunk) flag the tile overlaps, by the elements it wrote there
-template <bool VEC>
-__device__ void gemm_unit(const ShuttleParams& P, int half, int mt, int ct, char* smem) {
-  const int row0 = mt * BM, col0 = ct * BN;
-  const int nrows = min(BM, P.rows - row0), ncols = min(BN, P.dk - col0);
-  tc::tile<float, VEC>(tc::TileA{P.x, nullptr, P.d, (size_t)row0, nrows},
-                       tc::TileB{half ? P.wv : P.wk, P.dk, col0, col0 + 64, ncols}, P.d, smem);
-  float* out = reinterpret_cast<float*>(half ? P.vo : P.ko);
-  tc::store_tile<VEC>(smem, out + (size_t)row0 * P.dk + col0, P.dk, nrows, ncols, nrows);
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    unsigned* flag = P.flag + (size_t)half * P.nchunks;
-    for (int c = row0 / P.chunk_rows; c <= (row0 + nrows - 1) / P.chunk_rows; ++c) {
-      const int lo = max(row0, c * P.chunk_rows);
-      const int hi = min(row0 + nrows, (c + 1) * P.chunk_rows);
-      atomicAdd(flag + c, (unsigned)((hi - lo) * ncols));
-    }
+  char* dst = reinterpret_cast<char*>(half ? P.vo : P.ko) + row * rb;
+  auto release = [&](const KvRound& r) { release_round(P, r); };
+  if (threadIdx.x == 0)
+    win::push(w, KvRound{P.flag + (size_t)half * P.nchunks, (int)row, nrows, P.dk}, half, u,
+              release);
+  if (P.vec) {
+    win::ship<NT, 8>(w, slot, KV_SLOT, src, dst, nrows * rb, [] { __syncthreads(); });
+  } else {  // plain stores; the flag waits for the round's retirement
+    copy_bytes(src, dst, nrows * rb, 0);
+    __syncthreads();
   }
 }
 
-// sequential: K's send drains before the V GEMM starts
-__device__ void drain_k(const ShuttleParams& P) {
+// one GEMM unit: the whole tile (m-tile mt, column tile ct) of one half,
+// round (half, unit u) of the window: sent into the decode slab by thread
+// 0's bulk stores, a row each, from the tile in shared memory
+template <bool VEC>
+__device__ void gemm_unit(const ShuttleParams& P, KvWindow& w, int half, int mt, int ct, int u,
+                          char* smem) {
+  const int row0 = mt * BM, col0 = ct * BN;
+  const int nrows = min(BM, P.rows - row0), ncols = min(BN, P.dk - col0);
+  if (threadIdx.x == 0) win::wait_read_all();  // the last tile's bulk stores read smem
+  tc::tile<float, VEC>(tc::TileA{P.x, nullptr, P.d, (size_t)row0, nrows},
+                       tc::TileB{half ? P.wv : P.wk, P.dk, col0, col0 + 64, ncols}, P.d, smem);
+  float* out = reinterpret_cast<float*>(half ? P.vo : P.ko) + (size_t)row0 * P.dk + col0;
+  auto release = [&](const KvRound& r) { release_round(P, r); };
+  const KvRound round{P.flag + (size_t)half * P.nchunks, row0, nrows, ncols};
+  if (VEC) {
+    win::fence_to_async();  // the tile's rows, written by every thread
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      win::push(w, round, half, u, release);
+      const float* C = reinterpret_cast<const float*>(smem);
+      for (int r = 0; r < nrows; ++r)
+        win::bulk_store(out + (size_t)r * P.dk, C + r * tc::LDC, ncols * 4);
+      win::commit_piece(w);
+    }
+  } else {  // plain stores; the flag waits for the round's retirement
+    if (threadIdx.x == 0) win::push(w, round, half, u, release);
+    tc::store_tile<false>(smem, out, P.dk, nrows, ncols, nrows);
+    __syncthreads();
+  }
+}
+
+// sequential: K's send drains before the V GEMM starts (this CTA's own
+// window first: the wait covers its K units too)
+__device__ void drain_k(const ShuttleParams& P, KvWindow& w) {
+  if (threadIdx.x == 0) win::drain(w, [&](const KvRound& r) { release_round(P, r); }, 0);
   cta_wait(P.flag, (unsigned)P.chunk_rows * P.dk, P.timeout_ms, "kv_shuttle", "K drain", 0, 0);
 }
 
-__device__ void prefill_copy(const ShuttleParams& P, int pid, int npre) {
+__device__ void prefill_copy(const ShuttleParams& P, KvWindow& w, char* slot, int pid, int npre) {
   const int upc = (P.chunk_rows + P.unit_rows - 1) / P.unit_rows;
   const int total = 2 * P.nchunks * upc;
   bool drained = false;
@@ -165,15 +219,16 @@ __device__ void prefill_copy(const ShuttleParams& P, int pid, int npre) {
       sub = u % upc;
     }
     if (half == 1 && !P.fused && !P.chained && !drained) {
-      drain_k(P);
+      drain_k(P, w);
       drained = true;
     }
-    copy_unit(P, half, chunk, sub);
+    copy_unit(P, w, slot, half, chunk, sub, u);
   }
 }
 
 template <bool VEC>
-__device__ void prefill_gemm(const ShuttleParams& P, int pid, int npre, char* smem) {
+__device__ void prefill_gemm(const ShuttleParams& P, KvWindow& w, int pid, int npre,
+                             char* smem) {
   const int rt = (P.rows + BM - 1) / BM, ctn = (P.dk + BN - 1) / BN;
   // a row group of tpg m-tiles issues its K tiles, then its V tiles;
   // unfused, the group is the whole tensor
@@ -186,18 +241,20 @@ __device__ void prefill_gemm(const ShuttleParams& P, int pid, int npre, char* sm
     const int half = rem / (tpg * ctn), sub = rem % (tpg * ctn);
     const int mt = group * tpg + sub / ctn, ct = sub % ctn;
     if (half == 1 && !P.fused && !P.chained && !drained) {
-      drain_k(P);
+      drain_k(P, w);
       drained = true;
     }
-    gemm_unit<VEC>(P, half, mt, ct, smem);
+    gemm_unit<VEC>(P, w, half, mt, ct, u, smem);
   }
 }
 
 // one warp; lane i waits on chunk c0 + i, 32 chunks at a time: the loads
 // of a 32-chunk window are in flight together, where one thread walking
 // the flags would pay an L2 round trip per chunk after the last arrival
+// Each chunk's K / V pair is one receive in the probe log.
 __device__ void decode(const ShuttleParams& P) {
   if (threadIdx.x >= 32) return;
+  const win::Log lg = win::cta_log(P.log, P.log_n, P.log_cap);
   const int lane = threadIdx.x;
   const unsigned per = (unsigned)P.chunk_rows * P.dk;
   const unsigned* kf = P.flag;
@@ -209,9 +266,11 @@ __device__ void decode(const ShuttleParams& P) {
         if (P.fused && P.counter) {  // COUNTER: per chunk, K then V
           spin_geq(kf + c, per, P.timeout_ms, "kv_shuttle", "K chunk", 0, c);
           spin_geq(vf + c, per, P.timeout_ms, "kv_shuttle", "V chunk", 1, c);
+          win::note(lg, win::EV_RECV, 0, c);
         } else {  // every K chunk, then every V chunk (one chunk unfused)
           spin_geq((pass ? vf : kf) + c, per, P.timeout_ms, "kv_shuttle", pass ? "V" : "K",
                    pass, c);
+          if (pass) win::note(lg, win::EV_RECV, 0, c);
         }
       }
       __syncwarp();
@@ -225,19 +284,29 @@ __device__ void decode(const ShuttleParams& P) {
 // ring takes 80 KB of shared memory a CTA, and the launch bound holds
 // ptxas at 128 registers.
 template <bool PURE>
+__host__ __device__ constexpr int smem_of() {
+  return (PURE ? KV_SLOT : tc::SMEM) + (int)sizeof(KvWindow);
+}
+
+template <bool PURE>
 __global__ void __launch_bounds__(NT, PURE ? 4 : 2) kv_shuttle_kernel(ShuttleParams P) {
   extern __shared__ __align__(16) char smem[];
   const int npre = gridDim.x - 1;  // the last CTA is the decode rank
   if ((int)blockIdx.x >= npre) {
     decode(P);
-  } else if constexpr (PURE) {
-    prefill_copy(P, blockIdx.x, npre);
+    return;
+  }
+  KvWindow& w = *reinterpret_cast<KvWindow*>(smem + smem_of<PURE>() - sizeof(KvWindow));
+  if (threadIdx.x == 0) win::open(w, P.contexts, win::cta_log(P.log, P.log_n, P.log_cap));
+  if constexpr (PURE) {
+    prefill_copy(P, w, smem, blockIdx.x, npre);
   } else {
     if (P.vec)
-      prefill_gemm<true>(P, blockIdx.x, npre, smem);
+      prefill_gemm<true>(P, w, blockIdx.x, npre, smem);
     else
-      prefill_gemm<false>(P, blockIdx.x, npre, smem);
+      prefill_gemm<false>(P, w, blockIdx.x, npre, smem);
   }
+  if (threadIdx.x == 0) win::drain(w, [&](const KvRound& r) { release_round(P, r); }, 1);
 }
 
 // ------------------------------------------------------------ C interface
@@ -246,7 +315,7 @@ static const void* kernel_for(int pure) {
   return pure ? (const void*)kv_shuttle_kernel<true> : (const void*)kv_shuttle_kernel<false>;
 }
 
-static int smem_for(int pure) { return pure ? 0 : tc::SMEM; }
+static int smem_for(int pure) { return pure ? smem_of<true>() : smem_of<false>(); }
 
 // the GEMM ring's shared memory is above the 48 KB default: opt in before
 // the occupancy query and the launch

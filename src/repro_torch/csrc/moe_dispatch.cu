@@ -20,8 +20,9 @@
 // Layout: the n ranks are partitions of ONE cooperative launch over one
 // allocation (a symmetric heap on one card). A "remote copy" is a store
 // into the receiving rank's slab. Each DMA semaphore becomes a flag word
-// (flags.cuh): the sender's CTA finishes its stores, __syncthreads,
-// __threadfence, atomicAdd; the receiver spins on an acquire load.
+// (flags.cuh): the sender's round retires from the send window (below)
+// once its stores have landed, and its flag is added to then; the
+// receiver spins on an acquire load.
 // Dispatch flags are per (receiver, source, microblock) and count rows;
 // combine flags are per (receiver, expert) and count elements. The wrapper
 // splits the CTAs over the streams (each rank's routed stream, and its
@@ -46,6 +47,29 @@
 // has its inputs and its CTA at hand. The final assembly waits on other
 // ranks' combine stores, which never wait on an assembly.
 //
+// The send window (window.cuh, mechanism (a): TMA bulk stores), as the
+// reference windows its dispatch and combine rounds. A round is one CTA's
+// share of a dispatch round (off, j) (its rows of the microblock; an int8
+// row and its scale are one entry: the data goes by bulk store, the scale
+// by the owner's plain store, landed by its fence at retirement), of a
+// non-fused combine round (off, j), or one tile-fused GEMM2 tile (its
+// combine store). A dispatch row is staged (and quantized) into a slot at
+// the start of shared memory, which the GEMM ring does not use until the
+// dispatch ends, then thread 0 sends it with one bulk store and the CTA
+// stages the next row while it flies; a GEMM2 tile goes straight from the
+// tile in shared memory, a row a bulk store, and the next tile's loads
+// start once the stores have read it. At most `contexts` rounds a CTA are
+// unretired. The dispatch window drains when the CTA's dispatch rounds
+// end (marks dispatch_issued / dispatch_drained around it; the second
+// stream's CTAs mark shared_ffn as they start, so the shared FFN runs
+// while dispatch sends are in flight, as the reference's overlap slot);
+// the combine window drains before the assembly. Deadlock: the dispatch
+// drain waits only on the CTA's own stores, before any wait; a unit with
+// combine rounds in flight waits only on dispatch flags (released at the
+// senders' dispatch drains) and on units of its stream that come earlier
+// in the global order, never on a combine flag, so the argument above
+// stands. A row is at most 64 KB (d <= 16384 in f32).
+//
 // GEMMs: tc_gemm.cuh's 64 x 128 tensor-core tile (3xTF32 mma.sync, f32
 // accurate, cp.async ring). A unit is one tile; the units of one GEMM walk
 // the m-tiles inside a column slab, so the CTAs that run together share
@@ -63,6 +87,7 @@
 
 #include "flags.cuh"
 #include "tc_gemm.cuh"
+#include "window.cuh"
 
 #define MOE_MAXN 8
 
@@ -76,6 +101,8 @@ struct MoeParams {
   int cta0[2 * MOE_MAXN + 1];  // stream 2r (rank r routed) / 2r+1 (its second stream):
                                // CTAs [cta0[s], cta0[s + 1])
   int barrier, pipelined, tile_fused, shared, wire_i8, timeout_ms;
+  int contexts;        // the send window's depth: 1, 2 or 4
+  int log_cap;         // events a CTA's probe log holds (-DCUCO_PROBE builds)
   const float *x, *w1, *w2, *xs, *s1, *s2;
   float *y, *ys;
   void* recv;          // (n, n*stride, d) float or int8: receive slabs
@@ -89,9 +116,23 @@ struct MoeParams {
   unsigned* h_ready;   // (n rank, n src, b_max) GEMM1 units done per segment
   unsigned* o_ready;   // (n rank, n src) GEMM2 units done per segment (non-fused)
   unsigned* hs_ready;  // (n) second-stream GEMM1 units done
+  int* log;            // (grid, log_cap, 4): window events (-DCUCO_PROBE builds)
+  int* log_n;          // (grid): events each CTA appended
 };
 
 #define KNAME "moe_dispatch"
+
+// a round: `amount` added to `flag` in ticks of `step` at its retirement
+struct MoeRound {
+  unsigned* flag;
+  unsigned amount, step;
+};
+using MoeWindow = win::Window<MoeRound>;
+constexpr unsigned MOE_SLOT = 64 * 1024;  // the send slot: the ring's first 64 KB
+
+__device__ __forceinline__ void release_round(const MoeRound& r) {
+  for (unsigned a = 0; a < r.amount; a += r.step) atomicAdd(r.flag, min(r.step, r.amount - a));
+}
 
 // ------------------------------------------------------------ row staging
 
@@ -189,6 +230,7 @@ __device__ void gemm1(const MoeParams& P, const AT* A, const float* S, const Seg
             cta_wait(&P.disp_flag[((size_t)st.me * P.n + sg.src) * P.b_max + j], (unsigned)P.B,
                      P.timeout_ms, KNAME, "dispatch", sg.src, j);
         }
+        if (threadIdx.x == 0) win::wait_read_all();  // a combine tile's stores read smem
         tc::tile<AT, true>(tc::TileA{A, S, K, sg.a_row0 + m0, clampi(sg.valid - m0, 0, BM)},
                            tc::TileB{W, 2 * F, c0, F + c0, BN}, K, smem);
         tc::store_swiglu(smem, H + (sg.a_row0 + m0) * F + c0, F, min(BM, sg.rows - m0));
@@ -199,7 +241,7 @@ __device__ void gemm1(const MoeParams& P, const AT* A, const float* S, const Seg
 // GEMM2 units: ceil(N/128) output column slabs x the m-tiles, m-tiles
 // inside a column slab; each waits for its segment's H.
 __device__ void gemm2(const MoeParams& P, const float* H, const Seg* segs, int nseg, int K,
-                      const float* W, int N, Stream& st, char* smem) {
+                      const float* W, int N, Stream& st, char* smem, MoeWindow* w = nullptr) {
   for (int c0 = 0; c0 < N; c0 += BN)
     for (int s = 0; s < nseg; ++s)
       for (int m0 = 0; m0 < segs[s].rows; m0 += BM) {
@@ -208,18 +250,34 @@ __device__ void gemm2(const MoeParams& P, const float* H, const Seg* segs, int n
         cta_wait(sg.h_ready, sg.h_units, P.timeout_ms, KNAME, "H ready", st.me, s);
         const int rows = min(BM, sg.rows - m0), valid = clampi(sg.valid - m0, 0, BM);
         const int ncols = min(BN, N - c0);
+        if (threadIdx.x == 0) win::wait_read_all();  // a combine tile's stores read smem
         tc::tile<float, true>(tc::TileA{H, nullptr, K, sg.a_row0 + m0, valid},
                               tc::TileB{W, N, c0, c0 + 64, ncols}, K, smem);
+        if (sg.comb_flag) {
+          // the tile-fused combine: round (off, tile) of the window, sent
+          // from the tile in shared memory (padding rows zeroed first);
+          // one tick per combine_tile chunk at its retirement
+          float* C = reinterpret_cast<float*>(smem);
+          for (int i = threadIdx.x; i < (rows - valid) * BN; i += NT)
+            C[(valid + i / BN) * tc::LDC + i % BN] = 0.f;
+          win::fence_to_async();
+          __syncthreads();
+          if (threadIdx.x == 0) {
+            const int off = (sg.src - st.me + P.n) % P.n;
+            const int tile = (sg.j0 * ((N + BN - 1) / BN) + c0 / BN) * mtiles(sg.rows) + m0 / BM;
+            win::push(*w, MoeRound{sg.comb_flag, (unsigned)(rows * ncols), (unsigned)(P.ct * ncols)},
+                      off, tile, release_round);
+            for (int r = 0; r < rows; ++r)
+              win::bulk_store(sg.out + (size_t)(m0 + r) * N + c0, C + r * tc::LDC, ncols * 4);
+            win::commit_piece(*w);
+          }
+          continue;
+        }
         tc::store_tile<true>(smem, sg.out + (size_t)m0 * N + c0, N, rows, ncols, valid);
         __syncthreads();
-        if (threadIdx.x == 0) {
+        if (threadIdx.x == 0 && sg.o_ready) {
           __threadfence();
-          if (sg.comb_flag) {  // one tick per combine_tile chunk the tile covers
-            for (int r = 0; r < rows; r += P.ct)
-              atomicAdd(sg.comb_flag, (unsigned)(min(P.ct, rows - r) * ncols));
-          } else if (sg.o_ready) {
-            atomicAdd(sg.o_ready, 1u);
-          }
+          atomicAdd(sg.o_ready, 1u);
         }
       }
 }
@@ -228,6 +286,8 @@ __device__ void gemm2(const MoeParams& P, const float* H, const Seg* segs, int n
 
 // the second stream: ys = swiglu(xs, s1, s2) for this rank's tokens
 __device__ void shared_stream(const MoeParams& P, Stream& st, char* smem) {
+  if (threadIdx.x == 0)
+    win::note(win::cta_log(P.log, P.log_n, P.log_cap), win::EV_MARK, win::MARK_SHARED_FFN, 0);
   const float* xs = P.xs + (size_t)st.me * P.Ts * P.d;
   float* hs = P.hs + (size_t)st.me * P.Ts * P.fs;
   const Seg sg{0, P.Ts, P.Ts, P.ys + (size_t)st.me * P.Ts * P.d, P.hs_ready + st.me,
@@ -236,7 +296,19 @@ __device__ void shared_stream(const MoeParams& P, Stream& st, char* smem) {
   gemm2(P, hs, &sg, 1, P.fs, P.s2, P.d, st, smem);
 }
 
-// copy one f32 row written by other CTAs (combine / assembly)
+// The rows of a round of B this CTA takes (the stream's next B units, u
+// % size == gid): i = first, first + size, ... below B. take_round moves
+// the stream past them.
+__device__ __forceinline__ int first_row(const Stream& st) {
+  return ((st.gid - st.next) % st.size + st.size) % st.size;
+}
+
+__device__ __forceinline__ unsigned rows_of(const Stream& st, int B) {
+  const int first = first_row(st);
+  return first < B ? (unsigned)((B - 1 - first) / st.size + 1) : 0u;
+}
+
+// copy one f32 row written by other CTAs (the assembly)
 __device__ void copy_row(const float* src, float* dst, int d) {
   const float4* s4 = reinterpret_cast<const float4*>(src);
   float4* d4 = reinterpret_cast<float4*>(dst);
@@ -245,31 +317,46 @@ __device__ void copy_row(const float* src, float* dst, int d) {
 
 // dispatch -> expert FFN -> combine -> assemble, for rank `me`
 template <typename WT>
-__device__ void routed(const MoeParams& P, Stream& st, char* smem) {
+__device__ void routed(const MoeParams& P, Stream& st, char* smem, MoeWindow& w) {
   const int n = P.n, B = P.B, d = P.d, f = P.f, stride = P.stride, bmax = P.b_max;
   const int me = st.me;
   const size_t slab = (size_t)n * stride;
 
   // ---- dispatch: rounds (off, j) of DispatchSchedule, dummies elided.
   // Rows of successive rounds go round robin over the stream; each CTA
-  // stages (and quantizes) its rows straight into the expert's slab.
+  // stages (and quantizes) its rows into the slot and sends them, its
+  // share of a round one window entry.
   for (int off = 0; off < n; ++off) {
     const int e = (me - off + n) % n;
     WT* dst = reinterpret_cast<WT*>(P.recv) + (size_t)e * slab * d;
     float* dsc = P.recv_s + (size_t)e * slab;
     for (int j = 0; j < P.blocks[e]; ++j) {
-      unsigned mine = 0;
-      for (int i = 0; i < B; ++i) {
-        if (!st.take()) continue;
+      const unsigned mine = rows_of(st, B);
+      if (mine && threadIdx.x == 0)
+        win::push(w, MoeRound{&P.disp_flag[((size_t)e * n + me) * bmax + j], mine, mine}, off,
+                  j, release_round);
+      for (int i = first_row(st); i < B; i += st.size) {
         const int k = j * B + i;
         const float* src =
             k < P.counts[e] ? P.x + ((size_t)me * P.T + P.offsets[e] + k) * d : nullptr;
         const size_t row = (size_t)me * stride + k;
-        stage_row(src, dst + row * d, dsc + row, d);
-        ++mine;
+        if (threadIdx.x == 0) win::wait_read_all();  // the slot's last row was read
+        __syncthreads();
+        stage_row(src, reinterpret_cast<WT*>(smem), dsc + row, d);
+        win::fence_to_async();
+        __syncthreads();
+        if (threadIdx.x == 0) {
+          win::bulk_store(dst + row * d, smem, (unsigned)(d * sizeof(WT)));
+          win::commit_piece(w);
+        }
       }
-      if (mine) cta_signal(&P.disp_flag[((size_t)e * n + me) * bmax + j], mine);
+      st.next += B;
     }
+  }
+  if (threadIdx.x == 0) {
+    win::note(w.log, win::EV_MARK, win::MARK_DISPATCH_ISSUED, 0);
+    win::drain(w, release_round, 0);
+    win::note(w.log, win::EV_MARK, win::MARK_DISPATCH_DRAINED, 0);
   }
 
   // ---- expert FFN over the arrivals
@@ -296,7 +383,7 @@ __device__ void routed(const MoeParams& P, Stream& st, char* smem) {
                      &h_ready[src * bmax + j], g1 * mtiles(B), nullptr,
                      &P.comb_flag[src * n + me], src, j};
         gemm1<WT>(P, recv, rs, &sg, 1, d, w1, f, h, st, smem);
-        gemm2(P, h, &sg, 1, f, w2, d, st, smem);
+        gemm2(P, h, &sg, 1, f, w2, d, st, smem, &w);
       }
     }
   } else {
@@ -333,19 +420,24 @@ __device__ void routed(const MoeParams& P, Stream& st, char* smem) {
     for (int off = 0; off < n; ++off) {
       const int q = (me + off) % n;
       for (int j = 0; j < mb; ++j) {
-        unsigned mine = 0;
-        for (int i = 0; i < B; ++i) {
-          if (!st.take()) continue;
-          if (!mine) cta_wait(segs[off].o_ready, o_units, P.timeout_ms, KNAME, "out ready", me, off);
-          const int k = j * B + i;
-          copy_row(ffo + ((size_t)q * stride + k) * d,
-                   P.comb + ((size_t)q * slab + (size_t)me * stride + k) * d, d);
-          ++mine;
+        const unsigned mine = rows_of(st, B);
+        if (mine) {
+          cta_wait(segs[off].o_ready, o_units, P.timeout_ms, KNAME, "out ready", me, off);
+          if (threadIdx.x == 0)
+            win::push(w, MoeRound{&P.comb_flag[q * n + me], mine * d, mine * d}, off, j,
+                      release_round);
         }
-        if (mine) cta_signal(&P.comb_flag[q * n + me], mine * (unsigned)d);
+        for (int i = first_row(st); i < B; i += st.size) {
+          const int k = j * B + i;
+          win::ship<NT, 8>(w, smem, MOE_SLOT, ffo + ((size_t)q * stride + k) * d,
+                           P.comb + ((size_t)q * slab + (size_t)me * stride + k) * d,
+                           (size_t)d * 4, [] { __syncthreads(); });
+        }
+        st.next += B;
       }
     }
   }
+  if (threadIdx.x == 0) win::drain(w, release_round, 1);
 
   // ---- assemble: region e of my combine slab holds my tokens for expert e
   for (int e = 0; e < n; ++e)
@@ -363,6 +455,8 @@ __device__ void routed(const MoeParams& P, Stream& st, char* smem) {
 
 // Two CTAs per SM: the 3-stage ring takes 80 KB of shared memory a CTA and
 // the launch bound holds ptxas at 128 registers a thread.
+constexpr int MOE_SMEM = tc::SMEM + (int)sizeof(MoeWindow);
+
 template <typename WT>
 __global__ void __launch_bounds__(NT, 2) moe_kernel(MoeParams P) {
   extern __shared__ __align__(16) char smem[];
@@ -370,10 +464,13 @@ __global__ void __launch_bounds__(NT, 2) moe_kernel(MoeParams P) {
   while (s + 1 < 2 * P.n && (int)blockIdx.x >= P.cta0[s + 1]) ++s;
   if ((int)blockIdx.x >= P.cta0[2 * P.n]) return;
   Stream st{s / 2, (int)blockIdx.x - P.cta0[s], P.cta0[s + 1] - P.cta0[s], 0};
-  if (s & 1)
+  if (s & 1) {
     shared_stream(P, st, smem);
-  else
-    routed<WT>(P, st, smem);
+  } else {
+    MoeWindow& w = *reinterpret_cast<MoeWindow*>(smem + tc::SMEM);
+    if (threadIdx.x == 0) win::open(w, P.contexts, win::cta_log(P.log, P.log_n, P.log_cap));
+    routed<WT>(P, st, smem, w);
+  }
 }
 
 // The tile GEMM alone, one CTA a tile (m-tiles inside a column slab), for
@@ -407,8 +504,8 @@ static const void* kernel_for(int wire_i8) {
 
 // the ring's shared memory is above the 48 KB default: opt in before the
 // occupancy query and the launch
-static cudaError_t allow_smem(const void* kernel) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, tc::SMEM);
+static cudaError_t allow_smem(const void* kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 extern "C" {
@@ -421,9 +518,9 @@ int moe_dispatch_grid(int n, int shared, int wire_i8, int* grid, int* per_sm) {
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (e == cudaSuccess) e = allow_smem(kernel_for(wire_i8));
+  if (e == cudaSuccess) e = allow_smem(kernel_for(wire_i8), MOE_SMEM);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel_for(wire_i8), NT, tc::SMEM);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel_for(wire_i8), NT, MOE_SMEM);
   if (e != cudaSuccess) return (int)e;
   if (!coop) return -1;
   *grid = (*per_sm) * sms;
@@ -434,10 +531,10 @@ int moe_dispatch_grid(int n, int shared, int wire_i8, int* grid, int* per_sm) {
 // resident at once, which the spin-waits require.
 int moe_dispatch_launch(const MoeParams* p, int grid, void* stream) {
   void* args[] = {const_cast<MoeParams*>(p)};
-  cudaError_t e = allow_smem(kernel_for(p->wire_i8));
+  cudaError_t e = allow_smem(kernel_for(p->wire_i8), MOE_SMEM);
   if (e == cudaSuccess)
     e = cudaLaunchCooperativeKernel(kernel_for(p->wire_i8), dim3(grid), dim3(NT), args,
-                                    tc::SMEM, (cudaStream_t)stream);
+                                    MOE_SMEM, (cudaStream_t)stream);
   if (e == cudaSuccess) e = cudaGetLastError();
   return (int)e;
 }
@@ -448,7 +545,7 @@ int moe_dispatch_launch(const MoeParams* p, int grid, void* stream) {
 int moe_dispatch_gemm(const float* a, const float* b, float* c, int M, int K, int N, int swiglu,
                       int vec, void* stream) {
   const void* kernel = vec ? (const void*)gemm_core_kernel<true> : (const void*)gemm_core_kernel<false>;
-  cudaError_t e = allow_smem(kernel);
+  cudaError_t e = allow_smem(kernel, tc::SMEM);
   if (e != cudaSuccess) return (int)e;
   const int mt = (M + BM - 1) / BM, nt = swiglu ? N / 2 / 64 : (N + BN - 1) / BN;
   if (vec)

@@ -22,8 +22,9 @@
 // double buffer (kbuf / vbuf, (n, 2, BH, Sl, hd)). In step s it also
 // forwards what it holds into the next rank's slot (s + 1) % 2: each CTA
 // stores its share of each chunk (rows [c*kv_chunk, (c+1)*kv_chunk) of
-// every bh), then ticks a flag word per (receiving rank, step, chunk) by
-// the elements landed (flags.cuh).
+// every bh), and a flag word per (receiving rank, step, chunk) is ticked
+// by the elements landed when that round retires from the send window
+// (below; flags.cuh).
 // Realizations, as _ring_kernel orders them:
 //   fused COUNTER  chunk by chunk: wait chunk c's arrival just before the
 //                  first key tile that needs it is copied, forward it,
@@ -44,9 +45,27 @@
 // masked tile comes. A CTA holding one piece keeps its softmax state in
 // registers across steps; one holding several parks it between steps in
 // `acc` (the f32 accumulator; `out` itself for f32) and `ml` (max and
-// sum). The reference's `contexts` send window has no counterpart: a
-// store and its flag retire as they issue (ROADMAP queue 3). The wrapper
-// zeroes the flags and counters on the launch stream before every launch.
+// sum). The wrapper zeroes the flags and counters on the launch stream
+// before every launch.
+//
+// The send window (window.cuh, mechanism (a): TMA bulk stores). A round is
+// this CTA's share of one (step, chunk) K / V pair, one window entry:
+// DEPTH loads a thread of K and of V go through registers into a 16 KB
+// slot of shared memory beside the attention tiles, and thread 0 sends the
+// slot with bulk stores (one per bh run of K and of V), then goes back to
+// the attention step without waiting for them to land. At most `contexts`
+// rounds are unretired; retiring one waits for its bulk groups, fences and
+// ticks the chunk's flag. The window drains once a step, as soon as the
+// step's last round is pushed (fused: when the last chunk is forwarded;
+// otherwise right after the forward), so no flag waits for the step's
+// attention, and always before the free-slot credit and any wait on the
+// next step's shard: rank r's chunk then waits only on r - 1's
+// retirement, which depends on r - 1's own earlier pushes and earlier
+// steps, never on r. (Released only at the step's end, the flags would
+// hold each rank's next step behind its upstream rank's whole step.) Bulk
+// stores fit the ring: its units are 16 bytes already, and the
+// slot costs no CTA an SM (f32 at hd 64: 104 KB of the SM's 228 a CTA, 2
+// an SM as before).
 //
 // Bound: at RingAttention's defaults (n=4, BH=8, seq=4096, hd=64, causal)
 // the call does the work of causal flash attention at S=4096, 17.2 GFLOP,
@@ -61,6 +80,7 @@
 
 #include "attend.cuh"
 #include "flags.cuh"
+#include "window.cuh"
 
 #define RING_MAXN 16
 
@@ -76,6 +96,8 @@ struct RingParams {
   int stall_rank;   // read only by the -DRING_TEST_STALL build (the tests'
   int stall_us;     // slowed rank): this rank's CTAs idle stall_us before
                     // each step's attention
+  int contexts;     // the send window's depth: 1, 2 or 4
+  int log_cap;      // events a CTA's probe log holds (-DCUCO_PROBE builds)
   float scale;
   const void* q;    // (n, BH, Sl, hd)
   const void* k;
@@ -87,7 +109,21 @@ struct RingParams {
   float* ml;        // (2, n, BH, Sl): parked running max and sum
   unsigned* flag;   // (n, n, nc): elements landed per (rank, step, chunk)
   unsigned* done;   // (n): CTA-steps each rank finished (the credit)
+  int* log;         // (grid, log_cap, 4): window events (-DCUCO_PROBE builds)
+  int* log_n;       // (grid): events each CTA appended
 };
+
+// the send slot beside the attention tiles: PIECE 16-byte units of K, then
+// of V; the window's state after it
+constexpr int RING_DEPTH = 4;
+constexpr int RING_PIECE = RING_DEPTH * ATT_NT;
+constexpr int RING_SLOT = 2 * RING_PIECE * 16;
+using RingWindow = win::Window<win::Tick>;
+
+template <typename T, int HDP>
+constexpr int ring_smem() {
+  return Attn<T, HDP>::SMEM + RING_SLOT + (int)sizeof(RingWindow);
+}
 
 #define HDP_MAX 128
 
@@ -99,40 +135,69 @@ __device__ __forceinline__ unsigned* flag_of(const RingParams& P, int rank, int 
   return P.flag + ((size_t)rank * P.n + step) * P.nc + c;
 }
 
-// this CTA's share (pid of cnt) of chunk c of (k, v) into (kn, vn), four
-// 16-byte loads in flight a thread, then its tick of the receiver's flag
-// by the elements it landed. Index math in 32 bits (the wrapper bounds a
-// chunk's elements below 2^32): a 64-bit divide a unit held rank 0's few
-// CTAs to about 1 GB/s each.
+// this CTA's share (pid of cnt) of chunk c of (k, v) into (kn, vn): round
+// (step, c) of the window, whose retirement ticks the receiver's flag by
+// the elements it landed. Pieces of RING_PIECE units a tensor: four
+// 16-byte loads of K and of V in flight a thread, staged in the slot, then
+// thread 0's bulk stores, one per bh run. Index math in 32 bits (the
+// wrapper bounds a chunk's elements below 2^32): a 64-bit divide a unit
+// held rank 0's few CTAs to about 1 GB/s each.
 template <typename T>
-__device__ void forward_chunk(const RingParams& P, int cnt, const T* k, const T* v, T* kn, T* vn,
-                              int c, int pid, unsigned* flag) {
-  constexpr int PER = 16 / sizeof(T), DEPTH = 4;
+__device__ void forward_chunk(const RingParams& P, RingWindow& w, char* slot, int cnt,
+                              const T* k, const T* v, T* kn, T* vn, int step, int c, int pid,
+                              unsigned* flag) {
+  constexpr int PER = 16 / sizeof(T);
   const unsigned per_bh = (unsigned)(P.chunk_rows * P.hd / PER);  // units of a bh's chunk
   const unsigned units = (unsigned)P.BH * per_bh;
   const unsigned lo = (unsigned)((unsigned long long)units * pid / cnt);
   const unsigned hi = (unsigned)((unsigned long long)units * (pid + 1) / cnt);
   const size_t bh_stride = (size_t)P.Sl * P.hd, base = (size_t)c * P.chunk_rows * P.hd;
-  for (unsigned u0 = lo + threadIdx.x; u0 < hi; u0 += DEPTH * ATT_NT) {
-    uint4 kx[DEPTH], vx[DEPTH];
-    size_t at[DEPTH];
+  if (threadIdx.x == 0)
+    win::push(w, win::Tick{flag, 2 * PER * (hi - lo)}, step, c, win::release_tick);
+  uint4* ks = reinterpret_cast<uint4*>(slot);
+  uint4* vs = ks + RING_PIECE;
+  for (unsigned p0 = lo; p0 < hi; p0 += RING_PIECE) {
+    const unsigned p1 = min(hi, p0 + RING_PIECE);
+    uint4 kx[RING_DEPTH], vx[RING_DEPTH];
 #pragma unroll
-    for (int i = 0; i < DEPTH; ++i) {
-      const unsigned u = u0 + i * ATT_NT;
-      if (u >= hi) break;
+    for (int i = 0; i < RING_DEPTH; ++i) {
+      const unsigned u = p0 + threadIdx.x + i * ATT_NT;
+      if (u >= p1) break;
       const unsigned bh = u / per_bh;
-      at[i] = bh * bh_stride + base + (size_t)(u - bh * per_bh) * PER;
-      kx[i] = __ldcg(reinterpret_cast<const uint4*>(k + at[i]));
-      vx[i] = __ldcg(reinterpret_cast<const uint4*>(v + at[i]));
+      const size_t at = bh * bh_stride + base + (size_t)(u - bh * per_bh) * PER;
+      kx[i] = __ldcg(reinterpret_cast<const uint4*>(k + at));
+      vx[i] = __ldcg(reinterpret_cast<const uint4*>(v + at));
     }
+    if (threadIdx.x == 0) win::wait_read_all();  // the slot's last bulk stores read it
+    __syncthreads();
 #pragma unroll
-    for (int i = 0; i < DEPTH; ++i) {
-      if (u0 + i * ATT_NT >= hi) break;
-      *reinterpret_cast<uint4*>(kn + at[i]) = kx[i];
-      *reinterpret_cast<uint4*>(vn + at[i]) = vx[i];
+    for (int i = 0; i < RING_DEPTH; ++i) {
+      const unsigned u = threadIdx.x + i * ATT_NT;
+      if (p0 + u >= p1) break;
+      ks[u] = kx[i];
+      vs[u] = vx[i];
+    }
+    win::fence_to_async();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (unsigned u = p0; u < p1;) {  // runs of one bh each
+        const unsigned bh = u / per_bh, end = min(p1, (bh + 1) * per_bh);
+        const size_t at = bh * bh_stride + base + (size_t)(u - bh * per_bh) * PER;
+        win::bulk_store(kn + at, ks + (u - p0), (end - u) * 16);
+        win::bulk_store(vn + at, vs + (u - p0), (end - u) * 16);
+        u = end;
+      }
+      win::commit_piece(w);
     }
   }
-  cta_signal(flag, 2 * PER * (hi - lo));
+}
+
+// cta_wait, then (thread 0) the probe log's receive event (step, chunk)
+__device__ __forceinline__ void recv_wait(const RingParams& P, const win::Log& lg,
+                                          const unsigned* flag, unsigned target, const char* what,
+                                          int step, int c) {
+  cta_wait(flag, target, P.timeout_ms, "ring_attention", what, step, c);
+  if (threadIdx.x == 0) win::note(lg, win::EV_RECV, step, c);
 }
 
 // Piece i of this CTA (pid of cnt), or -1: the rounds of cnt pieces go
@@ -182,6 +247,10 @@ __global__ void __launch_bounds__(ATT_NT, Attn<T, HDP>::MIN_CTAS)
     ring_attention_kernel(RingParams P) {
   extern __shared__ float4 smem_raw[];
   char* smem = reinterpret_cast<char*>(smem_raw);
+  char* slot = smem + Attn<T, HDP>::SMEM;
+  RingWindow& w = *reinterpret_cast<RingWindow*>(slot + RING_SLOT);
+  const win::Log lg = win::cta_log(P.log, P.log_n, P.log_cap);
+  if (threadIdx.x == 0) win::open(w, P.contexts, lg);
   const int n = P.n;
   int me = 0;
   while (me + 1 < n && (int)blockIdx.x >= P.cta0[me + 1]) ++me;
@@ -204,30 +273,38 @@ __global__ void __launch_bounds__(ATT_NT, Attn<T, HDP>::MIN_CTAS)
     if (rotate && s >= 2)
       cta_wait(&P.done[nxt], (unsigned)(cnt_nxt * s), P.timeout_ms, "ring_attention",
                "credit", nxt, s);
+    // the step's drain, once its last round is pushed: then every flag of
+    // the step is released as soon as its stores land, before the
+    // attention goes on, any wait on the next step's shard and the credit
+    bool drained = false;
+    auto drain = [&]() {
+      if (threadIdx.x == 0) win::drain(w, win::release_tick, s);
+      drained = true;
+    };
     int ticked = 0;  // fused: chunks of this step waited for and forwarded
     auto tick = [&](int upto) {
       const int step = opaque_int(s);
       const Slots<T> sl(P, me, step);
       for (; ticked <= upto; ++ticked) {
         if (step >= 1 && P.counter)
-          cta_wait(flag_of(P, me, step, ticked), chunk_flag, P.timeout_ms, "ring_attention",
-                   "chunk", step, ticked);
+          recv_wait(P, lg, flag_of(P, me, step, ticked), chunk_flag, "chunk", step, ticked);
         if (step <= n - 2)
-          forward_chunk(P, cnt, sl.kd, sl.vd, sl.kn, sl.vn, ticked, pid,
+          forward_chunk(P, w, slot, cnt, sl.kd, sl.vd, sl.kn, sl.vn, step, ticked, pid,
                         flag_of(P, nxt, step + 1, ticked));
       }
+      if (ticked == P.nc && !drained) drain();
     };
     if (P.fused) {
       if (s >= 1 && !P.counter)  // SIGNAL: drain the step's arrivals up front
         for (int c = 0; c < P.nc; ++c)
-          cta_wait(flag_of(P, me, s, c), chunk_flag, P.timeout_ms, "ring_attention", "chunk",
-                   s, c);
+          recv_wait(P, lg, flag_of(P, me, s, c), chunk_flag, "chunk", s, c);
     } else if (rotate) {
       const Slots<T> sl(P, me, s);
-      forward_chunk(P, cnt, sl.kd, sl.vd, sl.kn, sl.vn, 0, pid, flag_of(P, nxt, s + 1, 0));
+      forward_chunk(P, w, slot, cnt, sl.kd, sl.vd, sl.kn, sl.vn, s, 0, pid,
+                    flag_of(P, nxt, s + 1, 0));
+      drain();
       if (P.eager || !P.pipelined)  // DEFERRED / eager: fenced before the compute
-        cta_wait(flag_of(P, me, s + 1, 0), chunk_flag, P.timeout_ms, "ring_attention",
-                 "shard", s + 1, 0);
+        recv_wait(P, lg, flag_of(P, me, s + 1, 0), chunk_flag, "shard", s + 1, 0);
     }
 #ifdef RING_TEST_STALL
     if (me == P.stall_rank && threadIdx.x == 0) {
@@ -268,9 +345,9 @@ __global__ void __launch_bounds__(ATT_NT, Attn<T, HDP>::MIN_CTAS)
                           P.ml + po.rows + po.row0, po.nq, P.hd);
     }
     if (P.fused) tick(P.nc - 1);  // a CTA without a piece
+    if (!drained) drain();  // a step that forwards nothing
     if (!P.fused && rotate && P.pipelined && !P.eager)  // the lazy fence
-      cta_wait(flag_of(P, me, s + 1, 0), chunk_flag, P.timeout_ms, "ring_attention", "shard",
-               s + 1, 0);
+      recv_wait(P, lg, flag_of(P, me, s + 1, 0), chunk_flag, "shard", s + 1, 0);
     if (s <= n - 3) cta_signal(&P.done[me], 1u);  // slot s % 2 is free again
   }
 }
@@ -282,10 +359,10 @@ static cudaError_t grid_of(int* grid, int* per_sm) {
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(ring_attention_kernel<T, HDP>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, Attn<T, HDP>::SMEM);
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, ring_smem<T, HDP>());
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, ring_attention_kernel<T, HDP>,
-                                                      ATT_NT, Attn<T, HDP>::SMEM);
+                                                      ATT_NT, ring_smem<T, HDP>());
   if (e == cudaSuccess) *grid = (*per_sm) * sms;
   return e;
 }
@@ -295,9 +372,9 @@ static cudaError_t launch(const RingParams* p, int grid, cudaStream_t stream) {
   void* args[] = {const_cast<RingParams*>(p)};
   const void* fn = (const void*)ring_attention_kernel<T, HDP>;
   cudaError_t e =
-      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, Attn<T, HDP>::SMEM);
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, ring_smem<T, HDP>());
   if (e == cudaSuccess)
-    e = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(ATT_NT), args, Attn<T, HDP>::SMEM,
+    e = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(ATT_NT), args, ring_smem<T, HDP>(),
                                     stream);
   if (e == cudaSuccess) e = cudaGetLastError();
   return e;

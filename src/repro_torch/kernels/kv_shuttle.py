@@ -17,11 +17,14 @@ axis 0 (no mesh argument): outputs ``(2, rows, w)`` whose row 0 (the
 prefill rank's, never written by the kernel) is zeros, as the JAX entry
 points mask it. CUDA tensors launch the kernel or raise; CPU tensors
 compute :func:`kv_shuttle_plain`, the plain version the tests and
-``chip_smoke.py`` hold the kernel against. The reference's ``contexts``
-send window is accepted and has no counterpart on the card (a store and
-its flag retire as they issue). ``LAUNCHES`` counts launches keyed by
-variant and shape; ``VARIANTS`` / ``PURE_VARIANTS`` name the knob sets the
-main path launches.
+``chip_smoke.py`` hold the kernel against. ``contexts`` (1, 2 or 4) is
+the kernel's send window: each prefill CTA keeps that many work units (a
+GEMM tile or a row copy) of bulk stores in flight (``csrc/window.cuh``);
+:func:`kv_shuttle_logged` runs the probe build and :func:`check_log`
+holds its log to the unit order and ``RingSchedule``'s ticks.
+``LAUNCHES`` counts launches keyed by variant and shape
+(``CONTEXTS_LAUNCHED`` by ``contexts``); ``VARIANTS`` / ``PURE_VARIANTS``
+name the knob sets the main path launches.
 """
 from __future__ import annotations
 
@@ -30,12 +33,15 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, window
 
 # The schedule machinery is defined once, in repro_torch.core.schedule;
 # re-exported here for the kernel's callers.
 from repro_torch.core.schedule import (RingSchedule,  # noqa: F401
                                        make_ring_schedule)
+
+# contexts -> kernel launches: the directives' window reaches the card
+CONTEXTS_LAUNCHED = collections.Counter()
 
 TIMEOUT_MS = 20_000           # a spin-wait traps after this long
 COPY_UNIT_BYTES = 32 * 1024   # pure mode: bytes one CTA copies per unit
@@ -62,6 +68,7 @@ PURE_VARIANTS = {
 
 def reset_launches():
     LAUNCHES.clear()
+    CONTEXTS_LAUNCHED.clear()
 
 
 def launches():
@@ -94,8 +101,7 @@ def _shape(x, wk, *, pure, fused, kv_chunk, contexts):
     if x.dim() != 3 or x.shape[0] != 2:
         raise ValueError(f"the shuttle wants the stacked (2, rows, w) layout, "
                          f"got {tuple(x.shape)}")
-    if int(contexts) < 1:
-        raise ValueError(f"contexts must be >= 1, got {contexts}")
+    window.check_contexts(contexts)
     if pure:
         if x.shape[1] % 2:
             raise ValueError("pure shuttle wants stacked [K; V] rows, got "
@@ -139,29 +145,33 @@ class _Params(ctypes.Structure):
     _fields_ = (
         [(k, ctypes.c_int) for k in (
             "rows", "d", "dk", "chunk_rows", "nchunks", "fused", "chained",
-            "counter", "pure", "vec", "esize", "unit_rows", "timeout_ms")]
+            "counter", "pure", "vec", "esize", "unit_rows", "timeout_ms",
+            "contexts", "log_cap")]
         + [(k, ctypes.c_void_p) for k in ("x", "wk", "wv", "ko", "vo",
-                                          "flag")])
+                                          "flag", "log", "log_n")])
 
 
-def load_kernel():
+def load_kernel(probe=False):
     """Build (if needed) and load the kernel without running it — the
-    fast path's stage A and the cascade's l1."""
-    return build.load_typed("kv_shuttle", _Params, grid_args=1)
+    fast path's stage A and the cascade's l1. ``probe``: the build with
+    ``-DCUCO_PROBE``, which logs its window (:func:`check_log`)."""
+    return build.load_typed("kv_shuttle", _Params, grid_args=1,
+                            defines=window.PROBE_DEFINES if probe else ())
 
 
-def grid_for(device, pure=False):
+def grid_for(device, pure=False, probe=False):
     """The co-resident grid of the projection (or, with ``pure``, the row
     copy) kernel: CTAs per SM x SMs, one of them the decode rank's. Raises
     when fewer than two CTAs fit."""
-    return build.grid(load_kernel(), device, int(pure))
+    return build.grid(load_kernel(probe), device, int(pure))
 
 
 def _aligned(*tensors):
     return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
-def _launch(x, wk, wv, *, chained, fused, counter, kv_chunk, contexts, pure):
+def _launch(x, wk, wv, *, chained, fused, counter, kv_chunk, contexts, pure,
+            probe=False):
     rows, width, sched = _shape(x, wk, pure=pure, fused=fused,
                                 kv_chunk=kv_chunk, contexts=contexts)
     chunk_rows = sched.kv_chunk if fused else rows
@@ -181,7 +191,7 @@ def _launch(x, wk, wv, *, chained, fused, counter, kv_chunk, contexts, pure):
     if chunk_rows * width >= 2**32:
         raise ValueError(f"a chunk of {chunk_rows} x {width} elements "
                          "overflows its 32-bit flag")
-    grid, _ = grid_for(x.device, pure)
+    grid, _ = grid_for(x.device, pure, probe)
     ko = torch.empty((2, rows, width), dtype=x.dtype, device=x.device)
     vo = torch.empty_like(ko)
     ko[0].zero_()                 # the prefill rank's rows: never written
@@ -194,16 +204,24 @@ def _launch(x, wk, wv, *, chained, fused, counter, kv_chunk, contexts, pure):
     else:
         vec = x.shape[2] % 4 == 0 and width % 4 == 0 \
             and _aligned(x, wk, wv, ko[1], vo[1])
+    unit_rows = max(1, COPY_UNIT_BYTES // (width * esize))
+    total = len(_units(rows, width, chunk_rows, fused, pure, unit_rows))
+    log = window.DeviceLog.alloc(grid if probe else 1,
+                                 2 * -(-total // (grid - 1)) + nchunks + 8
+                                 if probe else 1, x.device)
     p = _Params(rows=rows, d=0 if pure else x.shape[2], dk=width,
                 chunk_rows=chunk_rows, nchunks=nchunks, fused=int(fused),
                 chained=int(chained), counter=int(counter), pure=int(pure),
                 vec=int(vec), esize=esize,
-                unit_rows=max(1, COPY_UNIT_BYTES // (width * esize)),
-                timeout_ms=TIMEOUT_MS,
+                unit_rows=unit_rows, timeout_ms=TIMEOUT_MS,
+                contexts=int(contexts),
                 x=x.data_ptr(), wk=None if pure else wk.data_ptr(),
                 wv=None if pure else wv.data_ptr(), ko=ko[1].data_ptr(),
-                vo=vo[1].data_ptr(), flag=flags.data_ptr())
-    build.launch(load_kernel(), p, x.device, grid)
+                vo=vo[1].data_ptr(), flag=flags.data_ptr(), **log.params())
+    build.launch(load_kernel(probe), p, x.device, grid)
+    if probe:   # not a launch of the counted paths
+        return ko, vo, (log, grid, unit_rows)
+    CONTEXTS_LAUNCHED[int(contexts)] += 1
     LAUNCHES[(variant_name(chained=chained, fused=fused, counter=counter,
                            kv_chunk=kv_chunk, pure=pure, rows=rows),
               rows, width, str(x.dtype).replace("torch.", ""))] += 1
@@ -241,3 +259,78 @@ def kv_cache_shuttle(kv, *, chained=True, fused=False, counter=False,
     return _entry(kv, None, None, chained=chained, fused=fused,
                   counter=counter, kv_chunk=kv_chunk, contexts=contexts,
                   pure=True)
+
+
+# ------------------------------------------------------------ the op recorder
+
+
+def _units(rows, width, chunk_rows, fused, pure, unit_rows):
+    """The half of each work unit, in the kernel's round order (its CTAs
+    take them round robin): GEMM tiles of 64 x 128 (a row group's K tiles,
+    then its V tiles; unfused all of K first) or, ``pure``, row copies of
+    ``unit_rows`` rows (chunk-major when fused)."""
+    if pure:
+        upc = -(-chunk_rows // unit_rows)
+        nchunks = rows // chunk_rows
+        if fused:
+            return [(u % (2 * upc)) // upc for u in range(2 * nchunks * upc)]
+        return [u // upc for u in range(2 * upc)]
+    rt, ctn = -(-rows // 64), -(-width // 128)
+    tpg = rt if not fused else (chunk_rows // 64 if chunk_rows % 64 == 0
+                                else 1)
+    per_group = 2 * tpg * ctn
+    return [(u % per_group) // (tpg * ctn) for u in range(2 * rt * ctn)]
+
+
+def kv_shuttle_logged(x, wk=None, wv=None, *, pure=False, contexts=2,
+                      **knobs):
+    """The probe build (``-DCUCO_PROBE``) on CUDA tensors at the full
+    grid: ``(ko, vo, events, meta)``, ``events`` each CTA's decoded window
+    log and ``meta`` what :func:`check_log` needs. Takes the entries'
+    knobs; not counted in ``LAUNCHES``."""
+    if x.device.type != "cuda":
+        raise ValueError(f"the probe build is a kernel build; {x.device} "
+                         "has none")
+    knobs = dict(dict(chained=True, fused=False, counter=False,
+                      kv_chunk=None), **knobs)
+    ko, vo, (log, grid, unit_rows) = _launch(
+        x, wk, wv, contexts=contexts, pure=pure, probe=True, **knobs)
+    rows, width, sched = _shape(x, wk, pure=pure, fused=knobs["fused"],
+                                kv_chunk=knobs["kv_chunk"], contexts=contexts)
+    meta = dict(rows=rows, width=width, pure=pure, unit_rows=unit_rows,
+                grid=grid, contexts=contexts, **knobs)
+    return ko, vo, window.decode(log.events, log.counts), meta
+
+
+def check_log(events, *, rows, width, pure, unit_rows, grid, contexts,
+              chained=True, fused=False, counter=False, kv_chunk=None):
+    """Hold a probe launch's log to the window contract. The card's round
+    is a work unit, a piece of the schedule's ``(0, chunk)`` round (a
+    chunk's tiles go to several CTAs): each prefill CTA pushes its units
+    ``(half, u)`` in the round order, drains before a sequential K drain
+    and at the end; together they push every unit; the decode CTA's
+    receive waits (one a K / V chunk pair) are the n = 2 ring's
+    ``completion_ticks``. Returns the window summary of the prefill
+    CTAs."""
+    del counter
+    sched = _schedule(rows, fused, kv_chunk)
+    chunk_rows = sched.kv_chunk if fused else rows
+    halves = _units(rows, width, chunk_rows, fused, pure, unit_rows)
+    order = [(h, u) for u, h in enumerate(halves)]
+    npre = grid - 1
+    stats = []
+    for pid in range(npre):
+        where = f"kv_shuttle CTA {pid}: "
+        st = window.check_cta(events[pid], contexts, order, where)
+        mine = order[pid::npre]
+        drains = 1 + int(not fused and not chained
+                         and any(h for h, _ in mine))
+        if window.pushed(events[pid]) != mine or st["drains"] != drains:
+            raise window.WindowLogError(
+                f"{where}pushed {st['rounds']} units and {st['drains']} "
+                f"drains, not its {len(mine)} and {drains}")
+        stats.append(st)
+    window.check_rank(events[:npre], order, where="kv_shuttle: ")
+    ticks = make_ring_schedule(2, rows, chunk_rows, fused).completion_ticks()
+    window.check_rank([events[npre]], [], ticks, where="kv_shuttle decode: ")
+    return window.summary(stats)

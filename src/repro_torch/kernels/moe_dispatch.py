@@ -14,9 +14,14 @@ of the one kernel; the source's header says how each is realized.
 :func:`moe_dispatch_combine` launches the kernel for CUDA tensors and
 raises when it cannot; for CPU tensors it computes
 :func:`moe_dispatch_combine_ref`, the plain version the tests and
-``chip_smoke.py`` hold the kernel against. ``LAUNCHES`` counts kernel
-launches, keyed by variant and shape; ``VARIANTS`` names the knob sets
-the main path launches.
+``chip_smoke.py`` hold the kernel against. ``contexts`` (1, 2 or 4, 2 as
+in the reference) is the kernel's send window over its dispatch and
+combine rounds (``csrc/window.cuh``). ``probe=`` (a ``ScheduleProbe``)
+records the reference's marks: on CPU tensors :func:`record_marks`, on
+CUDA tensors the probe build's (:func:`moe_dispatch_logged`,
+:func:`check_log`). ``LAUNCHES`` counts kernel launches, keyed by variant
+and shape (``CONTEXTS_LAUNCHED`` by ``contexts``); ``VARIANTS`` names the
+knob sets the main path launches.
 """
 from __future__ import annotations
 
@@ -26,24 +31,29 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, window
 from repro_torch.kernels.split import cta_split
 
 # The schedule machinery is defined once, in repro_torch.core.schedule;
 # re-exported here for the kernel's callers.
 from repro_torch.core.schedule import (DispatchSchedule,  # noqa: F401
-                                       make_schedule, sanitize_combine_tile)
+                                       SendWindow, make_schedule,
+                                       sanitize_combine_tile)
 
 MAX_RANKS = 8                 # MOE_MAXN in the CUDA source
 TILE = 64                     # d, f and fs must be multiples of it
 TIMEOUT_MS = 20_000           # a spin-wait traps after this long
+MAX_ROW_BYTES = 64 * 1024     # MOE_SLOT: a dispatched row stages whole
 
 # (variant, n, T, d, f) -> kernel launches; read by chip_smoke.py
 LAUNCHES = collections.Counter()
+# contexts -> kernel launches: the directives' window reaches the card
+CONTEXTS_LAUNCHED = collections.Counter()
 
 
 def reset_launches():
     LAUNCHES.clear()
+    CONTEXTS_LAUNCHED.clear()
 
 
 def launches():
@@ -77,13 +87,15 @@ def _offsets(counts):
 
 
 def moe_dispatch_combine_ref(x, w1, w2, *, counts, block_tokens=64, tight=True,
-                             wire_i8=False, shared=None):
+                             wire_i8=False, shared=None, contexts=2):
     """Plain-torch version of the kernel on the stacked layout: x (n, T, d),
     w1 (n, d, 2f), w2 (n, f, d); rank r's rows ``[off_e, off_e+counts[e])``
     go to expert e. Each row crosses the wire alone (per-row int8 scales),
     so the microblock layout (``block_tokens``, ``tight``) changes where
-    rows travel, never what comes back. ``shared=(xs, s1, s2)`` adds the
-    second stream and returns ``(y, ys)``."""
+    rows travel, never what comes back, and the send window (``contexts``,
+    only checked) when. ``shared=(xs, s1, s2)`` adds the second stream and
+    returns ``(y, ys)``."""
+    window.check_contexts(contexts)
     n, T, _ = x.shape
     sched = make_schedule(counts, block_tokens, tight)
     if sched.n != n or sum(sched.counts) != T:
@@ -115,24 +127,27 @@ class _Params(ctypes.Structure):
            for k in ("counts", "blocks", "offsets")]
         + [("cta0", ctypes.c_int * (2 * MAX_RANKS + 1))]
         + [(k, ctypes.c_int) for k in ("barrier", "pipelined", "tile_fused",
-                                       "shared", "wire_i8", "timeout_ms")]
+                                       "shared", "wire_i8", "timeout_ms",
+                                       "contexts", "log_cap")]
         + [(k, ctypes.c_void_p) for k in (
             "x", "w1", "w2", "xs", "s1", "s2", "y", "ys", "recv", "recv_s",
             "ffn_out", "comb", "h", "hs", "disp_flag", "comb_flag",
-            "h_ready", "o_ready", "hs_ready")])
+            "h_ready", "o_ready", "hs_ready", "log", "log_n")])
 
 
-def load_kernel():
+def load_kernel(probe=False):
     """Build (if needed) and load the kernel without running it — the
-    fast path's stage A and the cascade's l1."""
-    return build.load_typed("moe_dispatch", _Params, grid_args=3)
+    fast path's stage A and the cascade's l1. ``probe``: the build with
+    ``-DCUCO_PROBE``, which logs its window (:func:`check_log`)."""
+    return build.load_typed("moe_dispatch", _Params, grid_args=3,
+                            defines=window.PROBE_DEFINES if probe else ())
 
 
-def grid_for(device, n, shared, wire_i8):
+def grid_for(device, n, shared, wire_i8, probe=False):
     """The co-resident grid the launch uses: CTAs per SM x SMs. Raises
     when it cannot give every rank one routed CTA (and one second-stream
     CTA with ``shared``)."""
-    return build.grid(load_kernel(), device, int(n), int(shared),
+    return build.grid(load_kernel(probe), device, int(n), int(shared),
                       int(wire_i8))
 
 
@@ -194,7 +209,8 @@ def variant_name(*, barrier, pipelined, tile_fused, wire_i8, shared,
 
 
 def _launch(x, w1, w2, sched, *, barrier, pipelined, tile_fused, wire_i8,
-            combine_tile, shared):
+            combine_tile, shared, contexts, probe=False):
+    window.check_contexts(contexts)
     n, T, d = x.shape
     f = w2.shape[1]
     B = sched.block_tokens
@@ -219,7 +235,10 @@ def _launch(x, w1, w2, sched, *, barrier, pipelined, tile_fused, wire_i8,
         Ts, fs = 0, TILE
     if d % TILE or f % TILE or fs % TILE:
         raise ValueError(f"d={d}, f={f}, fs={fs} must be multiples of {TILE}")
-    grid, _ = grid_for(x.device, n, shared is not None, wire_i8)
+    if 4 * d > MAX_ROW_BYTES:
+        raise ValueError(f"a row of d={d} floats does not fit the kernel's "
+                         f"{MAX_ROW_BYTES}-byte send slot")
+    grid, _ = grid_for(x.device, n, shared is not None, wire_i8, probe)
     ctas = rank_ctas(grid, sched, f, None if shared is None else (Ts, fs))
     dev = x.device
     stride = sched.b_max * B
@@ -245,7 +264,8 @@ def _launch(x, w1, w2, sched, *, barrier, pipelined, tile_fused, wire_i8,
                 stride=stride, ct=sanitize_combine_tile(combine_tile, B),
                 barrier=int(barrier), pipelined=int(pipelined),
                 tile_fused=int(tile_fused), shared=int(shared is not None),
-                wire_i8=int(wire_i8), timeout_ms=TIMEOUT_MS)
+                wire_i8=int(wire_i8), timeout_ms=TIMEOUT_MS,
+                contexts=int(contexts))
     for k in ("counts", "blocks"):
         getattr(p, k)[:n] = getattr(sched, k)
     p.offsets[:n] = _offsets(sched.counts)
@@ -262,7 +282,15 @@ def _launch(x, w1, w2, sched, *, barrier, pipelined, tile_fused, wire_i8,
     p.h_ready = base + 4 * (n_disp + n * n)
     p.o_ready = base + 4 * (2 * n_disp + n * n)
     p.hs_ready = base + 4 * (2 * n_disp + 2 * n * n)
-    build.launch(load_kernel(), p, dev, grid)
+    log = window.DeviceLog.alloc(grid if probe else 1,
+                                 log_cap(sched, d) if probe else 1, dev)
+    for k, v in log.params().items():
+        setattr(p, k, v)
+    build.launch(load_kernel(probe), p, dev, grid)
+    out = (y, ys) if shared is not None else y
+    if probe:   # not a launch of the counted paths
+        return out, log, stream_starts(ctas)
+    CONTEXTS_LAUNCHED[int(contexts)] += 1
     LAUNCHES[(variant_name(barrier=barrier, pipelined=pipelined,
                            tile_fused=tile_fused, wire_i8=wire_i8,
                            shared=shared is not None,
@@ -270,42 +298,206 @@ def _launch(x, w1, w2, sched, *, barrier, pipelined, tile_fused, wire_i8,
               n, T, d, f)] += 1
     # the scratch is freed here; the caching allocator reuses it only in
     # this stream's order, after the launch
-    if shared is not None:
-        return y, ys
-    return y
+    return out
 
 
 def moe_dispatch_combine(x, w1, w2, *, counts, block_tokens=64, tight=True,
                          pipelined=True, barrier=False, wire_i8=False,
-                         tile_fused=False, combine_tile=None, shared=None):
+                         tile_fused=False, combine_tile=None, shared=None,
+                         contexts=2, probe=None):
     """Global entry, the JAX package's layout: x (n, T, d) with each rank's
     rows sorted into contiguous per-expert blocks by ``counts``; w1
     (n, d, 2f), w2 (n, f, d) — expert e's weights on rank e. Returns
     (n, T, d), or ``(y, ys)`` with ``shared=(xs, s1, s2)`` — xs (n, Ts, d),
     s1 (d, 2fs), s2 (fs, d) replicated.
 
-    The ranks are the leading axis of ``x`` (no mesh argument). The
-    reference's ``contexts`` send window has no counterpart: a
-    store-and-flag round retires as it issues, so the in-flight depth is
-    1 under every cap. CUDA tensors launch the kernel (or raise); CPU
-    tensors compute the plain version."""
+    The ranks are the leading axis of ``x`` (no mesh argument).
+    ``contexts`` (1, 2 or 4) is the send window's depth. ``probe`` (a
+    ``ScheduleProbe``) records rank 0's marks: on CPU tensors the
+    reference's order (:func:`record_marks`), on CUDA tensors the probe
+    build's, in the order of their times (:func:`record_card`). CUDA
+    tensors launch the kernel (or raise); CPU tensors compute the plain
+    version."""
     if tile_fused and barrier:
         raise ValueError("tile_fused (COUNTER completion) excludes a "
                          "BARRIER rendezvous")
     if x.device.type == "cpu":
-        return moe_dispatch_combine_ref(x, w1, w2, counts=counts,
-                                        block_tokens=block_tokens,
-                                        tight=tight, wire_i8=wire_i8,
-                                        shared=shared)
+        out = moe_dispatch_combine_ref(x, w1, w2, counts=counts,
+                                       block_tokens=block_tokens,
+                                       tight=tight, wire_i8=wire_i8,
+                                       shared=shared, contexts=contexts)
+        if probe is not None:
+            record_marks(probe, make_schedule(counts, block_tokens, tight),
+                         contexts=contexts, shared=shared is not None)
+        return out
     if x.device.type != "cuda":
         raise ValueError(f"moe_dispatch runs on cuda or cpu, not {x.device}")
     sched = make_schedule(counts, block_tokens, tight)
     if sched.n != x.shape[0] or sum(sched.counts) != x.shape[1]:
         raise ValueError(f"counts {counts} do not route x {tuple(x.shape)}")
-    return _launch(x, w1, w2, sched, barrier=barrier, pipelined=pipelined,
-                   tile_fused=tile_fused, wire_i8=wire_i8,
-                   combine_tile=combine_tile, shared=shared)
+    knobs = dict(barrier=barrier, pipelined=pipelined, tile_fused=tile_fused,
+                 wire_i8=wire_i8, combine_tile=combine_tile, shared=shared,
+                 contexts=contexts)
+    if probe is not None:
+        out, log, starts = _launch(x, w1, w2, sched, probe=True, **knobs)
+        record_card(probe, window.decode(log.events, log.counts), starts)
+        return out
+    return _launch(x, w1, w2, sched, **knobs)
 
+
+# ------------------------------------------------------------ the op recorder
+
+
+def log_cap(sched, d):
+    """Events one routed CTA logs at most: a push and a retire a
+    dispatch round (every round of its rank at worst) and a combine round
+    (every GEMM2 tile of its rank's, at worst), two drains, two marks, and
+    room to spare."""
+    rounds = sched.n * sched.b_max
+    tiles = -(-d // 128) * -(-sched.block_tokens // 64)
+    return 2 * rounds * (1 + tiles) + 16
+
+
+def record_marks(probe, sched, *, contexts=2, shared=False):
+    """The reference's dispatch window with its marks on ``probe``: every
+    round ``(off, j)`` pushed through ``core/schedule.py::SendWindow``,
+    ``dispatch_issued``, the second stream's ``shared_ffn`` in the overlap
+    slot (with ``shared``), the drain, ``dispatch_drained``."""
+    win = SendWindow(window.check_contexts(contexts), start=lambda e: None,
+                     wait=lambda e: None)
+    for rnd in sched.rounds:
+        win.push(rnd)
+    probe.mark("dispatch_issued")
+    if shared:
+        probe.mark("shared_ffn")
+    win.drain()
+    probe.mark("dispatch_drained")
+    return probe
+
+
+def _time_order(base):
+    """A sort key for 32-bit ns stamps near ``base`` (wrap-safe)."""
+    return lambda t: ((t - base + 2**31) % 2**32) - 2**31
+
+
+def record_card(probe, events, starts):
+    """Rank 0's marks of a probe launch on ``probe``, in the order of
+    their times: the last routed CTA's ``dispatch_issued`` and
+    ``dispatch_drained`` and the second stream's first ``shared_ffn``. The
+    card runs the second stream on CTAs of its own from the launch on, so
+    ``shared_ffn`` may come before ``dispatch_issued``; what the
+    reference's order asserts, the shared FFN running while dispatch sends
+    are in flight, is :func:`check_log`'s check that its span opens before
+    ``dispatch_drained``."""
+    marks = _rank_marks(events, starts, 0)
+    order = sorted(marks.items(), key=lambda kv: _time_order(
+        marks["dispatch_issued"])(kv[1]))
+    for name, _ in order:
+        probe.mark(name)
+    return probe
+
+
+def _rank_marks(events, starts, r):
+    routed = events[starts[2 * r]:starts[2 * r + 1]]
+    second = events[starts[2 * r + 1]:starts[2 * r + 2]]
+    def times(ctas, name):
+        return [ev[2] for evs in ctas for ev in evs
+                if ev[0] == "mark" and ev[1] == name]
+    issued, drained = times(routed, "dispatch_issued"), times(
+        routed, "dispatch_drained")
+    if len(issued) != len(routed) or len(drained) != len(routed):
+        raise window.WindowLogError(f"moe rank {r}: {len(issued)} / "
+                                    f"{len(drained)} dispatch marks from "
+                                    f"{len(routed)} routed CTAs")
+    key = _time_order(issued[0])
+    marks = {"dispatch_issued": max(issued, key=key),
+             "dispatch_drained": max(drained, key=key)}
+    shared = times(second, "shared_ffn")
+    if second:
+        if len(shared) != len(second):
+            raise window.WindowLogError(f"moe rank {r}: {len(shared)} "
+                                        "shared_ffn marks from "
+                                        f"{len(second)} second-stream CTAs")
+        marks["shared_ffn"] = min(shared, key=key)
+    return marks
+
+
+def moe_dispatch_logged(x, w1, w2, *, counts, block_tokens=64, tight=True,
+                        contexts=2, **knobs):
+    """The probe build (``-DCUCO_PROBE``) on CUDA tensors at the full
+    grid: ``(out, events, starts)``, ``events`` each CTA's decoded window
+    log and ``starts`` the streams' CTA table (stream 2r: rank r's routed
+    CTAs, 2r + 1 its second stream). Takes :func:`moe_dispatch_combine`'s
+    knobs; not counted in ``LAUNCHES``."""
+    if x.device.type != "cuda":
+        raise ValueError(f"the probe build is a kernel build; {x.device} "
+                         "has none")
+    knobs = dict(dict(barrier=False, pipelined=True, tile_fused=False,
+                      wire_i8=False, combine_tile=None, shared=None), **knobs)
+    sched = make_schedule(counts, block_tokens, tight)
+    out, log, starts = _launch(x, w1, w2, sched, contexts=contexts,
+                               probe=True, **knobs)
+    return out, window.decode(log.events, log.counts), starts
+
+
+def combine_rounds(sched, me, d, tile_fused):
+    """Rank ``me``'s combine rounds in order: non-fused ``(off, j)`` for
+    its expert's ``blocks[me]`` microblocks to each source; tile-fused
+    ``(off, tile)`` a GEMM2 tile (64 x 128) of each microblock, tile =
+    (j * column tiles + column) * m-tiles + m-tile."""
+    n, B, mb = sched.n, sched.block_tokens, sched.blocks[me]
+    if not tile_fused:
+        return [(off, j) for off in range(n) for j in range(mb)]
+    ct, mt = -(-d // 128), -(-B // 64)
+    return [(off, (j * ct + c) * mt + m) for off in range(n)
+            for j in range(mb) for c in range(ct) for m in range(mt)]
+
+
+def check_log(events, starts, sched, *, d, contexts, tile_fused=False,
+              shared=False, **_):
+    """Hold a probe launch's log to the window contract: each routed CTA
+    of rank me pushes its share of dispatch rounds ``(off, j)`` in the
+    schedule's order (dummy rounds elided), drains (marks
+    ``dispatch_issued`` / ``dispatch_drained`` around it), then pushes
+    its combine rounds (:func:`combine_rounds`) in order and drains again;
+    the rank's CTAs together push every real dispatch round and every
+    combine round; and the second stream's first ``shared_ffn`` comes
+    before the last ``dispatch_drained``. DispatchSchedule has no
+    ``completion_ticks``, so no receive count is held (as the reference's
+    ``ScheduleProbe.check`` skips it)."""
+    n = sched.n
+    stats = []
+    for me in range(n):
+        disp = [(off, j) for off, j in sched.rounds
+                if j < sched.blocks[(me - off) % n]]
+        comb = combine_rounds(sched, me, d, tile_fused)
+        routed = events[starts[2 * me]:starts[2 * me + 1]]
+        got_d, got_c = [], []
+        for i, evs in enumerate(routed):
+            where = f"moe rank {me} CTA {i}: "
+            st = window.check_cta(evs, contexts, where=where)
+            if st["drains"] != 2:
+                raise window.WindowLogError(f"{where}{st['drains']} drains, "
+                                            "not 2")
+            cut = next(k for k, ev in enumerate(evs) if ev[0] == "drain")
+            first, second = window.pushed(evs[:cut]), window.pushed(evs[cut:])
+            window.check_order(first, disp, where + "dispatch: ")
+            window.check_order(second, comb, where + "combine: ")
+            got_d += first
+            got_c += second
+            stats.append(st)
+        for got, want, what in ((got_d, disp, "dispatch"),
+                                (got_c, comb, "combine")):
+            window.check_rank([[("issue", *r) for r in got]], want,
+                              where=f"moe rank {me} {what}: ")
+        marks = _rank_marks(events, starts, me)
+        if shared:
+            key = _time_order(marks["dispatch_issued"])
+            if not key(marks["shared_ffn"]) < key(marks["dispatch_drained"]):
+                raise window.WindowLogError(
+                    f"moe rank {me}: the shared FFN opened after the "
+                    "dispatch window drained")
+    return window.summary(stats)
 
 # ------------------------------------------------------- the tile GEMM alone
 

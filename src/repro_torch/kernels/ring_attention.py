@@ -19,11 +19,14 @@ q's dtype; the math is f32 either way). CUDA tensors launch the kernel or
 raise (rows of a 16-byte multiple: hd <= 128 and a multiple of 4 in f32,
 of 8 in bf16); CPU tensors compute
 :func:`ring_attention_plain`, the plain version the tests and
-``chip_smoke.py`` hold the kernel against. The reference's ``contexts``
-send window is accepted and has no counterpart on the card. ``LAUNCHES``
-counts launches keyed by variant and shape; ``VARIANTS`` names the knob
-sets the main path launches on f32 inputs, ``BF16_VARIANTS`` those it
-launches on bf16 inputs.
+``chip_smoke.py`` hold the kernel against. ``contexts`` (1, 2 or 4) is
+the kernel's send window: each CTA keeps that many ``(step, chunk)``
+rounds of bulk stores in flight and drains at every step boundary
+(``csrc/window.cuh``); :func:`ring_attention_logged` runs the probe build
+and :func:`check_log` holds its log to ``RingSchedule``. ``LAUNCHES``
+counts launches keyed by variant and shape (``CONTEXTS_LAUNCHED`` by
+``contexts``); ``VARIANTS`` names the knob sets the main path launches on
+f32 inputs, ``BF16_VARIANTS`` those it launches on bf16 inputs.
 """
 from __future__ import annotations
 
@@ -35,7 +38,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, window
 from repro_torch.kernels.split import cta_split
 
 # The schedule machinery is defined once, in repro_torch.core.schedule;
@@ -53,6 +56,8 @@ STALL_DEFINES = ("RING_TEST_STALL",)   # the slowed-rank test build
 
 # (variant, n, BH, Sl, hd) -> kernel launches; read by chip_smoke.py
 LAUNCHES = collections.Counter()
+# contexts -> kernel launches: the directives' window reaches the card
+CONTEXTS_LAUNCHED = collections.Counter()
 
 # Knobs of each variant the main path launches (the RingAttention
 # search's directives at Sl = 1024; kv_chunk is the default tunable).
@@ -74,6 +79,7 @@ BF16_VARIANTS = {
 
 def reset_launches():
     LAUNCHES.clear()
+    CONTEXTS_LAUNCHED.clear()
 
 
 def launches():
@@ -195,8 +201,7 @@ def _shape(q, k, v, contexts):
         raise ValueError(f"ring_attention wants q, k, v (n, BH, Sl, hd) "
                          f"alike; got {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
-    if int(contexts) < 1:
-        raise ValueError(f"contexts must be >= 1, got {contexts}")
+    window.check_contexts(contexts)
     return tuple(q.shape)
 
 
@@ -256,33 +261,49 @@ class _Params(ctypes.Structure):
             "pipelined", "eager", "causal", "bf16")]
         + [("cta0", ctypes.c_int * (MAX_RANKS + 1))]
         + [(k, ctypes.c_int) for k in ("timeout_ms", "stall_rank",
-                                       "stall_us")]
+                                       "stall_us", "contexts", "log_cap")]
         + [("scale", ctypes.c_float)]
         + [(k, ctypes.c_void_p) for k in ("q", "k", "v", "out", "acc", "kbuf",
-                                          "vbuf", "ml", "flag", "done")])
+                                          "vbuf", "ml", "flag", "done", "log",
+                                          "log_n")])
 
 
-def load_kernel(test_stall=False):
+def _defines(test_stall=False, probe=False):
+    return (STALL_DEFINES if test_stall else ()) \
+        + (window.PROBE_DEFINES if probe else ())
+
+
+def load_kernel(test_stall=False, probe=False):
     """Build (if needed) and load the kernel without running it — the
     fast path's stage A and the cascade's l1. ``test_stall``: the build
     with ``-DRING_TEST_STALL``, which honours ``stall_rank`` /
-    ``stall_us`` (:func:`slowed_ring_attention`)."""
+    ``stall_us`` (:func:`slowed_ring_attention`); ``probe``: the build
+    with ``-DCUCO_PROBE``, which logs its window (:func:`check_log`)."""
     return build.load_typed("ring_attention", _Params, grid_args=3,
-                            defines=STALL_DEFINES if test_stall else ())
+                            defines=_defines(test_stall, probe))
 
 
-def grid_for(device, n, hd=64, test_stall=False, dtype=torch.float32):
+def grid_for(device, n, hd=64, test_stall=False, dtype=torch.float32,
+             probe=False):
     """The co-resident grid the launch uses for ``n`` ranks at head
     dimension ``hd`` in ``dtype``: CTAs per SM x SMs, split over the ranks
     by :func:`ring_ctas`."""
-    return build.grid(load_kernel(test_stall), device, int(n), int(hd),
-                      int(dtype == torch.bfloat16))
+    return build.grid(load_kernel(test_stall, probe), device, int(n),
+                      int(hd), int(dtype == torch.bfloat16))
+
+
+def log_cap(n, nc):
+    """Events one CTA logs at most: a push, a retire and a receive wait a
+    round, a drain a step, and room to spare."""
+    return 3 * max(n - 1, 1) * nc + 2 * n + 8
 
 
 def _launch(q, k, v, *, causal, kv_chunk, fused, counter, pipelined,
-            eager_wait, contexts, stall):
+            eager_wait, contexts, stall, probe=None):
     """Launch the kernel; returns (out, the per-rank ``done`` counters,
-    which end at each rank's CTA count times max(n - 2, 0))."""
+    which end at each rank's CTA count times max(n - 2, 0)). ``probe``, a
+    dict: launch the probe build and put its
+    :class:`~repro_torch.kernels.window.DeviceLog` and CTA table there."""
     n, BH, Sl, hd = _shape(q, k, v, contexts)
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"ring_attention's kernel takes float32 or "
@@ -306,7 +327,7 @@ def _launch(q, k, v, *, causal, kv_chunk, fused, counter, pipelined,
         raise ValueError(f"a chunk of {BH} x {chunk_rows} x {hd} overflows "
                          "its 32-bit flag")
     grid, _ = grid_for(q.device, n, hd, test_stall=stall is not None,
-                       dtype=q.dtype)
+                       dtype=q.dtype, probe=probe is not None)
     cta0 = list(itertools.accumulate(ring_ctas(grid, n, BH, Sl, causal),
                                      initial=0))
     nc = Sl // chunk_rows
@@ -319,6 +340,9 @@ def _launch(q, k, v, *, causal, kv_chunk, fused, counter, pipelined,
     ml = torch.empty((2, n, BH, Sl), dtype=torch.float32, device=q.device)
     flags = torch.zeros(n * n * nc + n, dtype=torch.int32, device=q.device)
     stall_rank, stall_us = stall or (-1, 0)
+    log = window.DeviceLog.alloc(grid if probe is not None else 1,
+                                 log_cap(n, nc) if probe is not None else 1,
+                                 q.device)
     p = _Params(n=n, BH=BH, Sl=Sl, hd=hd, chunk_rows=chunk_rows, nc=nc,
                 fused=int(fused), counter=int(counter and fused),
                 pipelined=int(pipelined), eager=int(eager_wait),
@@ -329,8 +353,14 @@ def _launch(q, k, v, *, causal, kv_chunk, fused, counter, pipelined,
                 q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(),
                 out=out.data_ptr(), acc=acc.data_ptr(), kbuf=kbuf.data_ptr(),
                 vbuf=vbuf.data_ptr(), ml=ml.data_ptr(),
-                flag=flags.data_ptr(), done=flags[n * n * nc:].data_ptr())
-    build.launch(load_kernel(stall is not None), p, q.device, grid)
+                flag=flags.data_ptr(), done=flags[n * n * nc:].data_ptr(),
+                contexts=int(contexts), **log.params())
+    build.launch(load_kernel(stall is not None, probe is not None), p,
+                 q.device, grid)
+    if probe is not None:   # not a launch of the counted paths
+        probe.update(log=log, cta0=cta0)
+        return out, flags[n * n * nc:]
+    CONTEXTS_LAUNCHED[int(contexts)] += 1
     LAUNCHES[(variant_name(fused=fused, counter=counter, pipelined=pipelined,
                            eager_wait=eager_wait, kv_chunk=kv_chunk,
                            causal=causal, n=n, Sl=Sl, dtype=q.dtype), n, BH,
@@ -376,3 +406,47 @@ def slowed_ring_attention(q, k, v, *, rank, us, **knobs):
     knobs = dict(dict(causal=True, kv_chunk=None, fused=False, counter=False,
                       pipelined=True, eager_wait=False, contexts=2), **knobs)
     return _launch(q, k, v, stall=(int(rank), int(us)), **knobs)[0]
+
+
+def ring_attention_logged(q, k, v, *, contexts=2, **knobs):
+    """The probe build (``-DCUCO_PROBE``) on CUDA tensors at the full grid:
+    ``(out, events, cta0)``, ``events`` each CTA's decoded window log
+    (:func:`repro_torch.kernels.window.decode`) and ``cta0`` the ranks'
+    CTA table. Takes :func:`ring_attention`'s knobs; not counted in
+    ``LAUNCHES``."""
+    if q.device.type != "cuda":
+        raise ValueError(f"the probe build is a kernel build; {q.device} "
+                         "has none")
+    knobs = dict(dict(causal=True, kv_chunk=None, fused=False, counter=False,
+                      pipelined=True, eager_wait=False), **knobs)
+    probe = {}
+    out, _ = _launch(q, k, v, contexts=contexts, stall=None, probe=probe,
+                     **knobs)
+    log = probe["log"]
+    return out, window.decode(log.events, log.counts), probe["cta0"]
+
+
+def check_log(events, cta0, *, n, Sl, contexts, fused=False, kv_chunk=None,
+              **_):
+    """Hold a probe launch's log to the window contract and to
+    ``RingSchedule``: every CTA of a rank pushes each ``(step, chunk)``
+    round of the schedule in its order (its share of every chunk, empty
+    or not), drains at each of the n step boundaries, and waits on every
+    chunk flag (``completion_ticks`` each). Returns the
+    :func:`~repro_torch.kernels.window.summary` of the CTAs."""
+    sched = schedule_for(n, Sl, fused=fused, kv_chunk=kv_chunk)
+    rounds = sched.rounds
+    stats = []
+    for r in range(n):
+        ctas = events[cta0[r]:cta0[r + 1]]
+        for i, evs in enumerate(ctas):
+            where = f"ring rank {r} CTA {i}: "
+            st = window.check_cta(evs, contexts, rounds, where)
+            if window.pushed(evs) != rounds or st["drains"] != n:
+                raise window.WindowLogError(
+                    f"{where}pushed {st['rounds']} rounds and {st['drains']} "
+                    f"drains, not the schedule's {len(rounds)} and {n}")
+            stats.append(st)
+        window.check_rank(ctas, rounds, sched.completion_ticks(),
+                          per_cta_ticks=True, where=f"ring rank {r}: ")
+    return window.summary(stats)

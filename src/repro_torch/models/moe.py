@@ -243,14 +243,14 @@ def _alltoall_body(x2, p, cfg, mesh, *, overlap, quantize):
     return y
 
 
-def _pallas_body(x2, p, cfg, *, overlap, quantize):
+def _pallas_body(x2, p, cfg, *, overlap, quantize, probe=None):
     """The PALLAS_RDMA branch (the serving hot path), per rank on the
     stacked layout: routing and capacity layout as ``_alltoall_body`` up to
     the dst-major capacity buffer, then dispatch -> expert FFN -> combine as
     ONE launch of ``moe_dispatch.cu`` (FLUX knobs: tile-fused COUNTER,
-    ``make_schedule([C] * ep, block_tokens=min(64, C), tight=True)``). The
-    reference's ``contexts=2`` send window has no counterpart on the card
-    (``kernels.moe_dispatch``). With ``overlap`` and a shared expert, the
+    ``make_schedule([C] * ep, block_tokens=min(64, C), tight=True)``,
+    ``contexts=2`` as the reference; ``probe`` records the kernel's marks).
+    With ``overlap`` and a shared expert, the
     shared FFN is the kernel's second stream; ``quantize`` is its int8
     wire. The kernel's output slab is ``_alltoall_body``'s ``y_slots``, so
     the combine is shared. One expert per rank (``pallas_moe_eligible``);
@@ -272,7 +272,8 @@ def _pallas_body(x2, p, cfg, *, overlap, quantize):
     out = moe_dispatch_combine(
         buf.to(F32).contiguous(), kw["w1"], kw["w2"], counts=[C] * n,
         block_tokens=min(64, C), tight=True, pipelined=True, barrier=False,
-        tile_fused=True, wire_i8=quantize, shared=shared)
+        tile_fused=True, wire_i8=quantize, shared=shared, contexts=2,
+        probe=probe)
     y_slots, ys = out if shared is not None else (out, None)
     y = _combine(y_slots, slot, gates, keep, k, x2.dtype)
     if "shared" in p:
@@ -323,12 +324,13 @@ def _gathered_body(x2, p, cfg, mesh):
 # ---------------------------------------------------------------- public API
 
 def moe_apply(params, x, cfg, rules, *, overlap=False, quantize=False,
-              backend="xla"):
+              backend="xla", probe=None):
     """Apply the MoE block. x: (B, S, d), the whole batch.
 
     With ``rules`` over a data mesh the batch shards over its ranks (rank r
     takes rows [r*B/dp, (r+1)*B/dp)). ``backend="pallas"`` runs the
-    dispatch -> FFN -> combine chain through the Hopper kernel and raises
+    dispatch -> FFN -> combine chain through the Hopper kernel (``probe``,
+    a ``ScheduleProbe``, records its marks) and raises
     ``ValueError`` where :func:`pallas_moe_eligible` does not hold;
     ``backend="xla"`` takes the all-to-all body, or the gathered body for
     a batch that does not shard."""
@@ -354,7 +356,7 @@ def moe_apply(params, x, cfg, rules, *, overlap=False, quantize=False,
     dp = rules.dp_size()
     if backend == "pallas":
         y = _pallas_body(x.reshape(dp, B // dp * S, d), params, cfg,
-                         overlap=overlap, quantize=quantize)
+                         overlap=overlap, quantize=quantize, probe=probe)
     elif not rules.dp_axes:             # no data axis: one expert-parallel
         return _local_moe(x, params, cfg)   # rank, as the reference's ep = 1
     elif B % dp == 0 and B >= dp:

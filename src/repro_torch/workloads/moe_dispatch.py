@@ -210,7 +210,7 @@ class MoEDispatch(Workload):
                 block_tokens=k["block_tokens"], tight=k["tight"],
                 pipelined=k["pipelined"], barrier=k["barrier"],
                 tile_fused=k["tile_fused"], combine_tile=k["combine_tile"],
-                wire_i8=bool(k["wire_i8"]))
+                wire_i8=bool(k["wire_i8"]), contexts=k["contexts"])
 
         return run
 

@@ -113,7 +113,8 @@ class ServingStep(MoEDispatch):
                 block_tokens=k["block_tokens"], tight=k["tight"],
                 pipelined=k["pipelined"], barrier=k["barrier"],
                 tile_fused=k["tile_fused"], combine_tile=k["combine_tile"],
-                wire_i8=bool(k["wire_i8"]), shared=(x, s1, s2))
+                wire_i8=bool(k["wire_i8"]), shared=(x, s1, s2),
+                contexts=k["contexts"])
             return y + ys
 
         return run
