@@ -143,6 +143,26 @@ sizes; every run runs all of them, and any failure exits non-zero):
     Every counted path also prints the ``contexts`` its kernels launched
     at (``CONTEXTS_LAUNCHED``) and fails where a directive's did not
     reach the kernel.
+21. ``serve_kernels`` (run with the kernel phases) — the two kernel
+    shapes of phases 22 and 23: moe_dispatch on the padded layout of a
+    decode group of 3 rows on 4 ranks, and kv_shuttle's pure handoff of
+    whisper's cross cache (32 x 4 x 1500 x 20 rows of 64, bf16), held and
+    timed as in phase 5.
+22. ``serve_kinds`` — xlstm-350m (4 x 512 prompt tokens, 32 new),
+    recurrentgemma-9b (2 x 2304, 16 new: past the 2048-token window) and
+    whisper-large-v3 (4 x 64 decoder tokens over 1500 frames, 32 new)
+    through the engine at full width and depth, bf16, counted: prefill
+    ms, decode ms a step and tokens/s; the engine replays its own tokens;
+    the first decode step within 5e-2 of ``forward``; whisper's shuttled
+    handoff (``[k; v]`` and ``[ck; cv]``) bit-equal to the direct one and
+    its tokens equal ``generate``'s; the recurrent kinds' shuttled handoff
+    refused.
+23. ``serve_mixed`` — ``serve_moe``'s engine under pallas serves 6
+    requests of 4 prompt lengths and 5 ``max_new_tokens``, two of them
+    submitted at step 2: every group is one that does not shard, and runs
+    the kernel's padded layout (launches = MoE layers x groups); at
+    capacity 4 the tokens equal an xla engine's ``serve`` up to a
+    one-bf16-step tie, at 1.25 the agreement is printed.
 
 ``--iters`` sets the timed launches per kernel (1 for a quick check after
 a kernel change). The line before the last is the ``kernels`` JSON
@@ -151,12 +171,14 @@ from the counted paths: moe records from ``main``, the
 kv GEMM records from ``kv_main``, the pure records from ``serve``,
 gemm_allgather from ``ga_main``, flash and ring from ``ring_main``, the
 moe records at the llama4 shapes from ``serve_moe``, the n = 3 records
-from ``faults``); the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
+from ``faults``, the padded decode record from ``serve_mixed``, whisper's
+cross handoff from ``serve_kinds``); the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 outside a checkout, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import json
 import math
@@ -187,6 +209,7 @@ FA_REPLACES = "src/repro/kernels/flash_attention.py:72"
 RING_SOURCE = "src/repro_torch/csrc/ring_attention.cu"
 RING_REPLACES = "src/repro/kernels/ring_attention.py:197"
 LOGIT_TOL = 5e-2           # bf16 decode step vs forward, max-abs-normalised
+F32_LOGIT_TOL = 1e-3       # the same in float32 (sums in another order)
 
 def log(*a):
     print(*a, flush=True)
@@ -2653,6 +2676,446 @@ def phase_serve_degrade(device="cuda", cfg=None, shape=None):
                                  "than one bf16 step")
     return c
 
+# ------------------------------------------------- the other model kinds
+
+KIND_SHAPES = {"xlstm-350m": (4, 512, 32),
+               "recurrentgemma-9b": (2, 2304, 16),
+               "whisper-large-v3": (4, 64, 32)}
+
+
+def kind_configs(small=False):
+    """``(config, (batch, prompt tokens, new tokens))`` of each model kind
+    ``serve_kinds`` serves, at every published width and depth, no cut:
+    xlstm-350m (24 alternating mLSTM / sLSTM blocks, d 1024), 4 prompts
+    of 512 tokens (4 mLSTM chunks of 128); recurrentgemma-9b (38 layers,
+    RG-LRU and 2048-token local attention, d 4096, 7.5 B parameters), 2
+    prompts of 2304 tokens, so that the window cuts; whisper-large-v3 (32
+    encoder layers over 1500 frames, 32 decoder layers, d 1280), 4 prompts
+    of 64 tokens. ``small``: the reduced test sizes, with prompts past the
+    reduced mLSTM chunk (8) and window (16)."""
+    from repro_torch.configs import get_arch, reduced
+    return [(reduced(get_arch(n)), (2, 21, 4)) if small
+            else (get_arch(n), shape) for n, shape in KIND_SHAPES.items()]
+
+
+def _kind_batch(cfg, batch, prompt, device, seed=7):
+    """Prompt ids (and whisper's frames, in the model's type) from
+    ``seed`` on ``device``."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    b = {"tokens": torch.randint(0, cfg.vocab_size, (batch, prompt),
+                                 generator=g, device=device)}
+    if cfg.is_encoder_decoder:
+        dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+        b["frames"] = torch.randn((batch, cfg.enc_seq, cfg.d_model),
+                                  generator=g, device=device).to(dtype)
+    return b
+
+
+def phase_serve_kinds(device="cuda", kinds=None):
+    """The recurrent kinds and the encoder-decoder through the serving
+    engine, counted (the kv counter at 0 before the first kind, read after
+    the last): weights from seed 0 on the card, bf16, each config and
+    shape of :func:`kind_configs`. For each: ``generate`` after a warm-up
+    on an engine of its own, printing prefill ms, decode ms a step and
+    tokens/s; the engine replays its own greedy tokens (its prefill and
+    decode steps forced on them); the first decode step's logits within
+    5e-2 (max-abs-normalised, the real vocab) of ``forward`` over prompt +
+    1 tokens. Whisper also hands its cache over through the shuttle on a
+    2-rank ``VirtualMesh`` (``[k; v]`` and ``[ck; cv]``, the latter 32 x B
+    x 1500 x 20 rows of 64): the handoff equals the direct one bit for
+    bit and ``decode_from_handoff`` gives ``generate``'s tokens. The
+    recurrent kinds' shuttled handoff must raise (their recurrent blocks
+    hold no K/V), as the reference's does.
+
+    Beside each decode reading the phase prints the model's own bf16
+    floor: ``forward`` over the same tokens, each row alone against the
+    batch (the same function; only the GEMMs' shapes, and so their bf16
+    roundings, differ). xLSTM's floor is above 5e-2 (0.123 at 4 x 513
+    tokens: its exponential gates carry each rounding through 512
+    recurrent steps and 24 layers), so no bf16 computation of it can be
+    held to ``forward`` at 5e-2: its decode step is held in float32
+    instead, on the same weights from seed 0, within 1e-3 (sums in another
+    order), the bf16 reading printed. Returns the kv_shuttle counter."""
+    from repro_torch.dist.mesh import VirtualMesh
+    from repro_torch.kernels import kv_shuttle as kern
+    from repro_torch.models import init_params
+    from repro_torch.serve import Engine, ServeConfig
+    cuda = torch.device(device).type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(device)) if cuda else (lambda: None)
+    kern.reset_launches()
+    t_phase = time.perf_counter()
+    for cfg, (batch, prompt, new) in kinds or kind_configs():
+        # each kind's tensors go before the next kind's weights come
+        t0 = time.perf_counter()
+        params = init_params(torch.Generator(device=device).manual_seed(0),
+                             cfg, device=device)
+        b = _kind_batch(cfg, batch, prompt, device)
+        sync()
+        kinds_txt = "/".join(sorted(set(cfg.block_pattern)))
+        log(f"serve_kinds {cfg.name}: {cfg.num_layers} layers ({kinds_txt}"
+            + (f", {cfg.enc_layers} encoder layers over {cfg.enc_seq} frames"
+               if cfg.is_encoder_decoder else "")
+            + f") d={cfg.d_model} vocab {cfg.vocab_size} {cfg.dtype}; "
+            f"{cfg.param_count() / 1e9:.2f} B parameters from seed 0 in "
+            f"{time.perf_counter() - t0:.1f} s")
+        scfg = ServeConfig(max_seq=prompt + new + 1)
+        Engine(cfg, params, scfg).generate(b, 2)              # warm-up
+        eng = Engine(cfg, params, scfg)
+        t0 = time.perf_counter()
+        toks = eng.generate(b, new)
+        sync()
+        gen_s = time.perf_counter() - t0
+        snap = eng.metrics.snapshot()["histograms"]
+        pre_ms = snap["serve.prefill_ms"]["mean"]
+        dec_ms = snap["serve.decode_step_ms"]["mean"]
+        log(f"serve_kinds {cfg.name} generate: {batch} x {prompt} prompt "
+            f"tokens -> {new} new in {gen_s:.3f} s; prefill {pre_ms:.3f} ms "
+            f"({batch * prompt / pre_ms * 1e3:.0f} prompt tok/s), decode "
+            f"{dec_ms:.3f} ms/step ({batch / dec_ms * 1e3:.0f} tok/s)")
+        V = cfg.vocab_size
+        with torch.no_grad():
+            lg, cache = eng._prefill(b)
+            replays = torch.equal(lg[:, -1].argmax(-1).to(toks.dtype),
+                                  toks[:, 0])
+            for i in range(new - 1):
+                lg, cache = eng._decode(cache, toks[:, i:i + 1], prompt + i)
+                replays &= torch.equal(lg[:, -1].argmax(-1).to(toks.dtype),
+                                       toks[:, i + 1])
+                if i == 0:
+                    dl = lg[..., :V]
+            del cache
+        if not replays:
+            raise SystemExit(f"serve_kinds {cfg.name}: the engine does not "
+                             "replay its own greedy tokens")
+        grown = dict(b, tokens=torch.cat([b["tokens"], toks[:, :1].long()],
+                                         1))
+        fl, floor = _last_logits(params, grown, cfg, alone=True)
+        rel = float((dl - fl).abs().max() / (fl.abs().max() + 1e-9))
+        held = "mlstm" not in cfg.block_pattern     # xLSTM: in f32 below
+        if held:
+            _close(f"{cfg.name} decode logits vs forward", dl, fl, LOGIT_TOL)
+        log(f"serve_kinds {cfg.name} decode step vs forward over "
+            f"{prompt + 1} tokens: logits {tuple(dl.shape)} (the real "
+            f"vocab), " + (_reading(rel, LOGIT_TOL) if held else
+                           f"rel err {rel:.3e} (bf16, not held)")
+            + f"; the bf16 floor (forward, each row alone against the "
+            f"batch) {floor:.3e}; the engine replays its {new} greedy "
+            "tokens")
+        if not held:
+            _f32_decode_check(cfg, b, toks[:, :1], prompt, device)
+        if cfg.is_encoder_decoder:
+            direct = eng.prefill_remote(b)
+            t0 = time.perf_counter()
+            h = eng.prefill_remote(b, shuttle_mesh=VirtualMesh(2,
+                                                               device=device))
+            sync()
+            hand_s = time.perf_counter() - t0
+            same = all(torch.equal(h["cache"][blk][leaf],
+                                   direct["cache"][blk][leaf])
+                       for blk in direct["cache"]
+                       for leaf in direct["cache"][blk])
+            equal = torch.equal(eng.decode_from_handoff(h, new), toks)
+            rows = {a: h["cache"]["s0"][a].numel() // cfg.hd
+                    for a in ("k", "ck")}
+            log(f"serve_kinds {cfg.name} handoff: prefill + shuttle "
+                f"{hand_s:.3f} s, [k; v] {rows['k']} rows and [ck; cv] "
+                f"{rows['ck']} rows x {cfg.hd} per half; cache bit-equal to "
+                f"the direct handoff: {same}; decode tokens equal "
+                f"generate's: {equal}")
+            if not (same and equal):
+                raise SystemExit(f"serve_kinds {cfg.name}: the shuttled "
+                                 "handoff differs from the direct one")
+            del direct, h
+        else:                       # recurrent state: no K/V to shuttle
+            try:
+                eng.prefill_remote(b, shuttle_mesh=VirtualMesh(2,
+                                                               device=device))
+            except NotImplementedError as err:
+                log(f"serve_kinds {cfg.name} shuttled handoff refused: "
+                    f"{err}")
+            else:
+                raise SystemExit(f"serve_kinds {cfg.name}: the shuttle took "
+                                 "a cache with recurrent state")
+        del params, eng, toks, lg, dl, fl, grown
+        if cuda:
+            torch.cuda.empty_cache()
+    log(f"serve_kinds: all kinds in {time.perf_counter() - t_phase:.1f} s")
+    _contexts_seen("serve_kinds", [kern], {2})
+    return dict(kern.LAUNCHES)
+
+
+def _last_logits(params, batch, cfg, alone=False):
+    """The last position's logits of ``forward`` over ``batch`` (the real
+    vocab); with ``alone``, also the max-abs-normalised gap to the same
+    forward run a row at a time."""
+    from repro_torch.models import forward
+    from repro_torch.models.model import lm_logits
+    V = cfg.vocab_size
+    with torch.no_grad():
+        fl = lm_logits(params, forward(params, batch, cfg)[0][:, -1:],
+                       cfg)[..., :V]
+        if not alone:
+            return fl
+        one = torch.cat([lm_logits(params, forward(
+            params, {k: v[i:i + 1] for k, v in batch.items()}, cfg)[0][
+                :, -1:], cfg)[..., :V] for i in range(fl.shape[0])])
+    return fl, float((one - fl).abs().max() / (fl.abs().max() + 1e-9))
+
+
+def _f32_decode_check(cfg, b, first, prompt, device):
+    """``cfg``'s first decode step against ``forward`` over prompt + 1
+    tokens in float32, on the weights from seed 0 (the bf16 run's before
+    rounding), within 1e-3."""
+    from repro_torch.models import decode_step, init_params, prefill_step
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    params = init_params(torch.Generator(device=device).manual_seed(0), f32,
+                         device=device)
+    with torch.no_grad():
+        _, cache = prefill_step(params, b, f32, seq_len=prompt + 2)
+        dl, _ = decode_step(params, cache, first.long(), prompt, f32)
+    del cache
+    grown = dict(b, tokens=torch.cat([b["tokens"], first.long()], 1))
+    fl = _last_logits(params, grown, f32)
+    rel, _ = _close(f"{cfg.name} f32 decode logits vs forward",
+                    dl[..., :cfg.vocab_size], fl, F32_LOGIT_TOL)
+    log(f"serve_kinds {cfg.name} in float32 (the same weights): decode step "
+        f"vs forward over {prompt + 1} tokens, {_reading(rel, F32_LOGIT_TOL)}")
+
+
+def whisper_cross_record(bench, cfg=None, shape=None):
+    """kv_shuttle's pure handoff of whisper's cross cache ``[ck; cv]`` at
+    the engine's shape (32 x B x 1500 x 20 rows of 64, bf16, the knobs
+    ``prefill_remote`` passes: chained, contexts 2), held bit for bit
+    against the plain version and timed beside one ``Tensor.copy_``; the
+    launches come from ``serve_kinds``."""
+    from repro_torch.kernels.kv_shuttle import (kv_cache_shuttle,
+                                                kv_shuttle_plain,
+                                                variant_name)
+    if cfg is None:
+        cfg, shape = kind_configs()[2]
+    batch = shape[0]
+    rows = cfg.num_repeats * batch * cfg.enc_seq * cfg.num_kv_heads
+    dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    g = torch.Generator(device=bench.device).manual_seed(2)
+    kv = torch.zeros((2, 2 * rows, cfg.hd), dtype=dtype, device=bench.device)
+    kv[0] = torch.randn((2 * rows, cfg.hd), generator=g, device=bench.device)
+    sink = torch.empty_like(kv[0])
+    key = variant_name(pure=True, rows=rows)
+    rec = bench.record(
+        f"kv_shuttle/{key}@whisper_cross",
+        f"rows={rows} width={cfg.hd} {str(dtype)[6:]}",
+        lambda: kv_cache_shuttle(kv),
+        lambda: kv_shuttle_plain(kv, pure=True), "exact",
+        kv_bound(pure=True, rows=rows, width=cfg.hd, esize=kv.element_size()),
+        ("copy_", bench.ms(lambda: sink.copy_(kv[0]))), KV_SOURCE,
+        KV_REPLACES, (key, rows, cfg.hd, str(dtype)[6:]), "serve_kinds")
+    del kv, sink
+    return rec
+
+
+# ------------------------------------------------ mixed traffic under pallas
+
+def mixed_traffic(small=False):
+    """``(prompt lengths, max_new_tokens, requests submitted from on_step
+    at step 2)`` of ``serve_mixed``: 6 requests, two of them late, of four
+    lengths and five allowances, so that no group of the run shards over
+    the 4 data ranks. ``small``: the test size."""
+    if small:
+        return [16, 16, 12, 12, 8, 4], [4, 2, 4, 3, 4, 3], (2, 3)
+    return [512, 512, 384, 384, 256, 128], [32, 8, 32, 16, 32, 24], (2, 3)
+
+
+def padded_decode_record(bench, cfg=None):
+    """moe_dispatch at the padded layout of a decode group of 3 rows on 4
+    ranks (``models/moe.py::_padded_body``: C = ceil(1.25 * 3 / 4) = 1 from
+    all three tokens, each source rank's [C] * 4 dst-major slab, rank 3
+    padding; the second stream over one row a rank), the knobs the engine
+    launches, held within 1e-4 of the plain version and timed beside the
+    same GEMMs' ``torch.matmul`` and the bound. The launches come from
+    ``serve_mixed``: every decode group there of 1 to 3 rows has this
+    kernel shape."""
+    from repro_torch.models.moe import _capacity
+    cfg = cfg or moe_engine_config()
+    n, d, f, rows = 4, cfg.d_model, cfg.moe_d_ff, 3
+    C = _capacity(rows, cfg.experts_per_token, cfg.num_experts,
+                  cfg.capacity_factor)
+    g = torch.Generator(device=bench.device).manual_seed(33)
+    kw = dict(generator=g, device=bench.device, dtype=torch.float32)
+    tok = torch.randn((rows, d), **kw)
+    x = torch.zeros((n, n * C, d), device=bench.device)
+    xs = torch.zeros((n, 1, d), device=bench.device)
+    for r in range(rows):                 # token r on rank r, to expert r+1
+        x[r, (r + 1) % n * C] = tok[r]
+        xs[r, 0] = tok[r]
+    w1 = torch.randn((n, d, 2 * f), **kw) / d ** 0.5
+    w2 = torch.randn((n, f, d), **kw) / f ** 0.5
+    shared = (xs, torch.randn((d, 2 * f), **kw) / d ** 0.5,
+              torch.randn((f, d), **kw) / f ** 0.5)
+    counts = [C] * n
+    rec = moe_record(
+        bench, "llama4_padded_decode", x, w1, w2, counts, shared,
+        dict(tile_fused=True, pipelined=True), min(64, C),
+        moe_bound(n, counts, d, f, f, 1, xs_is_x=False),
+        moe_library(bench, x, w1, w2, counts, shared), "serve_mixed")
+    del x, xs, w1, w2, shared
+    return rec
+
+
+def phase_serve_kernels(device="cuda", iters=5, moe_cfg=None, whisper=None):
+    """The two kernel records of this slice's serving paths:
+    :func:`padded_decode_record` and :func:`whisper_cross_record`."""
+    bench = Bench(device, iters)
+    cfg, shape = whisper or (None, None)
+    return [padded_decode_record(bench, moe_cfg),
+            whisper_cross_record(bench, cfg, shape)]
+
+
+def phase_serve_mixed(device="cuda", cfg=None, traffic=None):
+    """``serve_moe``'s llama4 engine (``moe_engine_config``, weights from
+    seed 0) on ``VirtualMesh(4, axis="data")`` under
+    ``StepOptions(moe_backend="pallas", moe_overlap=True)``, counted: the
+    traffic of :func:`mixed_traffic` through ``serve`` with
+    ``Scheduler(max_batch=8)``, the late requests submitted from
+    ``on_step`` at step 2. ``serve`` groups decode steps by position and
+    prefills by prompt length, so every group here is one that does not
+    shard (1 to 3 rows on 4 ranks: ``_padded_body``). It must hold:
+
+    * every request completes with its own ``max_new_tokens``;
+    * the moe counter reads MoE layers x (decode groups + prefill
+      groups): no group took a host body;
+    * at capacity 4 (no token can drop) the tokens equal an xla engine's
+      ``serve`` of the same traffic; where a request's streams split, the
+      xla pick leads the pallas token by at most one bf16 step in the xla
+      engine's logits, replayed for that request alone (a tie that f32
+      sums in another order tip), as ``serve_moe`` holds it.
+
+    At the config's capacity 1.25 the same comparison is printed, not
+    held. Prints the serve time, decode ms a group, tokens/s and the
+    groups' sizes. Returns the moe launch counter of the counted run."""
+    from repro_torch.dist.mesh import VirtualMesh
+    from repro_torch.dist.sharding import Rules
+    from repro_torch.kernels import moe_dispatch as kern
+    from repro_torch.models import StepOptions, init_params
+    from repro_torch.serve import Engine, Request, Scheduler, ServeConfig
+    cfg = cfg or moe_engine_config()
+    lens, news, late = traffic or mixed_traffic()
+    cuda = torch.device(device).type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(device)) if cuda else (lambda: None)
+    n_moe = sum(cfg.layer_is_moe(i) for i in range(cfg.num_layers))
+    params = init_params(torch.Generator(device=device).manual_seed(0), cfg,
+                         device=device)
+    g = torch.Generator(device=device).manual_seed(11)
+    tokens = torch.randint(0, cfg.vocab_size, (len(lens), max(lens)),
+                           generator=g, device=device)
+    prompts = [tokens[r, :n].tolist() for r, n in enumerate(lens)]
+    rules = Rules(VirtualMesh(4, device=device, axis="data"), "decode")
+    max_seq = max(lens) + max(news) + 1
+
+    def engine(c, backend):
+        return Engine(c, params, ServeConfig(max_seq=max_seq, opts=StepOptions(
+            moe_backend=backend, moe_overlap=True)), rules=rules)
+
+    def run(eng):
+        groups, prefill, decode = [], eng._prefill, eng._decode
+
+        def counted_prefill(batch):
+            groups.append(("prefill", batch["tokens"].shape[0]))
+            return prefill(batch)
+
+        def counted_decode(cache, toks, pos):
+            groups.append(("decode", toks.shape[0]))
+            return decode(cache, toks, pos)
+
+        eng._prefill, eng._decode = counted_prefill, counted_decode
+        sched = Scheduler(token_budget=sum(lens), max_batch=8,
+                          metrics=eng.metrics)
+        for rid, p in enumerate(prompts):
+            if rid not in late:
+                sched.submit(Request(rid, p, max_new_tokens=news[rid]))
+
+        def on_step(step_no, _):
+            if step_no == 2:
+                for rid in late:
+                    sched.submit(Request(rid, prompts[rid],
+                                         max_new_tokens=news[rid]))
+
+        t0 = time.perf_counter()
+        done = eng.serve(sched, on_step=on_step)
+        sync()
+        return done, groups, time.perf_counter() - t0
+
+    eng = engine(cfg, "pallas")
+    kern.reset_launches()
+    done, groups, serve_s = run(eng)
+    counts = dict(kern.LAUNCHES)
+    _contexts_seen("serve_mixed", [kern], {2})
+    c = eng.metrics.snapshot()
+    dec = c["histograms"]["serve.decode_step_ms"]
+    sizes = {k: sorted(collections.Counter(b for kk, b in groups if kk == k)
+                       .items()) for k in ("prefill", "decode")}
+    gen = c["counters"]["serve.tokens_generated"] + len(lens)
+    log(f"serve_mixed {cfg.name} (pallas, capacity {cfg.capacity_factor}): "
+        f"{len(lens)} requests of {lens} prompt tokens, max_new_tokens "
+        f"{news}, {list(late)} submitted at step 2: done "
+        f"{sorted(done)} in {serve_s:.3f} s ({gen / serve_s:.1f} tok/s); "
+        f"decode {dec['mean']:.3f} ms a group over {dec['count']} groups; "
+        f"(batch, groups) prefill {sizes['prefill']}, decode "
+        f"{sizes['decode']}; moe launches {counts}")
+    want = n_moe * len(groups) if cuda else 0
+    if sorted(done) != list(range(len(lens))) or any(
+            len(done[r]) != news[r] for r in done):
+        raise SystemExit("serve_mixed: a request did not complete with its "
+                         "own max_new_tokens")
+    if sum(counts.values()) != want:
+        raise SystemExit(f"serve_mixed launched moe_dispatch "
+                         f"{sum(counts.values())} times, not {n_moe} MoE "
+                         f"layers x {len(groups)} groups = {want}")
+    if all(b % 4 == 0 for _, b in groups):
+        raise SystemExit("serve_mixed: every group sharded; the traffic "
+                         "did not reach the padded layout")
+    del eng
+
+    def first_apart(got, want):
+        """{request: its first token where the two streams differ}."""
+        return {r: int((got[r].cpu() != want[r].cpu()).nonzero()[0, 0])
+                for r in sorted(got)
+                if not torch.equal(got[r].cpu(), want[r].cpu())}
+
+    apart = first_apart(done, run(engine(cfg, "xla"))[0])
+    log(f"serve_mixed at capacity {cfg.capacity_factor} (not held): "
+        f"{len(done) - len(apart)} of {len(done)} requests' tokens equal the "
+        f"xla engine's serve; first apart at (request, token) "
+        f"{sorted(apart.items())}")
+    nodrop = dataclasses.replace(cfg, capacity_factor=4.0)
+    pal, _, _ = run(engine(nodrop, "pallas"))
+    xla_eng = engine(nodrop, "xla")
+    xla, _, _ = run(xla_eng)
+    apart = first_apart(pal, xla)
+    log(f"serve_mixed at capacity 4: every request's tokens equal the xla "
+        f"engine's serve: {not apart}"
+        + (f" (first apart at (request, token) {sorted(apart.items())})"
+           if apart else ""))
+    V = cfg.vocab_size
+    for r, j in sorted(apart.items()):
+        with torch.no_grad():               # request r alone on the xla engine
+            lg, cache = xla_eng._prefill({"tokens": torch.tensor(
+                [prompts[r]], device=device)})
+            pt = pal[r].to(device)
+            for i in range(j):
+                lg, cache = xla_eng._decode(cache, pt[None, i:i + 1].long(),
+                                            lens[r] + i)
+        lg = lg[0, -1, :V].float()
+        pick, ours = lg[int(xla[r][j])], lg[int(pal[r][j])]
+        step = _bf16_step(max(abs(float(pick)), abs(float(ours))))
+        log(f"serve_mixed first split (request {r}, token {j}): the xla "
+            f"pick leads the pallas token by {float(pick - ours):.4f}, one "
+            f"bf16 step at that logit size is {step:.4f}")
+        if float(pick - ours) > step:
+            raise SystemExit(f"serve_mixed: request {r}'s streams split at "
+                             f"token {j} by more than one bf16 step")
+    return counts
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=5,
@@ -2673,6 +3136,7 @@ def main(argv=None):
     records += phase_ga_kernels("cuda", iters=args.iters)
     records += phase_attn_kernels("cuda", iters=args.iters)
     records += phase_moe_model_kernels("cuda", iters=args.iters)
+    records += phase_serve_kernels("cuda", iters=args.iters)
     phase_window("cuda", iters=args.iters)
     counted = {"main": phase_main("cuda")}
     counted["kv_main"] = phase_kv_main("cuda")
@@ -2686,6 +3150,8 @@ def main(argv=None):
     counted["faults"], faulted = phase_faults("cuda", iters=args.iters)
     records += faulted
     phase_serve_degrade("cuda")
+    counted["serve_kinds"] = phase_serve_kinds("cuda")
+    counted["serve_mixed"] = phase_serve_mixed("cuda")
     for path, counts in counted.items():
         log(f"launches on the {path} path: {counts}")
     for rec in records:

@@ -6,9 +6,13 @@ disaggregated prefill/decode handoff (port of ``repro/launch/serve.py``).
         [--no-smoke] [--moe-backend {xla,pallas}] [--moe-overlap] [--ep N] \\
         [--device cuda]
 
-Weights are random, from seed 0. ``--smoke`` (the default, as in the
-reference) serves the architecture's reduced test size; ``--no-smoke`` its
-published widths. A MoE architecture reaches the ``moe_dispatch.cu``
+Every architecture of ``repro_torch.configs`` serves: attention (dense
+and MoE), xLSTM and RecurrentGemma, and whisper, whose encoder reads
+``frames`` (B, enc_seq, d_model) drawn from a seeded generator on the
+device (the reference's conv front end is a stub there too). Weights are
+random, from seed 0. ``--smoke`` (the default, as in the reference) serves
+the architecture's reduced test size; ``--no-smoke`` its published
+widths. A MoE architecture reaches the ``moe_dispatch.cu``
 kernel with ``--ep N`` (a ``VirtualMesh(N)`` data mesh: the batch and the
 experts shard over N ranks of the card) and ``--moe-backend pallas``;
 ``--moe-overlap`` runs the shared expert as the kernel's second stream.
@@ -62,6 +66,10 @@ def main(argv=None):
     rng = np.random.default_rng(0)
     batch = {"tokens": torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (args.batch, args.prompt_len))).to(device)}
+    if cfg.is_encoder_decoder:
+        batch["frames"] = torch.randn(
+            (args.batch, cfg.enc_seq, cfg.d_model), device=device,
+            generator=torch.Generator(device=device).manual_seed(1))
     if cfg.num_patch_tokens:
         batch["patches"] = torch.zeros(
             (args.batch, cfg.num_patch_tokens, cfg.d_model), device=device)

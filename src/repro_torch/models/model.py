@@ -1,6 +1,9 @@
 """Model assembly: init / prefill / decode (port of
-``repro/models/model.py`` for the attention architectures, dense and
-MoE).
+``repro/models/model.py``) for every block kind the reference builds:
+attention (dense and MoE), the recurrent blocks (mLSTM and sLSTM in
+``models/xlstm.py``, RG-LRU in ``models/rglru.py``) and the
+encoder-decoder (whisper: a stack of non-causal encoder blocks over the
+frame embeddings, and cross attention in every decoder block).
 
 Layers are stacked over *repeat units* (the lcm of the block pattern and
 the MoE interleave): every parameter and cache leaf carries the repeat
@@ -15,9 +18,7 @@ reaches the MoE layers, which shard the batch and the experts over the
 mesh's data ranks (``models/moe.py``); every other operator computes the
 same on one device whatever the sharding.
 
-Not ported yet (each raises ``NotImplementedError``): the recurrent block
-kinds (xLSTM, RG-LRU) and the encoder-decoder (whisper) (ROADMAP queue 1,
-item 4); training (``train_loss``, remat).
+Not ported yet: training (``train_loss``, remat).
 """
 from __future__ import annotations
 
@@ -27,13 +28,19 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import RECURRENT_KINDS
-from repro_torch.models.layers import apply_norm, dense_init, norm_init
+from repro_torch.models.layers import (apply_norm, dense_init, mlp_apply,
+                                       mlp_init, norm_init)
 from repro_torch.models.moe import kernel_weights
+from repro_torch.models.rglru import rglru_apply, rglru_init, rglru_init_state
 from repro_torch.models.transformer import (EMPTY, attn_block_apply,
                                             attn_block_init, cache_size)
+from repro_torch.models.xlstm import (mlstm_apply, mlstm_init,
+                                      mlstm_init_state, slstm_apply,
+                                      slstm_init, slstm_init_state)
 
 F32 = torch.float32
 MAX_LEARNED_POS = 32768
+F32_LEAVES = ("router", "lam")   # leaves the reference keeps in float32
 
 
 @dataclass(frozen=True)
@@ -52,18 +59,6 @@ def _dtype(cfg):
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-def _check_supported(cfg):
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder is not ported yet (ROADMAP "
-            "queue 1, item 4)")
-    kinds = [k for k in cfg.block_pattern if k in RECURRENT_KINDS]
-    if kinds:
-        raise NotImplementedError(
-            f"{cfg.name}: recurrent blocks {kinds} are not ported yet "
-            "(ROADMAP queue 1, item 4)")
-
-
 def _stack(trees):
     """Stack a list of same-shaped nested dicts leaf by leaf on a new
     leading axis."""
@@ -80,12 +75,26 @@ def _map(fn, tree):
 
 # =============================================================== param init
 
+def _block_init(gen, cfg, slot, dtype, device):
+    kind = cfg.block_kind(slot)
+    if kind == "mlstm":
+        return mlstm_init(gen, cfg, dtype, device)
+    if kind == "slstm":
+        return slstm_init(gen, cfg, dtype, device)
+    if kind == "rglru":
+        return {"rglru": rglru_init(gen, cfg, dtype, device),
+                "mlp_norm": norm_init(cfg.d_model, cfg.norm, dtype, device),
+                "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.act, dtype,
+                                device)}
+    return attn_block_init(gen, cfg, slot, dtype, device,
+                           cross=cfg.is_encoder_decoder)
+
+
 def init_params(gen, cfg, device="cuda"):
     """Random weights of the reference's shapes and scales, drawn from the
     ``torch.Generator`` ``gen`` on its device and placed on ``device``.
     (The numbers differ from the reference's ``jax.random`` draws; tests
     carry the reference's weights over with :func:`params_from_numpy`.)"""
-    _check_supported(cfg)
     dtype = _dtype(cfg)
     Vp, d = cfg.vocab_padded, cfg.d_model
     params = {"embed": dense_init(gen, Vp, d, dtype, scale=0.02,
@@ -95,12 +104,20 @@ def init_params(gen, cfg, device="cuda"):
                                    device=device)
     R = cfg.num_repeats
     params["blocks"] = {
-        f"s{i}": _stack([attn_block_init(gen, cfg, i, dtype, device)
+        f"s{i}": _stack([_block_init(gen, cfg, i, dtype, device)
                          for _ in range(R)])
         for i in range(cfg.repeat_unit)}
     params["final_norm"] = norm_init(d, cfg.norm, dtype, device)
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, d, Vp, dtype, device=device)
+    if cfg.is_encoder_decoder:
+        params["enc"] = {
+            "pos": dense_init(gen, cfg.enc_seq, d, dtype, scale=0.02,
+                              device=device),
+            "blocks": _stack([attn_block_init(gen, cfg, 10**6, dtype, device)
+                              for _ in range(cfg.enc_layers)]),  # never MoE
+            "final_norm": norm_init(d, cfg.norm, dtype, device),
+        }
     return params
 
 
@@ -109,16 +126,17 @@ def params_from_numpy(tree, cfg, device="cuda"):
     nesting, stacked ``(R, ...)`` leaves), as the port's params on
     ``device``. bf16 leaves arrive as ``ml_dtypes.bfloat16``, which
     ``torch.from_numpy`` refuses: they cross as float32 (bf16 -> f32 ->
-    bf16 is exact). The MoE router stays float32, as the reference keeps
-    it."""
-    _check_supported(cfg)
+    bf16 is exact). The leaves the reference keeps in float32 whatever the
+    config's type (``F32_LEAVES``: the MoE router and RG-LRU's ``lam``)
+    stay float32."""
     dtype = _dtype(cfg)
 
     def convert(node, name=None):
         if isinstance(node, dict):
             return {k: convert(v, k) for k, v in node.items()}
         t = torch.from_numpy(np.array(node, dtype=np.float32))
-        return t.to(device=device, dtype=F32 if name == "router" else dtype)
+        return t.to(device=device,
+                    dtype=F32 if name in F32_LEAVES else dtype)
 
     return convert(tree)
 
@@ -160,26 +178,57 @@ def lm_logits(params, x, cfg):
 # ================================================================== caches
 
 def init_cache(cfg, B, seq_len, dtype=None, device="cuda"):
-    """Decode cache: per repeat slot ``{"k", "v"}`` of (R, B, Sc, Hkv, hd)
-    and ``"kpos"`` (R, Sc), every slot empty."""
-    _check_supported(cfg)
+    """Decode cache, per repeat slot. Attention: ``{"k", "v"}`` of (R, B,
+    Sc, Hkv, hd) and ``"kpos"`` (R, Sc), every slot empty, plus ``"ck"``,
+    ``"cv"`` of (R, B, enc_seq, Hkv, hd) in an encoder-decoder. A recurrent
+    slot holds its block's initial state with R in front."""
     dtype = dtype or _dtype(cfg)
     R, Hkv, hd = cfg.num_repeats, cfg.num_kv_heads, cfg.hd
     out = {}
     for i in range(cfg.repeat_unit):
-        Sc = cache_size(cfg, cfg.block_kind(i), seq_len)
-        out[f"s{i}"] = {
-            "k": torch.zeros((R, B, Sc, Hkv, hd), dtype=dtype, device=device),
-            "v": torch.zeros((R, B, Sc, Hkv, hd), dtype=dtype, device=device),
-            "kpos": torch.full((R, Sc), EMPTY, dtype=torch.int32,
-                               device=device)}
+        kind = cfg.block_kind(i)
+        if kind in RECURRENT_KINDS:
+            st = (mlstm_init_state(cfg, B, device=device) if kind == "mlstm"
+                  else slstm_init_state(cfg, B, device=device)
+                  if kind == "slstm"
+                  else rglru_init_state(cfg, B, dtype, device=device))
+            out[f"s{i}"] = {k: v.expand((R,) + v.shape).clone()
+                            for k, v in st.items()}
+            continue
+        Sc = cache_size(cfg, kind, seq_len)
+        c = {"k": torch.zeros((R, B, Sc, Hkv, hd), dtype=dtype, device=device),
+             "v": torch.zeros((R, B, Sc, Hkv, hd), dtype=dtype, device=device),
+             "kpos": torch.full((R, Sc), EMPTY, dtype=torch.int32,
+                                device=device)}
+        if cfg.is_encoder_decoder:
+            c["ck"] = torch.zeros((R, B, cfg.enc_seq, Hkv, hd), dtype=dtype,
+                                  device=device)
+            c["cv"] = torch.zeros_like(c["ck"])
+        out[f"s{i}"] = c
     return out
 
 
 # ================================================================ forward
 
+def _apply_block(p, x, cfg, slot, rules, positions, *, causal, cache, pos,
+                 enc_out, opts):
+    kind = cfg.block_kind(slot)
+    if kind == "mlstm":
+        return mlstm_apply(p, x, cfg, state=cache, decode=pos is not None)
+    if kind == "slstm":
+        return slstm_apply(p, x, cfg, state=cache, decode=pos is not None)
+    if kind == "rglru":
+        x, st = rglru_apply(p["rglru"], x, cfg, state=cache,
+                            decode=pos is not None)
+        xn = apply_norm(p["mlp_norm"], x, cfg.norm)
+        return x + mlp_apply(p["mlp"], xn, cfg.act), st
+    return attn_block_apply(p, x, cfg, kind, rules, positions, causal=causal,
+                            cache=cache, pos=pos, enc_out=enc_out, opts=opts)
+
+
 def apply_blocks(params_blocks, x, cfg, rules, positions, *, causal=True,
-                 cache=None, pos=None, opts=None, return_cache=False):
+                 cache=None, pos=None, enc_out=None, opts=None,
+                 return_cache=False):
     """Every layer in order: repeat ``r`` applies slot ``s0..s{unit-1}``
     with their ``[r]`` parameters (and cache). Returns ``(x, caches)``,
     caches stacked ``(R, ...)`` like the input (``None`` unless
@@ -194,20 +243,33 @@ def apply_blocks(params_blocks, x, cfg, rules, positions, *, causal=True,
             p = _map(lambda a: a[r], params_blocks[key])
             c = _map(lambda a: a[r], cache[key]) if cache is not None \
                 else None
-            x, new[key] = attn_block_apply(p, x, cfg, cfg.block_kind(i),
-                                           rules, positions, causal=causal,
-                                           cache=c, pos=pos, opts=opts)
+            x, new[key] = _apply_block(p, x, cfg, i, rules, positions,
+                                       causal=causal, cache=c, pos=pos,
+                                       enc_out=enc_out, opts=opts)
         per_r.append(new)
     if not return_cache or per_r[0]["s0"] is None:
         return x, None
     return x, {key: _stack([c[key] for c in per_r]) for key in per_r[0]}
 
 
+def encode(params, frames, cfg, rules=None, opts=None):
+    """Whisper encoder over stub frame embeddings (B, enc_seq, d):
+    non-causal attention blocks, then the encoder's final norm."""
+    x = frames + params["enc"]["pos"][None, :frames.shape[1]].to(frames.dtype)
+    positions = torch.arange(frames.shape[1], device=frames.device)
+    blocks = params["enc"]["blocks"]
+    for layer in range(cfg.enc_layers):
+        x, _ = attn_block_apply(_map(lambda a: a[layer], blocks), x, cfg,
+                                "attn", rules, positions, causal=False,
+                                opts=opts)
+    return apply_norm(params["enc"]["final_norm"], x, cfg.norm)
+
+
 def forward(params, batch, cfg, rules=None, opts=None, return_cache=False,
             cache=None):
-    """Prefill forward. batch: ``{"tokens"[, "patches"]}``. Returns the
+    """Prefill forward. batch: ``{"tokens"[, "patches" | "frames"]}``
+    (``frames`` (B, enc_seq, d) for an encoder-decoder). Returns the
     final-normed hidden states and the filled cache."""
-    _check_supported(cfg)
     opts = opts or StepOptions()
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -217,10 +279,14 @@ def forward(params, batch, cfg, rules=None, opts=None, return_cache=False,
         x = torch.cat([batch["patches"].to(x.dtype), x[:, Pn:]], dim=1)
     if cfg.learned_pos:
         x = x + params["pos"][:S][None].to(x.dtype)
+    enc_out = None
+    if cfg.is_encoder_decoder:
+        enc_out = encode(params, batch["frames"].to(x.dtype), cfg, rules,
+                         opts)
     positions = torch.arange(S, device=tokens.device)
     x, new_cache = apply_blocks(params["blocks"], x, cfg, rules, positions,
-                                causal=True, cache=cache, opts=opts,
-                                return_cache=return_cache)
+                                causal=True, cache=cache, enc_out=enc_out,
+                                opts=opts, return_cache=return_cache)
     return apply_norm(params["final_norm"], x, cfg.norm), new_cache
 
 
@@ -237,7 +303,6 @@ def prefill_step(params, batch, cfg, rules=None, seq_len=None, opts=None):
 def decode_step(params, cache, token, pos, cfg, rules=None, opts=None):
     """One decode step. token: (B, 1) int; pos: int. The cache passed in
     is left unchanged."""
-    _check_supported(cfg)
     pos = int(pos)
     x = embed_lookup(params["embed"], token).to(_dtype(cfg))
     if cfg.learned_pos:

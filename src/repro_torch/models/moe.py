@@ -16,7 +16,9 @@ Execution modes, as in the reference:
   takes :func:`_pallas_body`: dispatch -> expert FFN -> combine as one
   launch of the hand-written Hopper kernel ``csrc/moe_dispatch.cu``
   (``kernels.moe_dispatch.moe_dispatch_combine``), with the shared expert
-  as its second stream under ``overlap``.
+  as its second stream under ``overlap``; a batch that does not shard
+  takes :func:`_padded_body`, one launch of the same kernel on a padded
+  layout that computes what :func:`_gathered_body` computes.
 * ``replicated`` (``ep_mode != "alltoall"``, experts over the model axis)
   is not ported: it raises (ROADMAP queue 1, item 5).
 
@@ -29,11 +31,14 @@ Two divergences from the reference, on purpose:
 
 * The reference quietly takes the XLA bodies when a shape is not eligible
   for its kernel (:func:`pallas_moe_eligible`). With ``backend="pallas"``
-  the port raises ``ValueError`` instead, so the kernel is never silently
-  skipped on the main path. The serving engine extends the rule to its
-  elastic path: ``Engine.degrade`` onto a width the kernel cannot take
-  raises at the degrade, and the caller switches to ``backend="xla"`` in
-  the open.
+  the port never does: a batch that does not shard goes through the
+  kernel's padded layout (the reference's gathered body, computed by the
+  kernel), and every other shape the kernel cannot take (two experts a
+  rank, no data axis, no mesh, tensor parallelism) raises ``ValueError``,
+  so the kernel is never silently skipped on the main path. The serving
+  engine extends the rule to its elastic path: ``Engine.degrade`` onto a
+  width the kernel cannot take raises at the degrade, and the caller
+  switches to ``backend="xla"`` in the open.
 * Every body computes the routed and the shared expert FFNs in float32
   and rounds their outputs to the activation type: the kernel's
   arithmetic (it takes f32 operands). The reference's XLA bodies compute
@@ -145,17 +150,24 @@ def _slots(x2, router, cfg, C, E, e0=None):
     ``e0`` (n,) offsets each rank's expert window (the gathered body:
     rank r holds experts [r*E, (r+1)*E)); without it every rank lays out
     all experts."""
-    n, T, d = x2.shape
     k, E_pad = cfg.experts_per_token, cfg.num_experts_padded
     gates, idx = _route(x2, router, cfg)
     flat_e, pos, keep = _dispatch_indices(idx, E_pad, C)
     local_e = flat_e if e0 is None else flat_e - e0[:, None]
     keep = keep & (local_e >= 0) & (local_e < E)
     slot = torch.where(keep, local_e * C + pos, E * C)          # (n, Tk)
+    return _lay_out(x2, slot, keep, k, E * C), slot, gates, keep
+
+
+def _lay_out(x2, slot, keep, k, EC):
+    """Each rank's kept (token, choice) rows of x2 (n, T, d) at their
+    ``slot`` (n, T*k): the (n, EC, d) capacity buffer, zero where nothing
+    is kept."""
+    n, T, d = x2.shape
     src = x2[:, _tokens(T * k, k, x2.device)] * keep[..., None].to(x2.dtype)
-    buf = torch.zeros((n, E * C + 1, d), dtype=x2.dtype, device=x2.device)
+    buf = torch.zeros((n, EC + 1, d), dtype=x2.dtype, device=x2.device)
     buf.scatter_add_(1, slot[..., None].expand(-1, -1, d), src)
-    return buf[:, :-1], slot, gates, keep
+    return buf[:, :-1]
 
 
 def _combine(y_slots, slot, gates, keep, k, dtype):
@@ -260,12 +272,7 @@ def _pallas_body(x2, p, cfg, *, overlap, quantize, probe=None):
     k, E_pad = cfg.experts_per_token, cfg.num_experts_padded
     C = _capacity(T, k, cfg.num_experts, cfg.capacity_factor)
     buf, slot, gates, keep = _slots(x2, p["router"], cfg, C, E_pad)
-    if "kernel" not in p:
-        raise ValueError(
-            "moe_backend='pallas' needs the kernel's f32 expert operands "
-            "built once: pass params through models.model."
-            "with_kernel_weights (the Engine does so itself)")
-    kw = p["kernel"]
+    kw = _kernel_operands(p)
     shared = None
     if overlap and "shared" in p:
         shared = (x2.to(F32).contiguous(), kw["s1"], kw["s2"])
@@ -282,16 +289,79 @@ def _pallas_body(x2, p, cfg, *, overlap, quantize, probe=None):
     return y
 
 
+def _padded_body(x, p, cfg, n, *, overlap, probe=None):
+    """The kernel for a batch that does not shard (B < n or B % n != 0:
+    requests admitted on other steps, of other lengths, finishing at other
+    times), computing the reference's gathered body for that batch.
+
+    Routing, the capacity ``C = ceil(cf * T * k / E)`` and ``keep`` are
+    taken over all T = B*S tokens in global order, exactly as
+    :func:`_gathered_body` takes them. The batch is padded to whole rows a
+    rank (rank r holds rows [r*Bp/n, (r+1)*Bp/n) of Bp = n*ceil(B/n)); the
+    padding rows are never kept, so they take no capacity. Each source
+    rank lays its kept rows out at their global slot in its own ``[C] *
+    n`` dst-major slab (a source holds at most C of an expert's rows), zero
+    elsewhere: ONE launch of ``moe_dispatch.cu`` with the knobs of
+    :func:`_pallas_body`, then the combine at the global slots. The
+    shared expert runs once per real token, or under ``overlap`` as the
+    kernel's second stream over each rank's rows, padding included. Rows
+    cross the wire in f32 whatever ``moe_quantize`` says: the reference's
+    gathered body has no int8 wire, so quantizing there changes nothing,
+    and here neither."""
+    from repro_torch.kernels.moe_dispatch import moe_dispatch_combine
+    B, S, d = x.shape
+    T, Bp = B * S, -(-B // n) * n
+    Tl = Bp // n * S                            # tokens a rank, padded
+    k, E_pad = cfg.experts_per_token, cfg.num_experts_padded
+    C = _capacity(T, k, cfg.num_experts, cfg.capacity_factor)
+    gates, idx = _route(x.reshape(1, T, d), p["router"], cfg)
+    flat_e, pos, keep = _dispatch_indices(idx, E_pad, C)
+    pad = (Bp - B) * S * k
+    slot = F.pad(torch.where(keep, flat_e * C + pos, E_pad * C), (0, pad),
+                 value=E_pad * C).reshape(n, Tl * k)
+    keep = F.pad(keep, (0, pad), value=False).reshape(n, Tl * k)
+    gates = F.pad(gates.reshape(1, T * k), (0, pad)).reshape(n, Tl * k)
+    x2 = F.pad(x, (0, 0, 0, 0, 0, Bp - B)).reshape(n, Tl, d)
+    buf = _lay_out(x2, slot, keep, k, E_pad * C)
+    kw = _kernel_operands(p)
+    shared = None
+    if overlap and "shared" in p:
+        shared = (x2.to(F32).contiguous(), kw["s1"], kw["s2"])
+    out = moe_dispatch_combine(
+        buf.to(F32).contiguous(), kw["w1"], kw["w2"], counts=[C] * n,
+        block_tokens=min(64, C), tight=True, pipelined=True, barrier=False,
+        tile_fused=True, wire_i8=False, shared=shared, contexts=2,
+        probe=probe)
+    y_slots, ys = out if shared is not None else (out, None)
+    y = _combine(y_slots, slot, gates, keep, k, x.dtype).reshape(Bp, S, d)
+    y = y[:B]
+    if "shared" in p:
+        y = y + (ys.to(x.dtype).reshape(Bp, S, d)[:B] if ys is not None
+                 else _shared_ffn(p, x))
+    return y
+
+
+def _kernel_operands(p):
+    if "kernel" not in p:
+        raise ValueError(
+            "moe_backend='pallas' needs the kernel's f32 expert operands "
+            "built once: pass params through models.model."
+            "with_kernel_weights (the Engine does so itself)")
+    return p["kernel"]
+
+
 def pallas_moe_eligible(cfg, rules, B):
     """Can this (config, sharding, batch) route through the fused dispatch
     kernel? As in the reference: alltoall EP over exactly one data axis,
-    no tensor parallelism, a batch that shards over the data axis, and
-    exactly one expert per rank (``E_pad == dp``, the DeepSeek-V3-style
-    serving deployment)."""
+    no tensor parallelism, and exactly one expert per rank (``E_pad ==
+    dp``, the DeepSeek-V3-style serving deployment). Unlike the
+    reference, any batch of one row or more: one that shards over the
+    data axis runs :func:`_pallas_body`, any other :func:`_padded_body`
+    (where the reference takes its XLA bodies)."""
     if rules is None or rules.mesh is None or cfg.ep_mode != "alltoall":
         return False
     dp = rules.dp_size()
-    if not (dp and B % dp == 0 and B >= dp):
+    if not dp or B < 1:
         return False
     if len(rules.dp_axes) != 1 or rules.tp_axes:
         return False
@@ -330,8 +400,9 @@ def moe_apply(params, x, cfg, rules, *, overlap=False, quantize=False,
     With ``rules`` over a data mesh the batch shards over its ranks (rank r
     takes rows [r*B/dp, (r+1)*B/dp)). ``backend="pallas"`` runs the
     dispatch -> FFN -> combine chain through the Hopper kernel (``probe``,
-    a ``ScheduleProbe``, records its marks) and raises
-    ``ValueError`` where :func:`pallas_moe_eligible` does not hold;
+    a ``ScheduleProbe``, records its marks): :func:`_pallas_body` for a
+    batch that shards, :func:`_padded_body` for any other; it raises
+    ``ValueError`` where :func:`pallas_moe_eligible` does not hold.
     ``backend="xla"`` takes the all-to-all body, or the gathered body for
     a batch that does not shard."""
     if backend not in ("xla", "pallas"):
@@ -342,8 +413,8 @@ def moe_apply(params, x, cfg, rules, *, overlap=False, quantize=False,
             f"moe_backend='pallas': batch {B} under {rules} with "
             f"{cfg.num_experts_padded} experts ({cfg.ep_mode}) is not "
             "eligible for the kernel (it wants alltoall experts over one "
-            "data axis, B a multiple of its ranks and one expert per "
-            "rank); the port does not fall back to another body")
+            "data axis and one expert per rank); the port does not fall "
+            "back to another body")
     if rules is None or rules.mesh is None:
         return _local_moe(x, params, cfg)
     if cfg.ep_mode != "alltoall":
@@ -355,6 +426,9 @@ def moe_apply(params, x, cfg, rules, *, overlap=False, quantize=False,
     mesh = rules.mesh
     dp = rules.dp_size()
     if backend == "pallas":
+        if B % dp:
+            return _padded_body(x, params, cfg, dp, overlap=overlap,
+                                probe=probe)
         y = _pallas_body(x.reshape(dp, B // dp * S, d), params, cfg,
                          overlap=overlap, quantize=quantize, probe=probe)
     elif not rules.dp_axes:             # no data axis: one expert-parallel

@@ -25,14 +25,14 @@ EMPTY = -10**9                   # kpos of a slot that holds no position
 
 
 def attn_block_init(gen, cfg, layer_idx, dtype, device, cross=False):
-    if cross:
-        raise NotImplementedError("encoder-decoder cross attention is not "
-                                  "ported yet (ROADMAP queue 1, item 4)")
     p = {
         "norm": norm_init(cfg.d_model, cfg.norm, dtype, device),
         "attn": attn_init(gen, cfg, dtype, device),
         "mlp_norm": norm_init(cfg.d_model, cfg.norm, dtype, device),
     }
+    if cross:
+        p["cross_norm"] = norm_init(cfg.d_model, cfg.norm, dtype, device)
+        p["cross"] = attn_init(gen, cfg, dtype, device)
     if cfg.layer_is_moe(layer_idx):
         p["moe"] = moe_init(gen, cfg, dtype, device)
     else:
@@ -70,14 +70,43 @@ def _prefill_cache(cache, k, v, positions):
     return {"k": kc, "v": vc, "kpos": kpos}
 
 
+def _cross_attend(p, x, cfg, cache, new_cache, enc_out, fth, kv_block):
+    """Cross attention over the encoder's output: fresh K/V from
+    ``enc_out``, or the cached ``ck``/``cv`` at decode. Every query sits at
+    position 0 against keys at 0..Se-1, non-causal. Returns x and the
+    cache with ``ck``/``cv`` added."""
+    B, S, _ = x.shape
+    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    xn2 = apply_norm(p["cross_norm"], x, cfg.norm)
+    qc = (xn2 @ p["cross"]["q"]).reshape(B, S, H, hd)
+    if enc_out is not None:                          # fresh K/V from encoder
+        Se = enc_out.shape[1]
+        ck = (enc_out @ p["cross"]["k"]).reshape(B, Se, Hkv, hd)
+        cv = (enc_out @ p["cross"]["v"]).reshape(B, Se, Hkv, hd)
+    else:                                            # decode: from cache
+        ck, cv = cache["ck"], cache["cv"]
+    epos = torch.arange(ck.shape[1], device=x.device)
+    qpos = torch.zeros((S,), dtype=torch.long, device=x.device)
+    oc = attention(qc, ck, cv, qpos, epos, "attn", causal=False,
+                   flash_threshold=fth, kv_block=kv_block)
+    x = x + oc.reshape(B, S, H * hd) @ p["cross"]["o"]
+    if new_cache is not None:
+        new_cache["ck"], new_cache["cv"] = ck, cv
+    elif cache is not None:
+        new_cache = {"ck": ck, "cv": cv}
+    return x, new_cache
+
+
 def attn_block_apply(p, x, cfg, kind, rules, positions, *, causal=True,
-                     cache=None, pos=None, opts=None):
-    """Returns (x, new_cache). cache: {"k","v","kpos"} or None (forward).
-    With ``pos`` (a decode step) the cache is updated out of place: the
-    caller's cache is left as it was, as in the reference. ``rules``
-    (``dist.sharding.Rules`` or None) reaches the MoE slot only: every
-    other operator is the same computation on one device whatever the
-    batch's sharding."""
+                     cache=None, pos=None, enc_out=None, opts=None):
+    """Returns (x, new_cache). cache: {"k","v","kpos"[,"ck","cv"]} or None
+    (forward). With ``pos`` (a decode step) the cache is updated out of
+    place: the caller's cache is left as it was, as in the reference. A
+    block with cross attention (encoder-decoder) attends, non-causally, to
+    K/V projected from ``enc_out`` (prefill, forward) or to the cached
+    ``ck``/``cv`` (decode). ``rules`` (``dist.sharding.Rules`` or None)
+    reaches the MoE slot only: every other operator is the same
+    computation on one device whatever the batch's sharding."""
     B, S, d = x.shape
     H, hd = cfg.num_heads, cfg.hd
     xn = apply_norm(p["norm"], x, cfg.norm)
@@ -103,6 +132,9 @@ def attn_block_apply(p, x, cfg, kind, rules, positions, *, causal=True,
         if cache is not None:                        # prefill: fill the cache
             new_cache = _prefill_cache(cache, k, v, positions)
     x = x + o.reshape(B, S, H * hd) @ p["attn"]["o"]
+    if "cross" in p:                                 # encoder-decoder cross attn
+        x, new_cache = _cross_attend(p, x, cfg, cache, new_cache, enc_out,
+                                     fth, kv_block)
     xn3 = apply_norm(p["mlp_norm"], x, cfg.norm)
     if "moe" in p:
         y = moe_apply(p["moe"], xn3, cfg, rules,

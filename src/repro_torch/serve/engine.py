@@ -15,14 +15,22 @@ while a new engine with the same seed replays the stream. ``serve`` draws
 from one generator per request, seeded from ``(seed, rid)``, so a
 request's samples do not depend on which requests share its batch.
 
+Every model kind the reference serves is served here: attention (dense
+and MoE), the recurrent kinds and the encoder-decoder, whose batch carries
+``frames`` through ``prefill``, ``generate`` and ``prefill_remote``.
+``serve`` batches attention caches only: a decode group of two or more
+requests with recurrent state raises, as the reference's does.
+
 Expert parallelism: with ``rules`` (a ``dist.sharding.Rules`` over a
 data ``VirtualMesh``) every step passes them to the model, whose MoE layers
-shard the batch and the experts over the ranks (``models/moe.py``); a
-batch then shards when its size is a multiple of the mesh's data ranks.
+shard the batch and the experts over the ranks (``models/moe.py``).
 Under ``StepOptions(moe_backend="pallas")`` the engine builds the
 kernel's f32 expert operands once (``models.model.with_kernel_weights``),
-and ``serve`` raises for a decode or prefill group that does not shard:
-it serves lock-step traffic only (``Engine._check_shards``).
+and every group ``serve`` steps goes through the kernel: a batch that
+shards over the data ranks through ``_pallas_body``, any other (requests
+admitted on other steps, with other prompt lengths or another
+``max_new_tokens``) through its padded layout (``_padded_body``), which
+computes what the reference's gathered body computes for that batch.
 
 Elastic serving, the serving side of the fault loop: an optional
 :class:`repro_torch.train.fault_tolerance.StragglerWatchdog` (``watchdog=``)
@@ -73,7 +81,8 @@ def _stack_caches(caches):
                 nb[leaf] = block[leaf]
             else:
                 raise NotImplementedError(
-                    f"serve: cannot batch cache leaf {leaf!r}")
+                    f"serve: cannot batch cache leaf {leaf!r} "
+                    "(recurrent state?)")
         out[name] = nb
     return out
 
@@ -257,8 +266,6 @@ class Engine:
             for rid in decode_rids:
                 groups.setdefault(states[rid]["pos"], []).append(rid)
             for pos, rids in sorted(groups.items()):
-                self._check_shards(len(rids),
-                                   f"decode group at position {pos}")
                 toks = torch.cat([states[r]["tok"] for r in rids])
                 cache = _stack_caches([states[r]["cache"] for r in rids])
                 t0 = time.perf_counter()
@@ -278,8 +285,6 @@ class Engine:
                     st["out"].append(int(tok[0]))
 
             for group in self._prefill_groups(admits):
-                self._check_shards(len(group), f"prefill group of prompt "
-                                   f"length {group[0].prompt_len}")
                 batch = {"tokens": torch.tensor([r.prompt for r in group],
                                                 dtype=torch.long,
                                                 device=self.device)}
@@ -308,33 +313,15 @@ class Engine:
             step_no += 1
         return done
 
-    def _check_shards(self, n, what):
-        """Under ``moe_backend="pallas"`` with ``rules``, every batch
-        ``serve`` steps must shard over the data ranks, as the kernel takes
-        no other batch. ``serve`` groups decode steps by position and
-        prefills by prompt length, so only lock-step traffic meets this:
-        requests of one prompt length, admitted together, with one
-        ``max_new_tokens``. Raise before the step, naming why."""
-        dp = self.rules.dp_size() if self.rules is not None else 1
-        if (dp <= 1 or not self.cfg.is_moe
-                or self.scfg.opts.moe_backend != "pallas" or n % dp == 0):
-            return
-        raise ValueError(
-            f"serve under moe_backend='pallas': a {what} holds {n} "
-            f"request(s), not a multiple of the {dp} data ranks, so it is "
-            "not eligible for the kernel. serve groups decode steps by "
-            "position and prefills by prompt length: requests admitted on "
-            "other steps, with other prompt lengths or other "
-            "max_new_tokens fall into groups that do not shard. Send such "
-            "traffic through moe_backend='xla' (ROADMAP queue 1, item 3)")
-
     def _prefill_groups(self, admits):
         """A step's admissions as prefill batches: one request each, as in
         the reference, except under ``rules`` over dp > 1 data ranks, where
         requests of one prompt length go dp at a time, one request a rank,
-        so the batch shards over the data axis (the kernel takes no other
-        batch). Each rank's MoE capacity is then its request's own, as in
-        a prefill of that request alone, so the tokens are the same."""
+        so the batch shards over the data axis. Each rank's MoE capacity
+        is then its request's own, as in a prefill of that request alone,
+        so the tokens are the same. The requests left over go one at a
+        time, as in the reference (under ``moe_backend="pallas"``: through
+        the kernel's padded layout)."""
         dp = self.rules.dp_size() if self.rules is not None else 1
         if dp <= 1:
             return [[r] for r in admits]

@@ -110,9 +110,65 @@ def test_engine_tokens_equal_across_backends(cuda_device):
 
 
 @pytest.mark.gpu
-def test_pallas_raises_for_a_batch_that_does_not_shard(cuda_device):
-    cfg, params, rules = setup(cuda_device)
-    toks = torch.zeros((2, 4), dtype=torch.long, device=cuda_device)
-    with pytest.raises(ValueError, match="not eligible"):
-        forward(params, {"tokens": toks}, cfg, rules,
-                StepOptions(moe_backend="pallas"))
+@pytest.mark.parametrize("overlap", [False, True])
+@pytest.mark.parametrize("cf", [1.25, 16.0])
+@pytest.mark.parametrize("B,S", [(3, 1), (1, 1), (2, 16), (5, 3), (1, 40)])
+def test_padded_batch_kernel_matches_gathered_body(cuda_device, B, S, cf,
+                                                   overlap):
+    """A batch that does not shard over the 4 ranks (decode groups of 1
+    and 3 rows, prefills of 1, 2 and 5 requests): one launch of the
+    kernel on the padded layout against ``_gathered_body`` (the
+    reference's body for that batch) on the same card, at capacity 1.25
+    (tokens dropped by the global capacity) and 16."""
+    cfg, params, rules = setup(cuda_device, cf)
+    p = with_kernel_weights(params, cfg)["blocks"]["s1"]["moe"]
+    p = {k: (v[0] if torch.is_tensor(v) else {n: t[0] for n, t in v.items()})
+         for k, v in p.items()}
+    g = torch.Generator(device=cuda_device).manual_seed(B * 100 + S)
+    x = torch.randn((B, S, cfg.d_model), generator=g, device=cuda_device)
+    before = kern.launches()
+    got = tmoe.moe_apply(p, x, cfg, rules, backend="pallas", overlap=overlap)
+    torch.cuda.synchronize()
+    assert kern.launches() == before + 1
+    want = tmoe._gathered_body(x.reshape(B * S, -1), p, cfg,
+                               rules.mesh).reshape(x.shape)
+    assert torch.isfinite(got).all()
+    assert rel_err(got.cpu(), want.cpu()) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_engine_serves_mixed_traffic_through_the_kernel(cuda_device):
+    """Requests of other lengths, admitted on other steps, finishing at
+    other times: every group (most of them do not shard) launches the
+    kernel once a MoE layer, and the tokens equal the host body's."""
+    from repro_torch.serve import Request, Scheduler
+    cfg, params, rules = setup(cuda_device, 16.0)
+    n_moe = sum(cfg.layer_is_moe(i) for i in range(cfg.num_layers))
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (6, 12), device=cuda_device,
+                         generator=g).tolist()
+    lens, news = [12, 12, 9, 9, 7, 5], [6, 2, 6, 4, 6, 5]
+    out = {}
+    for backend in ("xla", "pallas"):
+        eng = Engine(cfg, params, ServeConfig(max_seq=24, opts=StepOptions(
+            moe_backend=backend, moe_overlap=True)), rules=rules)
+        sched = Scheduler(token_budget=64, max_batch=8, metrics=eng.metrics)
+        for rid in (0, 1, 4, 5):
+            sched.submit(Request(rid, toks[rid][:lens[rid]], news[rid]))
+
+        def late(step, _):
+            if step == 1:
+                for rid in (2, 3):
+                    sched.submit(Request(rid, toks[rid][:lens[rid]],
+                                         news[rid]))
+
+        before = kern.launches()
+        out[backend] = eng.serve(sched, on_step=late)
+        torch.cuda.synchronize()
+        launched = kern.launches() - before
+        c = eng.metrics.snapshot()["counters"]
+    groups = c["serve.decode_steps"] + c["serve.prefills"]  # prefills of 1
+    assert launched == n_moe * groups
+    assert all(len(out["pallas"][r]) == news[r] for r in range(6))
+    assert all(torch.equal(out["pallas"][r], out["xla"][r])
+               for r in range(6))

@@ -8,7 +8,9 @@ dropped: the sharded bodies size capacity from each rank's tokens) and at
 4 JAX host devices (``Rules`` over a 4-rank ``data`` mesh), and writes its
 weights and outputs; the port takes the weights through
 ``params_from_numpy`` and runs on a ``VirtualMesh(4)`` data mesh, where
-``moe_backend="pallas"`` computes the kernel's plain version.
+``moe_backend="pallas"`` computes the kernel's plain version: through
+``_pallas_body`` for a batch that shards over the 4 ranks, through
+``_padded_body`` for any other (the reference's gathered body there).
 
 Tolerances, max-abs-normalised: 1e-4 in float32 (the same arithmetic in
 another library, summed in another order). Greedy tokens are held at
@@ -36,12 +38,13 @@ from repro_torch.models import (StepOptions, forward, init_params,
 from repro_torch.models import moe as tmoe
 from repro_torch.models.model import lm_logits, with_kernel_weights
 from repro_torch.serve import Engine, Request, Scheduler, ServeConfig
-from torch_port_helpers import rel_err, run_jax_devices
+from torch_port_helpers import first_repeat, rel_err, run_jax_devices
 
 ARCH = "llama4-maverick-400b-a17b"
 OVER = dict(num_experts=4, experts_per_token=1, pad_to=2, dtype="float32")
 CAPS = (1.25, 16.0)
 B, S, NEW = 8, 12, 4
+PADDED = (2, 3, 5)             # batches that do not shard over 4 ranks
 
 REFERENCE = """
 import sys
@@ -52,7 +55,9 @@ from repro.configs import get_arch, reduced
 from repro.dist.sharding import Rules
 from repro.models import forward, init_params
 from repro.models.model import lm_logits
-toks = jnp.asarray(np.load(sys.argv[1])["tokens"])
+from repro.models.moe import moe_apply
+inputs = np.load(sys.argv[1])
+toks, xs = jnp.asarray(inputs["tokens"]), jnp.asarray(inputs["x"])
 rules = Rules(make_mesh((4,), ("data",)), "decode")
 out = {}
 
@@ -68,6 +73,9 @@ for cf in (1.25, 16.0):
     out[f"sharded_{cf}"] = np.asarray(fwd(cfg, rules)(params, toks))
     out[f"local_{cf}"] = np.asarray(fwd(cfg, None)(params, toks))
     out[f"gathered_{cf}"] = np.asarray(fwd(cfg, rules)(params, toks[:2]))
+    moe = jax.tree.map(lambda a: a[0], params["blocks"]["s1"]["moe"])
+    for b in %s:               # batches that do not shard: the gathered body
+        out[f"moe_{cf}_{b}"] = np.asarray(moe_apply(moe, xs[:b], cfg, rules))
 for path, leaf in jax.tree_util.tree_flatten_with_path(params)[0]:
     out["param/" + "/".join(p.key for p in path)] = np.asarray(leaf)
 f, seq = fwd(cfg, rules), toks
@@ -76,13 +84,15 @@ for _ in range(%d):            # no-cache greedy loop over forward, cf 16
     seq = jnp.concatenate([seq, nxt[:, None].astype(seq.dtype)], 1)
 out["greedy"] = np.asarray(seq[:, toks.shape[1]:])
 np.savez(sys.argv[2], **out)
-""" % NEW
+""" % (PADDED, NEW)
 
 
 @pytest.fixture(scope="module")
 def ref(tmp_path_factory):
-    toks = np.random.default_rng(0).integers(0, 256, (B, S)).astype(np.int32)
-    out = run_jax_devices(REFERENCE, {"tokens": toks},
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, 256, (B, S)).astype(np.int32)
+    x = rng.standard_normal((max(PADDED), 3, 64)).astype(np.float32)
+    out = run_jax_devices(REFERENCE, {"tokens": toks, "x": x},
                           str(tmp_path_factory.mktemp("moe_ref")))
     tree = {}
     for key, v in out.items():
@@ -92,6 +102,7 @@ def ref(tmp_path_factory):
                 node = node.setdefault(p, {})
             node[parts[-1]] = v
     out["tree"], out["tokens"] = tree, torch.from_numpy(toks).long()
+    out["x"] = torch.from_numpy(x)
     return out
 
 
@@ -153,17 +164,21 @@ def test_greedy_generate_equals_reference_forward_loop(ref, backend):
 
 def test_pallas_raises_where_the_kernel_cannot_run(ref):
     """``backend="pallas"`` never takes another body: a batch that does not
-    shard, two experts a rank, and a mesh with no data axis raise, and so
-    do weights whose kernel operands were not built once beforehand; the
-    replicated expert-parallel mode is not ported and raises."""
+    shard runs the kernel's padded layout and gives the reference's
+    gathered answer; two experts a rank and a mesh with no data axis
+    raise, and so do weights whose kernel operands were not built once
+    beforehand; the replicated expert-parallel mode is not ported and
+    raises."""
     cfg = config()
     params = params_from_numpy(ref["tree"], cfg, device="cpu")
     pallas = StepOptions(moe_backend="pallas")
     toks = ref["tokens"]
     with pytest.raises(ValueError, match="with_kernel_weights"):
         forward(params, {"tokens": toks}, cfg, data_rules(), pallas)
-    with pytest.raises(ValueError, match="not eligible"):
-        logits(params, toks[:2], cfg, data_rules(), pallas)
+    with pytest.raises(ValueError, match="with_kernel_weights"):
+        forward(params, {"tokens": toks[:2]}, cfg, data_rules(), pallas)
+    assert rel_err(logits(params, toks[:2], cfg, data_rules(), pallas),
+                   ref["gathered_1.25"]) <= 1e-4
     with pytest.raises(ValueError, match="not eligible"):
         logits(params, toks, cfg, data_rules(2), pallas)
     no_data = Rules(VirtualMesh(4, device="cpu"), "decode")
@@ -203,7 +218,8 @@ def test_serve_prefills_a_rank_a_request_and_matches_generate(ref):
     """Under rules, ``serve`` prefills same-length admissions dp at a time
     (the batch shards, as the kernel needs), and its tokens equal
     ``generate``'s for the same prompts at the config's capacity; a
-    leftover single prefill of 1 < dp requests raises under pallas."""
+    leftover single prefill of 1 < dp requests is served under pallas
+    through the padded layout, with the xla engine's tokens."""
     cfg = config()
     params = params_from_numpy(ref["tree"], cfg, device="cpu")
     opts = StepOptions(moe_backend="pallas", moe_overlap=True)
@@ -223,44 +239,124 @@ def test_serve_prefills_a_rank_a_request_and_matches_generate(ref):
                                                     [4, 5, 6, 7], [8]]
     one = Scheduler(token_budget=S, max_batch=4)
     one.submit(Request(0, prompts[0].tolist(), max_new_tokens=2))
-    with pytest.raises(ValueError, match="not eligible"):
-        eng.serve(one)
+    xla = Engine(cfg, params, ServeConfig(max_seq=S + NEW + 1),
+                 rules=data_rules())
+    assert torch.equal(eng.serve(one)[0],
+                       xla.generate({"tokens": prompts[:1]}, 2)[0])
 
 
-@pytest.mark.parametrize("traffic", ["staggered", "early_finish"])
-def test_serve_under_pallas_takes_lock_step_traffic_only(ref, traffic):
-    """``serve`` groups decode steps by position and prefills by prompt
-    length, so under pallas a group that does not shard over the 4 ranks
-    raises before its step, and says why: two requests that arrive a step
-    later (a prefill group of 2), or one request that stops early (a
-    decode group of 3). The xla backend serves the same traffic."""
+@pytest.mark.parametrize("overlap,quantize", [(False, False), (True, False),
+                                              (False, True)])
+@pytest.mark.parametrize("b", PADDED)
+@pytest.mark.parametrize("cf", CAPS)
+def test_padded_body_equals_reference_gathered_body(ref, cf, b, overlap,
+                                                    quantize, monkeypatch):
+    """A batch of 2, 3 or 5 rows on 4 ranks under ``backend="pallas"``:
+    one call of the kernel (its plain version) on the padded layout, no
+    host body, equal to the reference's ``moe_apply`` (its gathered body:
+    capacity and keep over all tokens) at capacity 1.25 (tokens dropped)
+    and 16. The int8 wire does not apply there, in the reference's
+    gathered body or here."""
+    cfg = config(cf)
+    params = with_kernel_weights(params_from_numpy(ref["tree"], cfg,
+                                                   device="cpu"), cfg)
+    rec = _count_kernel_calls(monkeypatch)
+    got = tmoe.moe_apply(first_repeat(params["blocks"]["s1"]["moe"]),
+                         ref["x"][:b], cfg, data_rules(), backend="pallas",
+                         overlap=overlap, quantize=quantize)
+    assert rec == {"kernel": 1, "bodies": [("_padded_body", b)]}
+    assert rel_err(got, ref[f"moe_{cf}_{b}"]) <= 1e-5
+
+
+def _count_kernel_calls(monkeypatch):
+    """Count ``moe_dispatch_combine`` calls, record which kernel body each
+    MoE call took (with its input's leading size: the batch for
+    ``_padded_body``, the ranks for ``_pallas_body``), and make the host
+    bodies raise."""
+    from repro_torch.kernels import moe_dispatch as kern
+    rec = {"kernel": 0, "bodies": []}
+    real = kern.moe_dispatch_combine
+
+    def count(*a, **kw):
+        rec["kernel"] += 1
+        return real(*a, **kw)
+
+    def host(*a, **kw):
+        raise AssertionError("a host body ran under moe_backend='pallas'")
+
+    monkeypatch.setattr(kern, "moe_dispatch_combine", count)
+    for name in ("_pallas_body", "_padded_body"):
+        def tracked(x, *a, _body=getattr(tmoe, name), _name=name, **kw):
+            rec["bodies"].append((_name, x.shape[0]))
+            return _body(x, *a, **kw)
+        monkeypatch.setattr(tmoe, name, tracked)
+    for name in ("_alltoall_body", "_gathered_body", "_local_moe"):
+        monkeypatch.setattr(tmoe, name, host)
+    return rec
+
+
+@pytest.mark.parametrize("traffic", ["staggered", "early_finish",
+                                     "mixed_lengths"])
+def test_serve_under_pallas_takes_lock_step_traffic_only(ref, traffic,
+                                                         monkeypatch):
+    """Traffic that is not lock-step, under pallas: ``serve`` groups
+    decode steps by position and prefills by prompt length, so two
+    requests that arrive a step later (prefills of 1, a decode group of
+    2), one request that stops early (a decode group of 3) or prompts of
+    other lengths make groups that do not shard over the 4 ranks. Each
+    such group runs the kernel's padded layout (its plain version here):
+    one kernel call a MoE layer a group, no host body. Every request
+    completes with its own ``max_new_tokens``, and the tokens equal the
+    xla backend's (capacity 16)."""
     cfg = config(16.0)
     params = params_from_numpy(ref["tree"], cfg, device="cpu")
     prompts = [t.tolist() for t in ref["tokens"]]
+    lens = {"mixed_lengths": [12, 9, 12, 5, 9, 12]}.get(traffic, [S] * 6)
+    news = {"early_finish": [2, NEW, NEW, NEW],
+            "mixed_lengths": [NEW, 2, 3, NEW, NEW, 1]}.get(traffic,
+                                                         [NEW] * 6)
+    rids = range(6 if traffic != "early_finish" else 4)
+    n_moe = sum(cfg.layer_is_moe(i) for i in range(cfg.num_layers))
 
     def run(backend):
         eng = Engine(cfg, params, ServeConfig(
-            max_seq=S + NEW + 1, opts=StepOptions(moe_backend=backend)),
+            max_seq=S + NEW + 1, opts=StepOptions(moe_backend=backend,
+                                                  moe_overlap=True)),
             rules=data_rules())
+        groups, prefill, decode = [], eng._prefill, eng._decode
+
+        def counted_prefill(batch):
+            groups.append(batch["tokens"].shape[0])
+            return prefill(batch)
+
+        def counted_decode(cache, toks, pos):
+            groups.append(toks.shape[0])
+            return decode(cache, toks, pos)
+
+        eng._prefill, eng._decode = counted_prefill, counted_decode
         sched = Scheduler(token_budget=8 * S, max_batch=8)
-        for rid in range(4):
-            sched.submit(Request(rid, prompts[rid], max_new_tokens=(
-                2 if traffic == "early_finish" and rid == 0 else NEW)))
+        for rid in rids:
+            if traffic != "staggered" or rid < 4:
+                sched.submit(Request(rid, prompts[rid][:lens[rid]],
+                                     max_new_tokens=news[rid]))
 
         def late(step, _):
             if traffic == "staggered" and step == 0:
                 for rid in (4, 5):
                     sched.submit(Request(rid, prompts[rid], NEW))
-        return eng.serve(sched, on_step=late)
+        return eng.serve(sched, on_step=late), groups
 
-    what = "prefill group" if traffic == "staggered" else "decode group"
-    with pytest.raises(ValueError, match=rf"(?s){what}.*not eligible.*"
-                       "groups decode steps by position"):
-        run("pallas")
-    done = run("xla")
-    assert sorted(done) == list(range(6 if traffic == "staggered" else 4))
-    assert [len(done[r]) for r in sorted(done)][:2] == (
-        [2, NEW] if traffic == "early_finish" else [NEW, NEW])
+    want, _ = run("xla")
+    rec = _count_kernel_calls(monkeypatch)
+    done, groups = run("pallas")
+    assert sorted(done) == sorted(want) == list(rids)
+    assert all(len(done[r]) == news[r] for r in rids)
+    assert all(torch.equal(done[r], want[r]) for r in rids)
+    assert rec["kernel"] == n_moe * len(groups)
+    assert rec["bodies"] == [("_padded_body", b) if b % 4
+                             else ("_pallas_body", 4)
+                             for b in groups for _ in range(n_moe)]
+    assert any(b % 4 for b in groups)         # some group did not shard
 
 
 def test_kernel_weights_built_once_per_engine(ref):
@@ -386,3 +482,27 @@ def test_rules_answer_as_the_reference_does(axis):
         assert all(t.axes(n) == j.axes(n) for n in j.table)
     x = torch.zeros(2, 3)
     assert t.shard(x, "batch", None) is x
+
+
+def test_chip_smoke_serve_mixed_on_the_cpu():
+    """The smoke's serve_mixed phase at the reduced size on the CPU (the
+    kernel's plain version, so no launch is counted), and the two records
+    of this slice's shapes: the padded decode group (C = 1 from 3 rows on
+    4 ranks) and whisper's cross handoff."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+    import chip_smoke
+    assert chip_smoke.phase_serve_mixed(
+        "cpu", chip_smoke.moe_engine_config(small=True),
+        chip_smoke.mixed_traffic(small=True)) == {}
+    lens, news, late = chip_smoke.mixed_traffic()
+    assert (lens, news, late) == ([512, 512, 384, 384, 256, 128],
+                                  [32, 8, 32, 16, 32, 24], (2, 3))
+    assert [lens[r] for r in late] == [384, 384]
+    recs = chip_smoke.phase_serve_kernels(
+        "cpu", iters=1, moe_cfg=chip_smoke.moe_engine_config(small=True),
+        whisper=chip_smoke.kind_configs(small=True)[2])
+    assert [(r["_path"], r["_key"][1:]) for r in recs] == [
+        ("serve_mixed", (4, 4, 64, 64)), ("serve_kinds", (64, 16, "bfloat16"))]
+    assert all(r["max_abs_err"] == 0.0 for r in recs)   # the plain version

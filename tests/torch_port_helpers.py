@@ -11,6 +11,13 @@ def rel_err(got, want):
     return float(np.max(np.abs(got - want)) / (np.max(np.abs(want)) + 1e-9))
 
 
+def first_repeat(tree):
+    """A stacked ``(R, ...)`` parameter tree's first repeat: one layer's
+    weights, with the tree's nesting."""
+    return {k: first_repeat(v) if isinstance(v, dict) else v[0]
+            for k, v in tree.items()}
+
+
 def numpy_inputs(n, T, d, f, fs=0, seed=0):
     """x (n, T, d), w1 (n, d, 2f), w2 (n, f, d) and, with ``fs``, the
     shared expert's s1 (d, 2fs), s2 (fs, d): float32, from ``seed``."""
