@@ -164,6 +164,17 @@ sizes; every run runs all of them, and any failure exits non-zero):
     capacity 4 the tokens equal an xla engine's ``serve`` up to a
     one-bf16-step tie, at 1.25 the agreement is printed.
 
+24. ``serve_tp`` — granite-moe-3b-a800m at full width and depth, bf16,
+    8 x 512 prompts, 32 new, on a ``("data", "model")`` mesh of (1, 4)
+    (the replicated expert body: experts over the model axis, partials
+    summed) against no mesh (bf16 and float32), its handoff through
+    ``kv_shuttle.cu`` (counted), and on a data-only (4,) mesh; llama4's
+    engine on a (4, 2) mesh (ff-sharded all-to-all and gathered bodies)
+    against (4,), and ``moe_backend="pallas"`` raising there. Each
+    number beside the card's name and power limit. Its kernel shape,
+    kv_shuttle's pure handoff of granite's cache, is held and timed with
+    the kernel phases (``phase_tp_kernels``).
+
 ``--iters`` sets the timed launches per kernel (1 for a quick check after
 a kernel change). The line before the last is the ``kernels`` JSON
 record (each row's ``contexts`` the send window it was timed at; launches
@@ -172,7 +183,8 @@ kv GEMM records from ``kv_main``, the pure records from ``serve``,
 gemm_allgather from ``ga_main``, flash and ring from ``ring_main``, the
 moe records at the llama4 shapes from ``serve_moe``, the n = 3 records
 from ``faults``, the padded decode record from ``serve_mixed``, whisper's
-cross handoff from ``serve_kinds``); the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
+cross handoff from ``serve_kinds``, granite's handoff from
+``serve_tp``); the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 outside a checkout, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -2020,61 +2032,15 @@ def phase_serve_moe(device="cuda", cfg=None, shape=None):
         + (f" (first apart at (row, step) {split[0].tolist()})"
            if len(split) else ""))
 
-    V = cfg.vocab_size                # the padded vocab's logits are -1e30
-
-    def forced(e):
-        """Every step's logits of engine ``e`` over the real vocab, on the
-        pallas engine's token stream (B, new, V)."""
-        with torch.no_grad():
-            lg, cache = e._prefill(b)
-            out = [lg[..., :V]]
-            for i in range(new - 1):
-                lg, cache = e._decode(cache, toks[:, i:i + 1], prompt + i)
-                out.append(lg[..., :V])
-        return torch.cat(out, 1)
-
-    lp = forced(eng)
-    if not torch.equal(lp.argmax(-1).to(toks.dtype), toks):
-        raise SystemExit("serve_moe: the pallas engine does not replay its "
-                         "own greedy tokens")
-    lx = forced(xla)
+    lp = _forced_logits(eng, b, toks, prompt)
+    lx = _forced_logits(xla, b, toks, prompt)
     del xla
-    step_err = ((lx - lp).abs().amax(dim=(0, 2))
-                / lp.abs().amax(dim=(0, 2)).clamp_min(1e-9))
-    apart = lx.argmax(-1).to(toks.dtype) != toks
-    # where the xla engine picks another token: how far its pick leads the
-    # pallas token in its own logits, against the two engines' difference
-    lead = (lx.amax(-1) - lx.gather(-1, toks[..., None].long())[..., 0])
-    diff = (lx - lp).abs().amax(-1)
-    worst = int(step_err.argmax())
+    step_err = _hold_streams("serve_moe pallas vs xla", toks, lp, xla_toks,
+                             lx)
     log(f"serve_moe pallas vs xla on the pallas token stream: logits within "
         f"rel err {float(step_err.max()):.3e} of each other at every step "
-        f"(worst step {worst}; tol {LOGIT_TOL:.0e}); greedy choices apart "
-        f"at {int(apart.sum())} of {toks.numel()} (row, step) points, where "
-        f"the xla pick leads the pallas token by at most "
-        f"{float(lead[apart].max()) if apart.any() else 0.0:.4f} against a "
-        f"logit difference of "
-        f"{float(diff[apart].max()) if apart.any() else 0.0:.4f} there "
-        f"(largest logit {float(lp.abs().max()):.3f})")
-    if float(step_err.max()) > LOGIT_TOL or not torch.isfinite(lp).all():
-        raise SystemExit(f"serve_moe: pallas and xla logits disagree at "
-                         f"step {worst}: rel err {float(step_err.max()):.3e}")
-    first = int(split[:, 1].min()) if len(split) else new - 1
-    if not torch.equal(lx[:, :first + 1].argmax(-1).to(toks.dtype),
-                       xla_toks[:, :first + 1]):
-        raise SystemExit("serve_moe: up to the free-running streams' first "
-                         "split the xla engine does not replay its tokens")
-    for r in (xla_toks[:, first] != toks[:, first]).nonzero()[:, 0].tolist():
-        pick, ours = lx[r, first, xla_toks[r, first]], lx[r, first,
-                                                         toks[r, first]]
-        step = _bf16_step(max(abs(float(pick)), abs(float(ours))))
-        log(f"serve_moe first split (row {r}, step {first}): the xla pick "
-            f"leads the pallas token by {float(pick - ours):.4f}, one bf16 "
-            f"step at that logit size is {step:.4f}")
-        if float(pick - ours) > step:
-            raise SystemExit(f"serve_moe: the greedy streams split at (row "
-                             f"{r}, step {first}) where the xla pick leads "
-                             f"by more than one bf16 step: not a tie")
+        f"(worst step {int(step_err.argmax())}; tol {LOGIT_TOL:.0e}; "
+        f"largest logit {float(lp.abs().max()):.3f})")
     del lp, lx
     readings = {}
     for cap in (cfg.capacity_factor, 4.0):
@@ -2882,35 +2848,42 @@ def _f32_decode_check(cfg, b, first, prompt, device):
         f"vs forward over {prompt + 1} tokens, {_reading(rel, F32_LOGIT_TOL)}")
 
 
-def whisper_cross_record(bench, cfg=None, shape=None):
-    """kv_shuttle's pure handoff of whisper's cross cache ``[ck; cv]`` at
-    the engine's shape (32 x B x 1500 x 20 rows of 64, bf16, the knobs
-    ``prefill_remote`` passes: chained, contexts 2), held bit for bit
-    against the plain version and timed beside one ``Tensor.copy_``; the
-    launches come from ``serve_kinds``."""
+def handoff_record(bench, label, rows, width, dtype, path):
+    """kv_shuttle's pure handoff of one stacked ``[K; V]`` cache block,
+    ``rows`` rows of ``width`` a half (the knobs ``prefill_remote``
+    passes: chained, contexts 2), held bit for bit against the plain
+    version and timed beside one ``Tensor.copy_``; the launches come from
+    ``path``."""
     from repro_torch.kernels.kv_shuttle import (kv_cache_shuttle,
                                                 kv_shuttle_plain,
                                                 variant_name)
-    if cfg is None:
-        cfg, shape = kind_configs()[2]
-    batch = shape[0]
-    rows = cfg.num_repeats * batch * cfg.enc_seq * cfg.num_kv_heads
-    dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
     g = torch.Generator(device=bench.device).manual_seed(2)
-    kv = torch.zeros((2, 2 * rows, cfg.hd), dtype=dtype, device=bench.device)
-    kv[0] = torch.randn((2 * rows, cfg.hd), generator=g, device=bench.device)
+    kv = torch.zeros((2, 2 * rows, width), dtype=dtype, device=bench.device)
+    kv[0] = torch.randn((2 * rows, width), generator=g, device=bench.device)
     sink = torch.empty_like(kv[0])
     key = variant_name(pure=True, rows=rows)
     rec = bench.record(
-        f"kv_shuttle/{key}@whisper_cross",
-        f"rows={rows} width={cfg.hd} {str(dtype)[6:]}",
+        f"kv_shuttle/{key}@{label}",
+        f"rows={rows} width={width} {str(dtype)[6:]}",
         lambda: kv_cache_shuttle(kv),
         lambda: kv_shuttle_plain(kv, pure=True), "exact",
-        kv_bound(pure=True, rows=rows, width=cfg.hd, esize=kv.element_size()),
+        kv_bound(pure=True, rows=rows, width=width, esize=kv.element_size()),
         ("copy_", bench.ms(lambda: sink.copy_(kv[0]))), KV_SOURCE,
-        KV_REPLACES, (key, rows, cfg.hd, str(dtype)[6:]), "serve_kinds")
+        KV_REPLACES, (key, rows, width, str(dtype)[6:]), path)
     del kv, sink
     return rec
+
+
+def whisper_cross_record(bench, cfg=None, shape=None):
+    """:func:`handoff_record` of whisper's cross cache ``[ck; cv]`` at the
+    engine's shape (32 x B x 1500 x 20 rows of 64, bf16); the launches
+    come from ``serve_kinds``."""
+    if cfg is None:
+        cfg, shape = kind_configs()[2]
+    rows = cfg.num_repeats * shape[0] * cfg.enc_seq * cfg.num_kv_heads
+    dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    return handoff_record(bench, "whisper_cross", rows, cfg.hd, dtype,
+                          "serve_kinds")
 
 
 # ------------------------------------------------ mixed traffic under pallas
@@ -3116,6 +3089,401 @@ def phase_serve_mixed(device="cuda", cfg=None, traffic=None):
     return counts
 
 
+# ------------------------------------------ tensor-parallel MoE serving
+
+
+def tp_engine_config(small=False):
+    """The model ``serve_tp`` serves: granite-moe-3b-a800m at its published
+    widths and depth (32 layers, d_model 1536, 24 heads with 8 KV heads,
+    40 experts padded to 48, top-8, expert d_ff 512, vocab 49155,
+    capacity 1.5, replicated expert parallelism, bf16; 3.3 B parameters
+    with the padded experts), nothing cut; ``small``: the reduced test
+    size at 2 layers."""
+    from repro_torch.configs import get_arch, reduced
+    cfg = get_arch("granite-moe-3b-a800m")
+    return reduced(cfg, num_layers=2) if small else cfg
+
+
+def tp_serve_shape(small=False):
+    """(batch, prompt tokens, new tokens) of ``serve_tp``'s granite
+    engines; llama4's engines take the batch and the prompt with
+    ``TP_LLAMA4_NEW`` new tokens."""
+    return (8, 16, 2) if small else (8, 512, 32)
+
+
+TP_LLAMA4_NEW = 16
+# every bf16 step of granite's (1, 4) engine against the no-mesh engine,
+# max-abs-normalised: the model's own bf16 error on these weights (the
+# no-mesh engine in bf16 against itself in float32) at its worst step on
+# an H100; the mesh engine reads 5.853e-2 there. The first decode step is
+# held at LOGIT_TOL
+TP_BF16_TOL = 6.789e-2
+
+
+def card_label(device, _seen={}):
+    """The card's name and power limit as ``nvidia-smi`` gives them (each
+    number a phase reads on the card is printed beside it); off the card,
+    the device's type."""
+    if torch.device(device).type != "cuda":
+        return str(torch.device(device).type)
+    if "smi" not in _seen:
+        _seen["smi"] = "; ".join(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60, check=True).stdout.strip().splitlines())
+    return _seen["smi"]
+
+
+def _forced_logits(eng, batch, toks, prompt, routes=None):
+    """Every step's logits of engine ``eng`` over the real vocab on the
+    token stream ``toks`` (B, new): (B, new, V). ``routes``, a list, gets
+    each step's routings (``models.moe.record_routes``), a list a step."""
+    from repro_torch.models.moe import record_routes
+    V = eng.cfg.vocab_size
+
+    def step(fn, *args):
+        if routes is None:
+            return fn(*args)
+        with record_routes() as r:
+            out = fn(*args)
+        routes.append(r)
+        return out
+
+    with torch.no_grad():
+        lg, cache = step(eng._prefill, batch)
+        out = [lg[..., :V].float()]
+        for i in range(toks.shape[1] - 1):
+            lg, cache = step(eng._decode, cache, toks[:, i:i + 1], prompt + i)
+            out.append(lg[..., :V].float())
+    return torch.cat(out, 1)
+
+
+def _route_splits(ra, rb, k):
+    """Where two engines' routings of one token stream differ
+    (``_forced_logits``' ``routes``), rank 0's rows (every token where
+    there is one data rank): a list a step of ``(MoE layer, token row,
+    margin a, margin b)``, a margin the router's k-th largest logit less
+    its (k+1)-th for that token in that engine (how near a tie the
+    choice of the k-th expert was)."""
+    out = []
+    for sa, sb in zip(ra, rb):
+        apart = []
+        for layer, ((la, ia), (lb, ib)) in enumerate(zip(sa, sb)):
+            la, lb, ia, ib = (t.reshape(-1, *t.shape[-2:])[0]
+                              for t in (la, lb, ia, ib))
+            rows = (ia.sort(-1).values != ib.sort(-1).values).any(
+                -1).nonzero()[:, 0]
+            if len(rows):
+                ma, mb = ((v[:, k - 1] - v[:, k]).tolist() for v in (
+                    lg[rows].topk(k + 1, dim=-1).values for lg in (la, lb)))
+                apart += zip([layer] * len(rows), rows.tolist(), ma, mb)
+        out.append(apart)
+    return out
+
+
+def _step_err(got, want):
+    """Per step: max |got - want| over the batch and the vocab, over
+    max |want| (max-abs-normalised)."""
+    return ((got - want).abs().amax(dim=(0, 2))
+            / want.abs().amax(dim=(0, 2)).clamp_min(1e-9))
+
+
+def _first_split(toks, other, lx):
+    """Where two free-running greedy streams ``toks`` and ``other`` first
+    part: ``(step, [(row, lead, bf16 step)])``, ``lead`` how far the
+    second engine's pick leads the first's token in ``lx`` (the second
+    engine's logits on the first's stream) and the gap between bf16
+    values at that logit size; ``(None, [])`` where they never part."""
+    split = (toks != other).nonzero()
+    if not len(split):
+        return None, []
+    first = int(split[:, 1].min())
+    rows = []
+    for r in (other[:, first] != toks[:, first]).nonzero()[:, 0].tolist():
+        pick, ours = lx[r, first, other[r, first]], lx[r, first,
+                                                       toks[r, first]]
+        rows.append((r, float(pick - ours),
+                     _bf16_step(max(abs(float(pick)), abs(float(ours))))))
+    return first, rows
+
+
+def _hold_streams(label, toks, lp, other, lx, tol=LOGIT_TOL):
+    """Two engines' greedy streams: ``toks`` and ``lp`` the first
+    engine's free-running tokens and its logits on them, ``other`` the
+    second's free-running tokens and ``lx`` its logits on the first's
+    stream. Held: the first replays its tokens; the logits agree within
+    ``tol`` (max-abs-normalised) at every step; the second replays its
+    own tokens up to the first split, and there its pick leads the
+    first's token by at most one bf16 step (a tie that a rounding tips).
+    Returns the per-step errors."""
+    if not torch.equal(lp.argmax(-1).to(toks.dtype), toks):
+        raise SystemExit(f"{label}: the engine does not replay its own "
+                         "greedy tokens")
+    step_err = _step_err(lx, lp)
+    if not (float(step_err.max()) <= tol and torch.isfinite(lp).all()
+            and torch.isfinite(lx).all()):
+        raise SystemExit(f"{label}: logits disagree at step "
+                         f"{int(step_err.argmax())}: rel err "
+                         f"{float(step_err.max()):.3e} (tol {tol:.0e})")
+    first, rows = _first_split(toks, other, lx)
+    upto = toks.shape[1] if first is None else first + 1
+    if not torch.equal(lx[:, :upto].argmax(-1).to(toks.dtype),
+                       other[:, :upto]):
+        raise SystemExit(f"{label}: up to the first split the second engine "
+                         "does not replay its tokens")
+    for r, lead, step in rows:
+        log(f"{label} first split (row {r}, step {first}): the pick leads "
+            f"by {lead:.4f}, one bf16 step at that logit size is "
+            f"{step:.4f}")
+        if lead > step:
+            raise SystemExit(f"{label}: the greedy streams split at (row {r}"
+                             f", step {first}) by more than one bf16 step")
+    return step_err
+
+
+def phase_tp_kernels(device="cuda", iters=5, small=False):
+    """The kernel record of ``serve_tp``'s path: :func:`handoff_record` of
+    granite's cache at the (1, 4) engine's shape (32 x 8 x 545 x 8 rows of
+    64 a half, bf16); the launches come from ``serve_tp``."""
+    cfg = tp_engine_config(small)
+    batch, prompt, new = tp_serve_shape(small)
+    rows = cache_rows(cfg, batch, prompt + new + 1)
+    return [handoff_record(Bench(device, iters), "granite_handoff", rows,
+                           cfg.hd, torch.bfloat16, "serve_tp")]
+
+
+def phase_serve_tp(device="cuda", small=False):
+    """Tensor-parallel MoE through the engine on two-axis meshes, in bf16
+    (``small``: the reduced sizes of the CPU test), counted:
+
+    * granite-moe-3b-a800m (``tp_engine_config``; weights from seed 0) on
+      ``make_mesh((1, 4), ("data", "model"))``: the replicated expert body,
+      12 experts a rank, the partials summed over the model axis. 8
+      prompts of 512 tokens, ``generate`` 32 new (after a warm-up on an
+      engine of its own); the engine replays its own tokens, in bf16 and
+      in float32 (the same weights). Against the same weights with no mesh
+      (``_local_moe``; with one data rank the capacity rule is the same),
+      on the mesh engine's token stream, held: in bf16 the first decode
+      step's logits within 5e-2 (max-abs-normalised) and every step's
+      within ``TP_BF16_TOL``; in float32 every step whose routings agree
+      (``models.moe.record_routes``: the two engines take the same top-8
+      set for every token of the step in every layer) within 1e-3, and
+      the free-running tokens equal up to a first split that is a
+      one-bf16-step tie. Printed, not held: in each dtype every step's
+      error and, at each step whose routings differ, the tokens of the
+      earliest such layer with the router's 8th-against-9th logit margin
+      in each engine (an f32 sum in another order tips a near tie, and
+      the token then takes another expert); the model's own bf16 error
+      (the no-mesh engine against itself in float32); the bf16 tokens'
+      first split. ``prefill_remote`` on the mesh engine hands the cache
+      through ``kv_shuttle.cu``, bit for bit against the direct handoff,
+      and decodes generate's tokens from it.
+    * the same on ``make_mesh((4,), ("data",))``: every rank runs every
+      expert over its own 2 prompts, so capacity is sized per rank and
+      other tokens may drop; its first split from the (1, 4) engine is
+      printed, not held.
+    * ``serve_moe``'s llama4-maverick engine (``moe_engine_config``) under
+      ``moe_backend="xla"`` on ``make_mesh((4, 2), ("data", "model"))``:
+      the ff-sharded all-to-all body at batch 8 and the gathered body at
+      batch 2, each held against the same engine on the data-only (4,)
+      mesh (the same capacity rule) as above, ``TP_LLAMA4_NEW`` new
+      tokens; the same mesh under ``moe_backend="pallas"`` must raise
+      ``ValueError``.
+
+    Every printed number stands beside the card's name and power limit.
+    Returns the kv_shuttle launch counter of the handoff."""
+    from repro_torch.dist.mesh import VirtualMesh
+    from repro_torch.dist.sharding import Rules, tree_map
+    from repro_torch.kernels import kv_shuttle as kvk
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import StepOptions, init_params
+    from repro_torch.serve import Engine, ServeConfig
+    cfg = tp_engine_config(small)
+    batch, prompt, new = tp_serve_shape(small)
+    cuda = torch.device(device).type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(device)) if cuda else (lambda: None)
+    card = card_label(device)
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator(device=device).manual_seed(0), cfg,
+                         device=device)
+    g = torch.Generator(device=device).manual_seed(13)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=g,
+                           device=device)
+    b = {"tokens": tokens}
+    sync()
+    log(f"serve_tp {cfg.name}: {cfg.num_layers} layers, "
+        f"{cfg.num_experts} experts padded to {cfg.num_experts_padded} "
+        f"top-{cfg.experts_per_token} ({cfg.ep_mode}, capacity "
+        f"{cfg.capacity_factor}) d={cfg.d_model} heads "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} expert d_ff {cfg.moe_d_ff} "
+        f"vocab {cfg.vocab_size} {cfg.dtype}; {cfg.param_count() / 1e9:.2f} "
+        f"B parameters from seed 0 in {time.perf_counter() - t0:.1f} s "
+        f"[{card}]")
+    tp = Rules(make_mesh((1, 4), ("data", "model"), device=device), "decode")
+    dp = Rules(make_mesh((4,), ("data",), device=device), "decode")
+
+    def engine(c, p, rules, n_new, backend="xla"):
+        return Engine(c, p, ServeConfig(
+            max_seq=prompt + n_new + 1,
+            opts=StepOptions(moe_backend=backend)), rules=rules)
+
+    def timed_generate(eng, what, n_new, label):
+        t0 = time.perf_counter()
+        toks = eng.generate(what, n_new)
+        sync()
+        gen_s = time.perf_counter() - t0
+        h = eng.metrics.snapshot()["histograms"]
+        pre, dec = h["serve.prefill_ms"]["mean"], h["serve.decode_step_ms"][
+            "mean"]
+        B = what["tokens"].shape[0]
+        log(f"serve_tp generate {label}: {B} x {prompt} prompt tokens -> "
+            f"{n_new} new in {gen_s:.3f} s; prefill {pre:.3f} ms "
+            f"({B * prompt / pre * 1e3:.0f} prompt tok/s), decode {dec:.3f} "
+            f"ms/step ({B / dec * 1e3:.0f} tok/s) [{card}]")
+        return toks
+
+    engine(cfg, params, tp, new).generate(b, 2)       # warm-up
+    eng = engine(cfg, params, tp, new)
+    toks = timed_generate(eng, b, new, "granite (1, 4) data x model")
+    local = engine(cfg, params, None, new)
+    ltoks = timed_generate(local, b, new, "granite, no mesh")
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = tree_map(lambda t: t.float() if t.is_floating_point() else t,
+                   params)
+    first = min(1, new - 1)                       # the first decode step
+    read = {}
+    for dt, c, p, t, other, e in (("bf16", cfg, params, toks, ltoks, eng),
+                                  ("float32", c32, p32, None, None, None)):
+        if e is None:                             # the same in float32
+            e = engine(c, p, tp, new)
+            t, other = e.generate(b, new), engine(c, p, None, new).generate(
+                b, new)
+        ra, rb = [], []                           # each step's routings
+        lp = _forced_logits(e, b, t, prompt, ra)
+        if not torch.equal(lp.argmax(-1).to(t.dtype), t):
+            raise SystemExit(f"serve_tp: the {dt} (1, 4) engine does not "
+                             "replay its own greedy tokens")
+        lx = _forced_logits(engine(c, p, None, new), b, t, prompt, rb)
+        err = _step_err(lx, lp).tolist()
+        apart = _route_splits(ra, rb, cfg.experts_per_token)
+        del ra, rb
+        at, rows = _first_split(t, other, lx)
+        read[dt] = (err, lx, rows, apart)
+        log(f"serve_tp granite {dt} (1, 4) vs no mesh on the (1, 4) token "
+            f"stream: first decode step rel err {err[first]:.3e}, every step "
+            f"within {max(err):.3e} (worst step {err.index(max(err))}); "
+            f"free-running tokens equal: {at is None}"
+            + ("" if at is None else f"; first apart at step {at}: "
+               + ", ".join(f"row {r} the no-mesh pick leads by {lead:.4f} "
+                           f"(one bf16 step {step:.4f})"
+                           for r, lead, step in rows)))
+        log(f"serve_tp granite {dt}, step by step: rel err "
+            + " ".join(f"{v:.3e}" for v in err) + "; (MoE layer, token) "
+            f"routings apart {[len(a) for a in apart]}")
+        for i, a in enumerate(apart):
+            if a:                                 # the earliest layer's
+                log(f"serve_tp granite {dt} routings apart at step {i} "
+                    f"(rel err {err[i]:.3e}), first at MoE layer {a[0][0]}: "
+                    + ", ".join(f"token row {row}, the router's "
+                                f"{cfg.experts_per_token}th-against-"
+                                f"{cfg.experts_per_token + 1}th logit margin"
+                                f" {ma:.3e} on (1, 4), {mb:.3e} with no mesh"
+                                for layer, row, ma, mb in a[:4]
+                                if layer == a[0][0]))
+    # the model's own bf16 error: the no-mesh engine in bf16 against it in
+    # float32, on the bf16 (1, 4) engine's token stream
+    floor = _step_err(read["bf16"][1], _forced_logits(
+        engine(c32, p32, None, new), b, toks, prompt))
+    log(f"serve_tp granite bf16 floor (the no-mesh engine against itself in "
+        f"float32; not held): {float(floor[first]):.3e} at the first decode "
+        f"step, {float(floor.max()):.3e} at worst")
+    err = read["bf16"][0]
+    if not (err[first] <= LOGIT_TOL and max(err) <= TP_BF16_TOL):
+        raise SystemExit(f"serve_tp: the (1, 4) engine's bf16 logits are "
+                         f"{err[first]:.3e} from the no-mesh engine's at the "
+                         f"first decode step (tol {LOGIT_TOL:.0e}), "
+                         f"{max(err):.3e} at worst (tol {TP_BF16_TOL:.3e})")
+    err32, _, rows32, apart = read["float32"]
+    same = [i for i, a in enumerate(apart) if not a]
+    log(f"serve_tp granite float32: the {len(same)} steps whose routings "
+        f"agree within {max((err32[i] for i in same), default=0.0):.3e} "
+        f"(tol {F32_LOGIT_TOL:.0e})")
+    if not all(err32[i] <= F32_LOGIT_TOL for i in same):
+        raise SystemExit(f"serve_tp: in float32 the (1, 4) engine's logits "
+                         f"part from the no-mesh engine's at a step whose "
+                         f"routings agree: steps {same}, rel err "
+                         f"{[err32[i] for i in same]} (tol "
+                         f"{F32_LOGIT_TOL:.0e})")
+    if any(lead > step for _, lead, step in rows32):
+        raise SystemExit("serve_tp: in float32 the (1, 4) and no-mesh greedy "
+                         "streams split by more than one bf16 step")
+    del local, p32, read
+    dtoks = timed_generate(engine(cfg, params, dp, new), b, new,
+                           "granite (4,) data")
+    split = (dtoks != toks).nonzero()
+    log(f"serve_tp granite (4,) vs (1, 4) (capacity sized per data rank; "
+        f"not held): tokens equal: {not len(split)}"
+        + (f" (first apart at (row, step) {split[0].tolist()})"
+           if len(split) else ""))
+    kvk.reset_launches()
+    direct = eng.prefill_remote(b)
+    t0 = time.perf_counter()
+    h = eng.prefill_remote(b, shuttle_mesh=VirtualMesh(2, device=device))
+    sync()
+    hand_ms = (time.perf_counter() - t0) * 1e3
+    counts = dict(kvk.LAUNCHES)
+    same = all(torch.equal(h["cache"][blk][leaf], direct["cache"][blk][leaf])
+               for blk in direct["cache"] for leaf in direct["cache"][blk])
+    out = eng.decode_from_handoff(h, new)
+    equal = torch.equal(out, toks)
+    rows = h["cache"]["s0"]["k"].numel() // cfg.hd
+    log(f"serve_tp granite (1, 4) handoff through kv_shuttle: prefill + "
+        f"shuttle {hand_ms:.3f} ms, {rows} rows x {cfg.hd} a half; cache "
+        f"bit-equal to the direct handoff: {same}; decode tokens equal "
+        f"generate's: {equal}; kv launches {counts} [{card}]")
+    if not (same and equal):
+        raise SystemExit("serve_tp: the shuttled handoff differs from the "
+                         "direct one")
+    if cuda and not sum(counts.values()):
+        raise SystemExit("serve_tp: the handoff did not launch kv_shuttle")
+    del eng, h, direct, params
+
+    lcfg = moe_engine_config(small)
+    lparams = init_params(torch.Generator(device=device).manual_seed(0),
+                          lcfg, device=device)
+    ltok = torch.randint(0, lcfg.vocab_size, (batch, prompt), generator=g,
+                         device=device)
+    mesh8 = Rules(make_mesh((4, 2), ("data", "model"), device=device),
+                  "decode")
+    n_new = min(new, TP_LLAMA4_NEW)
+    for B, body in ((batch, "all-to-all"), (2, "gathered")):
+        lb = {"tokens": ltok[:B]}
+        e8 = engine(lcfg, lparams, mesh8, n_new)
+        e4 = engine(lcfg, lparams, dp, n_new)
+        t8 = timed_generate(e8, lb, n_new,
+                            f"llama4 (4, 2) data x model, {body} body")
+        t4 = timed_generate(e4, lb, n_new, f"llama4 (4,) data, {body} body")
+        err = _hold_streams(f"serve_tp llama4 {body} (4, 2) vs (4,)", t8,
+                            _forced_logits(e8, lb, t8, prompt), t4,
+                            _forced_logits(e4, lb, t8, prompt))
+        split = (t8 != t4).nonzero()
+        log(f"serve_tp llama4 {body} body, batch {B}: (4, 2) vs (4,) logits "
+            f"within {float(err.max()):.3e} at every step (tol "
+            f"{LOGIT_TOL:.0e}); free-running tokens equal: {not len(split)}"
+            + (f" (first apart at (row, step) {split[0].tolist()})"
+               if len(split) else ""))
+    try:
+        engine(lcfg, lparams, mesh8, 2, "pallas").generate(
+            {"tokens": ltok}, 2)
+    except ValueError as e:
+        log(f"serve_tp llama4 (4, 2) under moe_backend='pallas' raises "
+            f"ValueError: {str(e)[:96]}...")
+    else:
+        raise SystemExit("serve_tp: moe_backend='pallas' on a model-axis "
+                         "mesh did not raise")
+    return counts
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=5,
@@ -3137,6 +3505,7 @@ def main(argv=None):
     records += phase_attn_kernels("cuda", iters=args.iters)
     records += phase_moe_model_kernels("cuda", iters=args.iters)
     records += phase_serve_kernels("cuda", iters=args.iters)
+    records += phase_tp_kernels("cuda", iters=args.iters)
     phase_window("cuda", iters=args.iters)
     counted = {"main": phase_main("cuda")}
     counted["kv_main"] = phase_kv_main("cuda")
@@ -3152,6 +3521,7 @@ def main(argv=None):
     phase_serve_degrade("cuda")
     counted["serve_kinds"] = phase_serve_kinds("cuda")
     counted["serve_mixed"] = phase_serve_mixed("cuda")
+    counted["serve_tp"] = phase_serve_tp("cuda")
     for path, counts in counted.items():
         log(f"launches on the {path} path: {counts}")
     for rec in records:

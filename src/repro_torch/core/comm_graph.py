@@ -118,7 +118,8 @@ class _Tracer(TorchFunctionMode):
     def append(self, ev):             # the mesh recorder's sink
         idx = len(self.order)
         prim = ev.kind.replace("-", "_")
-        node = CommNode(index=idx, prim=prim, kind=ev.kind, axes=(ev.axis,),
+        axes = ev.axis if isinstance(ev.axis, tuple) else (ev.axis,)
+        node = CommNode(index=idx, prim=prim, kind=ev.kind, axes=axes,
                         operands=[(ev.shape, ev.dtype, ev.payload_bytes)])
         node.producers = sorted(self._consume([ev.operand], prim))
         self.nodes.append(node)

@@ -15,28 +15,34 @@ for leaf.
 
 ``rules`` (a ``dist.sharding.Rules`` over a ``VirtualMesh``, or None)
 reaches the MoE layers, which shard the batch and the experts over the
-mesh's data ranks (``models/moe.py``); every other operator computes the
-same on one device whatever the sharding.
+mesh's ranks (``models/moe.py``); every other operator computes the
+same on one device whatever the sharding. :func:`param_specs` and
+:func:`cache_specs` give the reference's specs (``dist.sharding.P``) of
+the parameters and the decode cache under ``rules``.
 
 Not ported yet: training (``train_loss``, remat).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import RECURRENT_KINDS
+from repro_torch.dist.sharding import P, tree_map
 from repro_torch.models.layers import (apply_norm, dense_init, mlp_apply,
                                        mlp_init, norm_init)
-from repro_torch.models.moe import kernel_weights
-from repro_torch.models.rglru import rglru_apply, rglru_init, rglru_init_state
+from repro_torch.models.moe import kernel_weights, moe_param_specs
+from repro_torch.models.rglru import (rglru_apply, rglru_init,
+                                      rglru_init_state, rglru_state_shape)
 from repro_torch.models.transformer import (EMPTY, attn_block_apply,
                                             attn_block_init, cache_size)
 from repro_torch.models.xlstm import (mlstm_apply, mlstm_init,
-                                      mlstm_init_state, slstm_apply,
-                                      slstm_init, slstm_init_state)
+                                      mlstm_init_state, mlstm_state_shape,
+                                      slstm_apply, slstm_init,
+                                      slstm_init_state, slstm_state_shape)
 
 F32 = torch.float32
 MAX_LEARNED_POS = 32768
@@ -65,12 +71,6 @@ def _stack(trees):
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
     return torch.stack(trees)
-
-
-def _map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    return fn(tree)
 
 
 # =============================================================== param init
@@ -141,6 +141,91 @@ def params_from_numpy(tree, cfg, device="cuda"):
     return convert(tree)
 
 
+# =============================================================== param specs
+
+def _norm_spec(cfg):
+    return {"w": P(None)} if cfg.norm == "rmsnorm" else {"w": P(None),
+                                                         "b": P(None)}
+
+
+def _attn_specs(cfg, rules, cross):
+    sp = {
+        "norm": _norm_spec(cfg),
+        "attn": {"q": P(None, rules.axes("heads")),
+                 "k": P(None, rules.axes("kv_heads")),
+                 "v": P(None, rules.axes("kv_heads")),
+                 "o": P(rules.axes("heads"), None)},
+        "mlp_norm": _norm_spec(cfg),
+    }
+    if cross:
+        sp["cross_norm"] = sp["norm"]
+        sp["cross"] = sp["attn"]
+    return sp
+
+
+def _mlp_specs(cfg, rules):
+    ff = rules.axes("ff")
+    if cfg.act == "swiglu":
+        return {"gate": P(None, ff), "up": P(None, ff), "down": P(ff, None)}
+    return {"up": P(None, ff), "down": P(ff, None)}
+
+
+def _block_specs(cfg, slot, rules):
+    kind = cfg.block_kind(slot)
+    ff = rules.axes("ff")
+    if kind == "mlstm":
+        return {"norm": _norm_spec(cfg), "up": P(None, ff), "q": P(None, ff),
+                "k": P(None, ff), "v": P(None, ff), "wi": P(None, None),
+                "wf": P(None, None), "bf": P(None), "bi": P(None),
+                "hnorm": {"w": P(None)}, "down": P(ff, None)}
+    if kind == "slstm":
+        return {"norm": _norm_spec(cfg), "w": P(None, ff),
+                "r": P(None, None, None), "b": P(None),
+                "ffn_norm": _norm_spec(cfg), "ff_gate": P(None, ff),
+                "ff_up": P(None, ff), "ff_down": P(ff, None)}
+    if kind == "rglru":
+        return {"rglru": {"norm": _norm_spec(cfg), "in_a": P(None, ff),
+                          "in_b": P(None, ff), "conv_w": P(None, ff),
+                          "conv_b": P(ff), "wr": P(None, ff),
+                          "wi": P(None, ff), "lam": P(ff),
+                          "out": P(ff, None)},
+                "mlp_norm": _norm_spec(cfg),
+                "mlp": _mlp_specs(cfg, rules)}
+    sp = _attn_specs(cfg, rules, cfg.is_encoder_decoder)
+    if cfg.layer_is_moe(slot):
+        sp["moe"] = moe_param_specs(cfg, rules)
+    else:
+        sp["mlp"] = _mlp_specs(cfg, rules)
+    return sp
+
+
+def _prepend(spec, extra=None):
+    """Add the leading stacking dim (repeats) to every leaf spec."""
+    return tree_map(lambda s: P(extra, *s), spec)
+
+
+def param_specs(cfg, rules):
+    """Tree of specs matching ``init_params(cfg)``, as the reference's
+    (not checked for divisibility: ``dist.sharding.sanitize_specs``)."""
+    vocab = rules.axes("vocab")
+    specs = {"embed": P(vocab, None)}
+    if cfg.learned_pos:
+        specs["pos"] = P(None, None)
+    specs["blocks"] = {f"s{i}": _prepend(_block_specs(cfg, i, rules))
+                       for i in range(cfg.repeat_unit)}
+    specs["final_norm"] = _norm_spec(cfg)
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = P(None, vocab)
+    if cfg.is_encoder_decoder:
+        specs["enc"] = {
+            "pos": P(None, None),
+            "blocks": _prepend(_attn_specs(cfg, rules, cross=False)
+                               | {"mlp": _mlp_specs(cfg, rules)}),
+            "final_norm": _norm_spec(cfg),
+        }
+    return specs
+
+
 def with_kernel_weights(params, cfg):
     """``params`` with each MoE layer's f32 kernel operands built once
     (``moe.kernel_weights`` under ``["moe"]["kernel"]``, stacked like the
@@ -208,6 +293,49 @@ def init_cache(cfg, B, seq_len, dtype=None, device="cuda"):
     return out
 
 
+class ShapeDtype(NamedTuple):
+    """A leaf's shape and type (the reference's ``jax.ShapeDtypeStruct``)."""
+    shape: tuple
+    dtype: torch.dtype
+
+
+def cache_specs(cfg, B, seq_len, rules):
+    """The decode cache's leaves as :class:`ShapeDtype` records, and their
+    specs (divisibility-checked ``rules.param_spec``), in
+    :func:`init_cache`'s structure."""
+    dtype = _dtype(cfg)
+    R, Hkv, hd = cfg.num_repeats, cfg.num_kv_heads, cfg.hd
+    shapes, specs = {}, {}
+    for i in range(cfg.repeat_unit):
+        kind = cfg.block_kind(i)
+        if kind in RECURRENT_KINDS:
+            sh = (mlstm_state_shape(cfg, B) if kind == "mlstm" else
+                  slstm_state_shape(cfg, B) if kind == "slstm" else
+                  rglru_state_shape(cfg, B))
+            shapes[f"s{i}"] = {k: ShapeDtype(
+                (R,) + v, dtype if (kind == "rglru" and k == "conv") else F32)
+                for k, v in sh.items()}
+            specs[f"s{i}"] = {k: rules.param_spec((R,) + v, None, "batch",
+                                                  *([None] * (len(v) - 1)))
+                              for k, v in sh.items()}
+            continue
+        Sc = cache_size(cfg, kind, seq_len)
+        kv_shape = (R, B, Sc, Hkv, hd)
+        shapes[f"s{i}"] = {"k": ShapeDtype(kv_shape, dtype),
+                           "v": ShapeDtype(kv_shape, dtype),
+                           "kpos": ShapeDtype((R, Sc), torch.int32)}
+        kv_spec = rules.param_spec(kv_shape, None, "batch", "seq_kv", None,
+                                   None)
+        specs[f"s{i}"] = {"k": kv_spec, "v": kv_spec, "kpos": P(None, None)}
+        if cfg.is_encoder_decoder:
+            csh = (R, B, cfg.enc_seq, Hkv, hd)
+            cs = rules.param_spec(csh, None, "batch", None, None, None)
+            for leaf in ("ck", "cv"):
+                shapes[f"s{i}"][leaf] = ShapeDtype(csh, dtype)
+                specs[f"s{i}"][leaf] = cs
+    return shapes, specs
+
+
 # ================================================================ forward
 
 def _apply_block(p, x, cfg, slot, rules, positions, *, causal, cache, pos,
@@ -240,8 +368,8 @@ def apply_blocks(params_blocks, x, cfg, rules, positions, *, causal=True,
         new = {}
         for i in range(unit):
             key = f"s{i}"
-            p = _map(lambda a: a[r], params_blocks[key])
-            c = _map(lambda a: a[r], cache[key]) if cache is not None \
+            p = tree_map(lambda a: a[r], params_blocks[key])
+            c = tree_map(lambda a: a[r], cache[key]) if cache is not None \
                 else None
             x, new[key] = _apply_block(p, x, cfg, i, rules, positions,
                                        causal=causal, cache=c, pos=pos,
@@ -259,8 +387,8 @@ def encode(params, frames, cfg, rules=None, opts=None):
     positions = torch.arange(frames.shape[1], device=frames.device)
     blocks = params["enc"]["blocks"]
     for layer in range(cfg.enc_layers):
-        x, _ = attn_block_apply(_map(lambda a: a[layer], blocks), x, cfg,
-                                "attn", rules, positions, causal=False,
+        x, _ = attn_block_apply(tree_map(lambda a: a[layer], blocks), x,
+                                cfg, "attn", rules, positions, causal=False,
                                 opts=opts)
     return apply_norm(params["enc"]["final_norm"], x, cfg.norm)
 

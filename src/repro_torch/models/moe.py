@@ -5,22 +5,32 @@ Execution modes, as in the reference:
 
 * ``local`` (``rules=None``): full experts on one device; also the oracle
   of the sharded bodies where no token is dropped.
-* ``alltoall`` (a :class:`~repro_torch.dist.sharding.Rules` over a data
-  mesh): the batch and the experts shard over the ranks of a
-  :class:`~repro_torch.dist.mesh.VirtualMesh`. Every body runs per rank on
-  the stacked ``(n, ...)`` layout. ``backend="xla"`` takes
-  :func:`_alltoall_body` (dispatch and combine through
-  ``VirtualMesh.all_to_all``, with the self/remote split of ``overlap``
-  and the int8 wire of ``quantize``), or :func:`_gathered_body` for a
-  batch that does not shard (B < dp or B % dp != 0). ``backend="pallas"``
+* ``alltoall`` (a :class:`~repro_torch.dist.sharding.Rules` over a
+  :class:`~repro_torch.dist.mesh.VirtualMesh` with a data axis): the
+  batch and the experts shard over the data ranks, and each expert's
+  ``wg``/``wu``/``wd`` over the model axis where there is one (ff tensor
+  parallelism: the partial outputs, and the shared expert's, are summed
+  over it where the reference sums them). Every body runs per rank on the
+  stacked ``(n, ...)`` layout and cuts each rank's weight shard by
+  :func:`moe_param_specs` (``dist.sharding.local_shards``).
+  ``backend="xla"`` takes :func:`_alltoall_body` (dispatch and combine
+  through ``VirtualMesh.all_to_all`` over the data axes, with the
+  self/remote split of ``overlap`` and the int8 wire of ``quantize``), or
+  :func:`_gathered_body` for a batch that does not shard (B < dp or B %
+  dp != 0). ``backend="pallas"``
   takes :func:`_pallas_body`: dispatch -> expert FFN -> combine as one
   launch of the hand-written Hopper kernel ``csrc/moe_dispatch.cu``
   (``kernels.moe_dispatch.moe_dispatch_combine``), with the shared expert
   as its second stream under ``overlap``; a batch that does not shard
   takes :func:`_padded_body`, one launch of the same kernel on a padded
   layout that computes what :func:`_gathered_body` computes.
-* ``replicated`` (``ep_mode != "alltoall"``, experts over the model axis)
-  is not ported: it raises (ROADMAP queue 1, item 5).
+* ``replicated`` (``ep_mode != "alltoall"``, granite-moe's):
+  :func:`_replicated_body`. The batch shards over the data axes; the
+  experts shard over the model axis, each rank dispatches its own
+  tokens to its own experts only, and the partial outputs (the shared
+  expert's ff-sharded partial among them) are summed over the model
+  axis. With no model axis every rank runs every expert over its own
+  tokens and nothing is summed.
 
 Capacity-based static shapes throughout (GShard-style token dropping):
 the sharded bodies size capacity from each rank's tokens, ``_local_moe``
@@ -34,25 +44,31 @@ Two divergences from the reference, on purpose:
   the port never does: a batch that does not shard goes through the
   kernel's padded layout (the reference's gathered body, computed by the
   kernel), and every other shape the kernel cannot take (two experts a
-  rank, no data axis, no mesh, tensor parallelism) raises ``ValueError``,
+  rank, no data axis, no mesh, a model axis, replicated expert
+  parallelism) raises ``ValueError``,
   so the kernel is never silently skipped on the main path. The serving
   engine extends the rule to its elastic path: ``Engine.degrade`` onto a
   width the kernel cannot take raises at the degrade, and the caller
   switches to ``backend="xla"`` in the open.
-* Every body computes the routed and the shared expert FFNs in float32
-  and rounds their outputs to the activation type: the kernel's
-  arithmetic (it takes f32 operands). The reference's XLA bodies compute
-  them in the activation type, so in bfloat16 its backends differ by
-  bf16 roundings where the port's differ only by the order of f32 sums.
-  In float32 the two packages compute the same.
+* Every body computes the routed and the shared expert FFNs in float32,
+  combines them in float32 (gates, the sum over a token's choices, and
+  the sums over ranks) and rounds the layer's output to the activation
+  type once: the kernel's arithmetic (it takes f32 operands and writes
+  f32). The reference's XLA bodies compute in the activation type, so in
+  bfloat16 its backends and its meshes differ by bf16 roundings, which a
+  top-k router can turn into another expert for a token; the port's
+  differ only by the order of f32 sums. In float32 the two packages
+  compute the same.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import P, from_shards, local_shards, replicated
 from repro_torch.models.layers import dense_init, mlp_apply, mlp_init
 
 F32 = torch.float32
@@ -74,6 +90,48 @@ def moe_init(gen, cfg, dtype, device):
     return p
 
 
+def moe_param_specs(cfg, rules):
+    """Specs of the MoE params (``moe_init``'s structure): the experts
+    over the data axes (``alltoall``) or the model axis (``replicated``),
+    their ff over the model axis in ``alltoall``, the shared expert's ff
+    over the model axis."""
+    e_ax = rules.axes("experts_data" if cfg.ep_mode == "alltoall"
+                      else "experts_model")
+    f_ax = rules.axes("ff") if cfg.ep_mode == "alltoall" else None
+    specs = {
+        "router": P(None, None),
+        "wg": P(e_ax, None, f_ax),
+        "wu": P(e_ax, None, f_ax),
+        "wd": P(e_ax, f_ax, None),
+    }
+    if cfg.shared_expert:
+        specs["shared"] = {"gate": P(None, rules.axes("ff")),
+                           "up": P(None, rules.axes("ff")),
+                           "down": P(rules.axes("ff"), None)}
+    return specs
+
+
+def _rank_weights(p, cfg, rules):
+    """Each rank's shard of the routed experts' weights and of the shared
+    expert's, cut by :func:`moe_param_specs`: ``{"experts": {"wg", "wu",
+    "wd"}, "shared": {...}}`` with leaves (n, *local shape). A group whose
+    specs shard nothing on this mesh stays whole, without the rank axis,
+    and ``"whole"`` names it: every rank holds it alike, so it runs once
+    over all ranks' rows."""
+    specs, mesh = moe_param_specs(cfg, rules), rules.mesh
+    groups = {"experts": {k: (p[k], specs[k]) for k in ("wg", "wu", "wd")}}
+    if "shared" in p:
+        groups["shared"] = {k: (v, specs["shared"][k])
+                            for k, v in p["shared"].items()}
+    whole = frozenset(g for g, leaves in groups.items()
+                      if all(replicated(s, mesh) for _, s in leaves.values()))
+    w = {g: {k: t if g in whole else local_shards(t, s, mesh)
+             for k, (t, s) in leaves.items()}
+         for g, leaves in groups.items()}
+    w["whole"] = whole
+    return w
+
+
 def kernel_weights(p):
     """The kernel's f32 operands of one MoE layer (any leading axes):
     ``w1`` = [wg | wu] (E, d, 2f), ``w2`` = wd (E, f, d) and, with a shared
@@ -93,6 +151,26 @@ def kernel_weights(p):
 
 # ------------------------------------------------------------------- routing
 
+# active routing recorders; one per ``record_routes()`` context
+_ROUTE_SINKS = []
+
+
+@contextlib.contextmanager
+def record_routes(sink=None):
+    """Collect every routing a MoE layer makes inside the context, in call
+    order, into ``sink`` (anything with ``append``; a new list by default),
+    which the context yields: ``(logits, idx)``, the router's f32 logits
+    (..., T, E_pad) with the pad experts at -inf, and the top-k expert ids
+    (..., T, k). A sharded body routes each rank's rows, so its leading
+    axis is the rank's."""
+    routes = [] if sink is None else sink
+    _ROUTE_SINKS.append(routes)
+    try:
+        yield routes
+    finally:
+        _ROUTE_SINKS.remove(routes)
+
+
 def _route(x2, router_w, cfg):
     """x2: (..., T, d) -> gates (..., T, k) f32, idx (..., T, k)."""
     logits = x2.to(F32) @ router_w.to(F32)                  # (..., T, E_pad)
@@ -101,6 +179,8 @@ def _route(x2, router_w, cfg):
         pad = torch.arange(E_pad, device=logits.device) >= cfg.num_experts
         logits = logits.masked_fill(pad, -math.inf)
     gates, idx = torch.topk(logits, cfg.experts_per_token, dim=-1)
+    for sink in _ROUTE_SINKS:
+        sink.append((logits, idx))
     return torch.softmax(gates, dim=-1), idx
 
 
@@ -120,10 +200,26 @@ def _expert_ffn(buf, wg, wu, wd):
     return (F.silu(b @ wg.to(F32)) * (b @ wu.to(F32))) @ wd.to(F32)
 
 
-def _shared_ffn(p, x2):
-    """The shared expert over x2, in float32, rounded to x2's type."""
-    return mlp_apply({k: w.to(F32) for k, w in p["shared"].items()},
-                     x2.to(F32), "swiglu").to(x2.dtype)
+def _rank_ffn(buf, w):
+    """Each rank's expert FFN: buf (n, E_l, R, d) the rows of each rank's
+    E_l experts, ``w`` the ranks' weights (:func:`_rank_weights`) ->
+    (n, E_l, R, d) float32. Experts every rank holds whole run once over
+    all ranks' rows."""
+    e = w["experts"]
+    if "experts" not in w["whole"]:
+        return _expert_ffn(buf, e["wg"], e["wu"], e["wd"])
+    n, E_l, R, d = buf.shape
+    h = _expert_ffn(buf.transpose(0, 1).reshape(E_l, n * R, d),
+                    e["wg"], e["wu"], e["wd"])
+    return h.reshape(E_l, n, R, d).transpose(0, 1)
+
+
+def _shared_ffn(sh, x2):
+    """The shared expert's weights ``sh`` over the rows x2, in float32:
+    whole weights over any rows, or each rank's shard (n, ...) over its
+    own rows x2 (n, T, d)."""
+    w = {k: v.to(F32) for k, v in sh.items()}
+    return mlp_apply(w, x2.to(F32), "swiglu")
 
 
 def _capacity(T, k, E, cap_factor):
@@ -170,17 +266,22 @@ def _lay_out(x2, slot, keep, k, EC):
     return buf[:, :-1]
 
 
-def _combine(y_slots, slot, gates, keep, k, dtype):
+def _combine(y_slots, slot, gates, keep, k):
     """Each (token, choice)'s expert row, gated, summed per token: y_slots
-    (n, E*C, d) -> (n, T, d) in ``dtype``."""
+    (n, E*C, d) -> (n, T, d) float32. A token's k rows are added in choice
+    order, as the reference's scatter-add takes them, and in the same
+    order on every call (an atomic scatter-add on a card would change it
+    from call to call, and a greedy stream with it)."""
     n, EC, d = y_slots.shape
     rows = slot.clamp(max=EC - 1)
-    contrib = torch.gather(y_slots.to(dtype), 1,
+    contrib = torch.gather(y_slots.to(F32), 1,
                            rows[..., None].expand(-1, -1, d))
-    contrib = contrib * (gates.reshape(n, -1, 1) * keep[..., None]).to(dtype)
-    Tk = slot.shape[1]
-    y = torch.zeros((n, Tk // k, d), dtype=dtype, device=y_slots.device)
-    return y.index_add_(1, _tokens(Tk, k, y.device), contrib)
+    contrib = contrib * (gates.reshape(n, -1, 1) * keep[..., None])
+    contrib = contrib.reshape(n, -1, k, d)
+    y = contrib[:, :, 0]
+    for j in range(1, k):
+        y = y + contrib[:, :, j]
+    return y
 
 
 # ----------------------------------------------------------- execution paths
@@ -194,65 +295,88 @@ def _local_moe(x, p, cfg):
     x2 = x.reshape(1, T, d)
     buf, slot, gates, keep = _slots(x2, p["router"], cfg, C, E_pad)
     h = _expert_ffn(buf[0].reshape(E_pad, C, d), p["wg"], p["wu"], p["wd"])
-    y = _combine(h.reshape(1, E_pad * C, d), slot, gates, keep, k, x.dtype)
+    y = _combine(h.reshape(1, E_pad * C, d), slot, gates, keep, k)
     if cfg.shared_expert:
-        y = y + _shared_ffn(p, x2)
-    return y.reshape(B, S, d)
+        y = y + _shared_ffn(p["shared"], x2)
+    return y.to(x.dtype).reshape(B, S, d)
 
 
-def _replicated_body(*args, **kw):
-    raise NotImplementedError(
-        "the replicated expert-parallel body (ep_mode != 'alltoall': experts "
-        "over the model axis, psum combine) is not ported yet (ROADMAP "
-        "queue 1, item 5)")
+def _replicated_body(x2, p, cfg, rules):
+    """Experts sharded over the model axis, per rank on the stacked
+    layout: x2 (n, T, d) each rank's tokens (its data shard of the batch,
+    the same on every rank of a model group). Rank r holds experts [m*E_l,
+    (m+1)*E_l) with m its model coordinate, dispatches only its tokens'
+    slots in those experts (capacity from its own T tokens), and the
+    partial outputs, the shared expert's ff-sharded partial included, are
+    summed over the model axis. No model axis: every rank holds every
+    expert and nothing is summed."""
+    mesh = rules.mesh
+    n, T, d = x2.shape
+    k, E_pad = cfg.experts_per_token, cfg.num_experts_padded
+    w = _rank_weights(p, cfg, rules)
+    E_l = w["experts"]["wg"].shape[-3]
+    C = _capacity(T, k, cfg.num_experts, cfg.capacity_factor)
+    e0 = mesh.axis_index(rules.tp_axes) % (E_pad // E_l) * E_l
+    buf, slot, gates, keep = _slots(x2, p["router"], cfg, C, E_l, e0)
+    h = _rank_ffn(buf.reshape(n, E_l, C, d), w)
+    y = _combine(h.reshape(n, E_l * C, d), slot, gates, keep, k)
+    if cfg.shared_expert:
+        y = y + _shared_ffn(w["shared"], x2)  # ff-sharded partial: psummed
+    return mesh.psum(y, rules.tp_axes).to(x2.dtype)
 
 
-def _alltoall_body(x2, p, cfg, mesh, *, overlap, quantize):
-    """Paper-faithful EP per rank on the stacked layout: x2 (n, T, d), rank
-    r's tokens in row r; rank e holds experts [e*E_l, (e+1)*E_l). Dispatch
-    all-to-all -> expert FFN -> combine all-to-all, through ``mesh``.
+def _alltoall_body(x2, p, cfg, rules, *, overlap, quantize):
+    """Paper-faithful EP per rank on the stacked layout: x2 (n, T, d), each
+    rank's tokens (its data shard; the same on every rank of a model
+    group); the rank at data coordinate e holds experts [e*E_l,
+    (e+1)*E_l), their ff shard at its model coordinate. Dispatch
+    all-to-all over the data axes -> expert FFN (its ff-sharded partial
+    summed over the model axis) -> combine all-to-all, through the mesh.
 
     With ``overlap`` the self chunk's FFN is computed from each rank's own
     send buffer (no dependency on the dispatch all-to-all) and the
     received self rows are zero-masked, as in the reference's two-stream
     split. ``quantize`` sends the dispatch as int8 with per-row scales."""
+    mesh, dp_axes, tp_axes = rules.mesh, rules.dp_axes, rules.tp_axes
     n, T, d = x2.shape
     k, E_pad = cfg.experts_per_token, cfg.num_experts_padded
-    E_l = E_pad // n
+    ep = rules.dp_size()
+    E_l = E_pad // ep
     C = _capacity(T, k, cfg.num_experts, cfg.capacity_factor)
+    w = _rank_weights(p, cfg, rules)
     buf, slot, gates, keep = _slots(x2, p["router"], cfg, C, E_pad)
-    buf = buf.reshape(n, n, E_l, C, d)          # [src rank, dst rank, ...]
+    buf = buf.reshape(n, ep, E_l, C, d)         # [rank, dst data rank, ...]
 
     def ffn(chunk):
-        """chunk (n dst, m src, E_l, C, d): rank e's FFN over the rows it
-        holds, its tokens grouped by expert."""
+        """chunk (n, m src, E_l, C, d): each rank's FFN over the rows it
+        holds, its tokens grouped by expert; ff partials summed."""
         m = chunk.shape[1]
-        cg = chunk.transpose(1, 2).reshape(n * E_l, m * C, d)
-        h = _expert_ffn(cg, p["wg"], p["wu"], p["wd"])
+        cg = chunk.transpose(1, 2).reshape(n, E_l, m * C, d)
+        h = mesh.psum(_rank_ffn(cg, w), tp_axes)
         return h.reshape(n, E_l, m, C, d).transpose(1, 2)
 
     def send(t):
         if not quantize:
-            return mesh.all_to_all(t)
+            return mesh.all_to_all(t, dp_axes)
         q, sc = _quantize_i8(t)
-        q, sc = mesh.all_to_all(q), mesh.all_to_all(sc)
+        q, sc = mesh.all_to_all(q, dp_axes), mesh.all_to_all(sc, dp_axes)
         return (q.to(F32) * sc).to(x2.dtype)
 
-    recv = send(buf)                            # [dst rank, src rank, ...]
+    recv = send(buf)                            # [rank, src data rank, ...]
     if overlap:
-        me = torch.arange(n, device=x2.device)
-        h_self = ffn(buf[me, me][:, None])      # independent of the dispatch
-        remote = (me[:, None] != me[None, :]).to(recv.dtype)
+        me, own = torch.arange(n, device=x2.device), mesh.axis_index(dp_axes)
+        h_self = ffn(buf[me, own][:, None])     # independent of the dispatch
+        src = torch.arange(ep, device=x2.device)
+        remote = (own[:, None] != src[None, :]).to(recv.dtype)
         h = ffn(recv * remote[..., None, None, None])
-        h[me, me] += h_self[:, 0]
+        h[me, own] += h_self[:, 0]
     else:
         h = ffn(recv)
-    back = mesh.all_to_all(h)                   # combine: [src rank, expert]
-    y = _combine(back.reshape(n, E_pad * C, d), slot, gates, keep, k,
-                 x2.dtype)
-    if cfg.shared_expert:
-        y = y + _shared_ffn(p, x2)   # also A2A-independent
-    return y
+    back = mesh.all_to_all(h, dp_axes)          # combine: [rank, expert]
+    y = _combine(back.reshape(n, E_pad * C, d), slot, gates, keep, k)
+    if cfg.shared_expert:                       # also A2A-independent
+        y = y + mesh.psum(_shared_ffn(w["shared"], x2), tp_axes)
+    return y.to(x2.dtype)
 
 
 def _pallas_body(x2, p, cfg, *, overlap, quantize, probe=None):
@@ -282,11 +406,10 @@ def _pallas_body(x2, p, cfg, *, overlap, quantize, probe=None):
         tile_fused=True, wire_i8=quantize, shared=shared, contexts=2,
         probe=probe)
     y_slots, ys = out if shared is not None else (out, None)
-    y = _combine(y_slots, slot, gates, keep, k, x2.dtype)
+    y = _combine(y_slots, slot, gates, keep, k)
     if "shared" in p:
-        y = y + (ys.to(x2.dtype) if ys is not None
-                 else _shared_ffn(p, x2))
-    return y
+        y = y + (ys if ys is not None else _shared_ffn(p["shared"], x2))
+    return y.to(x2.dtype)
 
 
 def _padded_body(x, p, cfg, n, *, overlap, probe=None):
@@ -333,12 +456,12 @@ def _padded_body(x, p, cfg, n, *, overlap, probe=None):
         tile_fused=True, wire_i8=False, shared=shared, contexts=2,
         probe=probe)
     y_slots, ys = out if shared is not None else (out, None)
-    y = _combine(y_slots, slot, gates, keep, k, x.dtype).reshape(Bp, S, d)
+    y = _combine(y_slots, slot, gates, keep, k).reshape(Bp, S, d)
     y = y[:B]
     if "shared" in p:
-        y = y + (ys.to(x.dtype).reshape(Bp, S, d)[:B] if ys is not None
-                 else _shared_ffn(p, x))
-    return y
+        y = y + (ys.reshape(Bp, S, d)[:B] if ys is not None
+                 else _shared_ffn(p["shared"], x))
+    return y.to(x.dtype)
 
 
 def _kernel_operands(p):
@@ -368,27 +491,33 @@ def pallas_moe_eligible(cfg, rules, B):
     return cfg.num_experts_padded == dp
 
 
-def _gathered_body(x2, p, cfg, mesh):
+def _gathered_body(x2, p, cfg, rules):
     """The XLA body for a batch too small to shard (B < dp or B % dp != 0:
     a decode batch the scheduler has shrunk): the tokens are replicated
-    over the data axis (x2 (T, d), every token on every rank), each rank
-    runs its own experts over them, and the partial outputs are summed
-    across ranks (an all-gather over ``mesh``, then the sum). Runs on the
-    host's operators; no kernel."""
-    T, d = x2.shape
+    over every rank (x2 (T, d)), each rank runs its own experts (those at
+    its data coordinate, their ff shard at its model coordinate) over
+    them, the ff partials are summed over the model axis and the partial
+    outputs over the data axes; the shared expert's ff partials are summed
+    over the model axis. Runs on the host's operators; no kernel."""
+    mesh = rules.mesh
     n = mesh.n
+    T, d = x2.shape
     k, E_pad = cfg.experts_per_token, cfg.num_experts_padded
-    E_l = E_pad // n
+    w = _rank_weights(p, cfg, rules)
+    E_l = w["experts"]["wg"].shape[-3]
     C = _capacity(T, k, cfg.num_experts, cfg.capacity_factor)
     xr = x2[None].expand(n, T, d)
-    e0 = torch.arange(n, device=x2.device) * E_l
+    e0 = mesh.axis_index(rules.dp_axes) % (E_pad // E_l) * E_l
     buf, slot, gates, keep = _slots(xr, p["router"], cfg, C, E_l, e0)
-    h = _expert_ffn(buf.reshape(n * E_l, C, d), p["wg"], p["wu"], p["wd"])
-    part = _combine(h.reshape(n, E_l * C, d), slot, gates, keep, k, x2.dtype)
-    y = mesh.all_gather(part, tiled=False)[0].sum(dim=0)   # the psum
+    h = mesh.psum(_rank_ffn(buf.reshape(n, E_l, C, d), w), rules.tp_axes)
+    part = _combine(h.reshape(n, E_l * C, d), slot, gates, keep, k)
+    y = mesh.psum(part, rules.dp_axes)[0]
     if cfg.shared_expert:
-        y = y + _shared_ffn(p, x2)
-    return y
+        if "shared" in w["whole"]:         # the whole expert: once
+            y = y + _shared_ffn(w["shared"], x2)
+        else:                              # ff-sharded partials, summed
+            y = y + mesh.psum(_shared_ffn(w["shared"], xr), rules.tp_axes)[0]
+    return y.to(x2.dtype)
 
 
 # ---------------------------------------------------------------- public API
@@ -397,14 +526,16 @@ def moe_apply(params, x, cfg, rules, *, overlap=False, quantize=False,
               backend="xla", probe=None):
     """Apply the MoE block. x: (B, S, d), the whole batch.
 
-    With ``rules`` over a data mesh the batch shards over its ranks (rank r
-    takes rows [r*B/dp, (r+1)*B/dp)). ``backend="pallas"`` runs the
+    With ``rules`` the batch shards over the mesh's data ranks (the rank at
+    data coordinate r takes rows [r*B/dp, (r+1)*B/dp); every rank of a
+    model group holds the same rows). ``backend="pallas"`` runs the
     dispatch -> FFN -> combine chain through the Hopper kernel (``probe``,
     a ``ScheduleProbe``, records its marks): :func:`_pallas_body` for a
     batch that shards, :func:`_padded_body` for any other; it raises
     ``ValueError`` where :func:`pallas_moe_eligible` does not hold.
-    ``backend="xla"`` takes the all-to-all body, or the gathered body for
-    a batch that does not shard."""
+    ``backend="xla"`` takes the all-to-all body (the gathered body for a
+    batch that does not shard) for ``alltoall`` experts, the replicated
+    body for the others."""
     if backend not in ("xla", "pallas"):
         raise ValueError(f"moe backend {backend!r}: 'xla' or 'pallas'")
     B, S, d = x.shape
@@ -417,25 +548,27 @@ def moe_apply(params, x, cfg, rules, *, overlap=False, quantize=False,
             "back to another body")
     if rules is None or rules.mesh is None:
         return _local_moe(x, params, cfg)
-    if cfg.ep_mode != "alltoall":
-        return _replicated_body(x, params, cfg, rules)
-    if rules.tp_axes:
-        raise NotImplementedError(
-            f"moe over tensor-parallel axes {rules.tp_axes} is not ported yet "
-            "(ROADMAP queue 1, item 5)")
+    if not rules.dp_axes and not rules.tp_axes:  # one expert-parallel rank,
+        return _local_moe(x, params, cfg)        # as the reference's ep = 1
     mesh = rules.mesh
     dp = rules.dp_size()
+    b_ok = B % dp == 0 and B >= dp
+    if backend == "pallas" and not b_ok:
+        return _padded_body(x, params, cfg, dp, overlap=overlap, probe=probe)
+    if cfg.ep_mode == "alltoall" and not b_ok:
+        return _gathered_body(x.reshape(B * S, d), params, cfg,
+                              rules).reshape(B, S, d)
+    # each rank's rows: its data shard of the batch, or (a replicated
+    # body's batch that does not shard) the whole batch on every rank
+    spec = P(rules.dp_axes if b_ok else None)
+    xs = local_shards(x, spec, mesh)
+    x2 = xs.reshape(mesh.n, -1, d)
     if backend == "pallas":
-        if B % dp:
-            return _padded_body(x, params, cfg, dp, overlap=overlap,
-                                probe=probe)
-        y = _pallas_body(x.reshape(dp, B // dp * S, d), params, cfg,
-                         overlap=overlap, quantize=quantize, probe=probe)
-    elif not rules.dp_axes:             # no data axis: one expert-parallel
-        return _local_moe(x, params, cfg)   # rank, as the reference's ep = 1
-    elif B % dp == 0 and B >= dp:
-        y = _alltoall_body(x.reshape(dp, B // dp * S, d), params, cfg, mesh,
-                           overlap=overlap, quantize=quantize)
+        y = _pallas_body(x2, params, cfg, overlap=overlap, quantize=quantize,
+                         probe=probe)
+    elif cfg.ep_mode == "alltoall":
+        y = _alltoall_body(x2, params, cfg, rules, overlap=overlap,
+                           quantize=quantize)
     else:
-        y = _gathered_body(x.reshape(B * S, d), params, cfg, mesh)
-    return y.reshape(B, S, d)
+        y = _replicated_body(x2, params, cfg, rules)
+    return from_shards(y.reshape(xs.shape), spec, mesh)

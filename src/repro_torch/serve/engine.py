@@ -22,8 +22,11 @@ and MoE), the recurrent kinds and the encoder-decoder, whose batch carries
 requests with recurrent state raises, as the reference's does.
 
 Expert parallelism: with ``rules`` (a ``dist.sharding.Rules`` over a
-data ``VirtualMesh``) every step passes them to the model, whose MoE layers
-shard the batch and the experts over the ranks (``models/moe.py``).
+``VirtualMesh`` of data and, or, model axes, such as
+``launch.mesh.make_mesh((1, 4), ("data", "model"))``) every step passes
+them to the model, whose MoE layers shard the batch and the experts over
+the ranks (``models/moe.py``): over the data axis, or, for a replicated
+``ep_mode``, over the model axis.
 Under ``StepOptions(moe_backend="pallas")`` the engine builds the
 kernel's f32 expert operands once (``models.model.with_kernel_weights``),
 and every group ``serve`` steps goes through the kernel: a batch that
@@ -139,10 +142,11 @@ class Engine:
         """Elastic serving: shrink onto the survivors, given as their
         count or a sequence of them (devices or ranks).
 
-        Rebuilds :class:`Rules` of the same kind over a ``VirtualMesh`` of
-        the survivors' width on the engine's device, with the old mesh's
-        axis; a single survivor drops the engine to the local (unsharded)
-        path. Under ``moe_backend="pallas"`` with MoE layers, a width the
+        Rebuilds :class:`Rules` of the same kind over a one-axis
+        ``VirtualMesh`` of the survivors' width on the engine's device,
+        with the old mesh's axis (a mesh of several axes: ``"data"``, the
+        reference's serving deployment shape); a single survivor drops the
+        engine to the local (unsharded) path. Under ``moe_backend="pallas"`` with MoE layers, a width the
         kernel cannot take (it wants one expert per data rank,
         ``num_experts_padded == width``) raises ``ValueError`` here, before
         anything changes. Every rank of a ``VirtualMesh`` lives on the
@@ -169,8 +173,9 @@ class Engine:
             self.rules = None
         else:
             mesh = VirtualMesh(width, device=self.device,
-                               axis=self.rules.mesh.axis)
-            self.rules = Rules(mesh, self.rules.kind)
+                               axis=self.rules.mesh.axis or "data")
+            self.rules = Rules(mesh, self.rules.kind,
+                               long_context=self.rules.long_context)
         self.metrics.counter("serve.degrades").inc()
         self._gen += 1
         return self.rules

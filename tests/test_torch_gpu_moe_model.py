@@ -131,7 +131,7 @@ def test_padded_batch_kernel_matches_gathered_body(cuda_device, B, S, cf,
     torch.cuda.synchronize()
     assert kern.launches() == before + 1
     want = tmoe._gathered_body(x.reshape(B * S, -1), p, cfg,
-                               rules.mesh).reshape(x.shape)
+                               rules).reshape(x.shape)
     assert torch.isfinite(got).all()
     assert rel_err(got.cpu(), want.cpu()) <= 1e-4
 

@@ -74,8 +74,9 @@ for cf in (1.25, 16.0):
     out[f"local_{cf}"] = np.asarray(fwd(cfg, None)(params, toks))
     out[f"gathered_{cf}"] = np.asarray(fwd(cfg, rules)(params, toks[:2]))
     moe = jax.tree.map(lambda a: a[0], params["blocks"]["s1"]["moe"])
+    layer = jax.jit(lambda m, x: moe_apply(m, x, cfg, rules))
     for b in %s:               # batches that do not shard: the gathered body
-        out[f"moe_{cf}_{b}"] = np.asarray(moe_apply(moe, xs[:b], cfg, rules))
+        out[f"moe_{cf}_{b}"] = np.asarray(layer(moe, xs[:b]))
 for path, leaf in jax.tree_util.tree_flatten_with_path(params)[0]:
     out["param/" + "/".join(p.key for p in path)] = np.asarray(leaf)
 f, seq = fwd(cfg, rules), toks
@@ -167,8 +168,8 @@ def test_pallas_raises_where_the_kernel_cannot_run(ref):
     shard runs the kernel's padded layout and gives the reference's
     gathered answer; two experts a rank and a mesh with no data axis
     raise, and so do weights whose kernel operands were not built once
-    beforehand; the replicated expert-parallel mode is not ported and
-    raises."""
+    beforehand, a model axis (ff tensor parallelism) and the replicated
+    expert-parallel mode, which the xla bodies run."""
     cfg = config()
     params = params_from_numpy(ref["tree"], cfg, device="cpu")
     pallas = StepOptions(moe_backend="pallas")
@@ -191,12 +192,16 @@ def test_pallas_raises_where_the_kernel_cannot_run(ref):
     with pytest.raises(ValueError, match="backend"):
         logits(params, toks, cfg, data_rules(),
                StepOptions(moe_backend="triton"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        logits(params, toks, cfg, Rules(VirtualMesh(4, device="cpu",
-                                                    axis="model"), "decode"))
+    model = Rules(VirtualMesh(4, device="cpu", axis="model"), "decode")
+    with pytest.raises(ValueError, match="not eligible"):
+        logits(with_kernel_weights(params, cfg), toks, cfg, model, pallas)
+    assert rel_err(logits(params, toks, cfg, model),
+                   logits(params, toks, cfg, None)) <= 1e-5
     rep = dataclasses.replace(cfg, ep_mode="replicated")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        logits(params, toks, rep, data_rules())
+    with pytest.raises(ValueError, match="not eligible"):
+        logits(with_kernel_weights(params, rep), toks, rep, data_rules(),
+               pallas)
+    assert torch.isfinite(logits(params, toks, rep, data_rules())).all()
     assert torch.isfinite(logits(params, toks, rep, None)).all()
 
 

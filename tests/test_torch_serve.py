@@ -32,7 +32,6 @@ from repro.models import layers as jlayers
 from repro.models.model import lm_logits as jlogits
 from repro_torch.configs import ARCHS, SHAPES, cells, get_arch, reduced
 from repro_torch.dist.mesh import VirtualMesh
-from repro_torch.dist.sharding import Rules
 from repro_torch.kernels import kv_shuttle as kern
 from repro_torch.models import (StepOptions, decode_step, forward,
                                 init_params, params_from_numpy, prefill_step)
@@ -232,19 +231,6 @@ def test_bf16_logits_near_reference():
     tl, _ = prefill_step(tp, {"tokens": torch.from_numpy(toks)}, tcfg,
                          seq_len=16)
     assert rel_err(tl, jlast_logits(jp, jcfg, toks)) <= 2e-2
-
-
-@pytest.mark.parametrize("name", ["granite-moe-3b-a800m"])
-def test_unported_kinds_raise(name):
-    # every block kind is ported (tests/test_torch_recurrent.py,
-    # tests/test_torch_whisper.py); granite-moe's replicated expert
-    # parallelism (experts over the model axis) is what still raises
-    cfg = reduced(get_arch(name))
-    params = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
-    rules = Rules(VirtualMesh(2, device="cpu", axis="data"), "decode")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        forward(params, {"tokens": torch.zeros((2, 4), dtype=torch.long)},
-                cfg, rules)
 
 
 def test_init_params_shapes_match_reference():

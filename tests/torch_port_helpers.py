@@ -31,12 +31,14 @@ def numpy_inputs(n, T, d, f, fs=0, seed=0):
     return [a.astype(np.float32) for a in arrs]
 
 
-def run_jax_devices(code, arrays, tmp_dir, devices=4, timeout=180):
+def run_jax_devices(code, arrays, tmp_dir, devices=4, timeout=420):
     """Run ``code`` in a fresh Python with ``devices`` JAX host devices
     (the device count is fixed when JAX starts, so it cannot change inside
     a test process). The script gets the path of an ``.npz`` of ``arrays``
     as ``sys.argv[1]`` and writes its results as an ``.npz`` to
-    ``sys.argv[2]``; returns them as a dict of numpy arrays."""
+    ``sys.argv[2]``; returns them as a dict of numpy arrays. The time
+    limit leaves room for a machine loaded by other test workers, where
+    such a script has taken more than twice its time alone."""
     import os
     import subprocess
     import sys
