@@ -174,6 +174,21 @@ sizes; every run runs all of them, and any failure exits non-zero):
     number beside the card's name and power limit. Its kernel shape,
     kv_shuttle's pure handoff of granite's cache, is held and timed with
     the kernel phases (``phase_tp_kernels``).
+25. ``train`` — the trainer (``train/loop.py::train``: AdamW in place,
+    remat, checkpoints) with every kernel's launch counter at 0 before
+    and after (it launches no hand-written kernel: the reference trains
+    through XLA, and no Pallas kernel has a backward): llama3.2-1b at
+    every published width and depth, 8 x 512, 6 steps, and one step with
+    remat off from the same state; granite-moe at its published widths,
+    8 of its 32 layers, on the (1, 4) data x model mesh, 8 x 512, 4
+    steps, step 0's loss against no mesh; the 100M MoE config of
+    ``examples/train_moe_100m.py`` on (4, 2) with ``moe_overlap``, 16 x
+    256, 8 steps resumed through a checkpoint bit for bit under
+    deterministic algorithms, restored with no mesh and trained on;
+    ``moe_backend="pallas"`` raising under autograd. Each step's loss,
+    gradient norm and ms, tokens/s, the share of 989 TFLOP/s that 6 N
+    tokens reaches and the peak memory, beside the card's name and power
+    limit.
 
 ``--iters`` sets the timed launches per kernel (1 for a quick check after
 a kernel change). The line before the last is the ``kernels`` JSON
@@ -194,7 +209,9 @@ import collections
 import dataclasses
 import json
 import math
+import os
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -202,6 +219,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# cuBLAS is deterministic only with a fixed workspace, read when the
+# process first uses it: phase ``train`` compares runs under
+# ``torch.use_deterministic_algorithms``
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import torch  # noqa: E402
 
@@ -3484,6 +3505,369 @@ def phase_serve_tp(device="cuda", small=False):
     return counts
 
 
+# ------------------------------------------------------------------ training
+
+TRAIN_LOSS_DROP = 0.5      # (a): the last loss below the first by 0.5 nats
+TRAIN_REMAT_TOL = 2 ** -8  # (a): remat off vs on, loss and gnorm, relative
+# (b): step 0's loss on (1, 4) against no mesh, relative: the model's own
+# bf16 error on that loss (the no-mesh loss in bf16 against float32) in
+# chip run 59 on an H100; the mesh read 2.290e-05 there
+TRAIN_TP_TOL = 2.339e-4
+
+
+def train_configs(small=False):
+    """The three models phase ``train`` trains: ``dense`` llama3.2-1b at
+    its published widths and depth (16 layers, d 2048, vocab 128256, tied
+    embeddings, bf16); ``moe`` granite-moe-3b-a800m at its published
+    widths, 8 of its 32 layers (at 32 the f32 AdamW state alone is about
+    40 GB); ``resume`` the reference's 100M MoE training config
+    (``examples/train_moe_100m.py``). ``small``: each at the reduced test
+    size."""
+    from repro_torch.configs import get_arch, reduced
+    llama, granite = get_arch("llama3.2-1b"), get_arch("granite-moe-3b-a800m")
+    if small:
+        return {"dense": reduced(llama, num_layers=2),
+                "moe": reduced(granite, num_layers=2),
+                "resume": reduced(granite, num_layers=2)}
+    return {"dense": llama,
+            "moe": dataclasses.replace(granite, num_layers=8),
+            "resume": reduced(granite, num_layers=8, d_model=512,
+                              num_heads=8, num_kv_heads=4, head_dim=64,
+                              d_ff=1024, moe_d_ff=1024, num_experts=8,
+                              experts_per_token=2, vocab_size=32000,
+                              pad_to=2, name="granite-moe-100m")}
+
+
+def train_shapes(small=False):
+    """(global batch, sequence, steps) of each part of phase ``train``."""
+    seq = {"dense": 512, "moe": 512, "resume": 256}
+    steps = {"dense": 6, "moe": 4, "resume": 8}
+    batch = {"dense": 8, "moe": 8, "resume": 16}
+    return {k: (batch[k], 16 if small else seq[k], steps[k]) for k in seq}
+
+
+def _tree_numel(tree, keep=lambda path: True, path=()):
+    if isinstance(tree, dict):
+        return sum(_tree_numel(v, keep, path + (k,)) for k, v in tree.items())
+    return tree.numel() if keep(path) else 0
+
+
+def _report_training(label, cfg, metrics, params, tokens, card, device):
+    """Print each step's loss, gradient norm and time, then tokens/s, the
+    share of the card's bf16 peak that 6 N tokens a step reaches (N the
+    parameters counted in the tensors; a MoE also with its experts
+    counted at k of E) and the peak memory. Returns the losses."""
+    h = {k: metrics.histogram(f"train.{k}").samples
+         for k in ("loss", "gnorm", "step_ms")}
+    for i, (loss, gn, ms) in enumerate(zip(h["loss"], h["gnorm"],
+                                           h["step_ms"])):
+        log(f"train {label} step {i}: loss {loss:.5f} gnorm {gn:.4f} "
+            f"step {ms:.3f} ms [{card}]")
+    n = _tree_numel(params)
+    steady = h["step_ms"][1:] or h["step_ms"]
+    ms = statistics.median(steady)
+    line = (f"train {label}: {cfg.num_layers} layers d {cfg.d_model} vocab "
+            f"{cfg.vocab_size} {cfg.dtype}, N = {n / 1e9:.4f} B parameters "
+            f"in the tensors ({cfg.param_count() / 1e9:.4f} B by "
+            f"param_count); {tokens} tokens a step, median step after the "
+            f"first {ms:.3f} ms (first {h['step_ms'][0]:.3f} ms): "
+            f"{tokens / ms * 1e3:.0f} tokens/s, 6 N tokens at "
+            f"{6 * n * tokens / (ms * 1e-3) / 1e12:.1f} TFLOP/s = "
+            f"{6 * n * tokens / (ms * 1e-3) / BF16_FLOPS:.4f} of "
+            f"{BF16_FLOPS / 1e12:.0f} TFLOP/s")
+    if cfg.is_moe:
+        experts = _tree_numel(params, lambda p: "moe" in p and p[-1] in (
+            "wg", "wu", "wd"))
+        na = n - experts + experts * cfg.experts_per_token \
+            / cfg.num_experts_padded
+        line += (f" (N active {na / 1e9:.4f} B: "
+                 f"{6 * na * tokens / (ms * 1e-3) / BF16_FLOPS:.4f})")
+    if torch.device(device).type == "cuda":
+        line += (f"; peak memory "
+                 f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
+    log(line + f" [{card}]")
+    losses = h["loss"]
+    if not all(math.isfinite(v) for v in losses + h["gnorm"]):
+        raise SystemExit(f"train {label}: a loss or gradient norm is not "
+                         f"finite: {losses}, {h['gnorm']}")
+    return losses
+
+
+def _take_apart(label, params, opt_state, cfg, rules, tcfg, device, card):
+    """One more step after training, timed in its two parts on the host
+    clock with the device synchronized: the loss and its gradients, then
+    AdamW (in place, on the trained state)."""
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.optim import adamw_update
+    from repro_torch.train import loss_and_grads
+    from repro_torch.train.loop import device_batch
+    batch = device_batch(SyntheticTokenPipeline(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=tcfg.seq_len,
+        global_batch=tcfg.global_batch)).batch(tcfg.steps), device)
+    cuda = torch.device(device).type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(device)) if cuda else (
+        lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    _, grads = loss_and_grads(params, batch, cfg, rules, tcfg.opts)
+    sync()
+    t1 = time.perf_counter()
+    adamw_update(params, grads, opt_state, tcfg.opt)
+    sync()
+    t2 = time.perf_counter()
+    log(f"train {label} step taken apart: loss and gradients "
+        f"{(t1 - t0) * 1e3:.3f} ms, AdamW {(t2 - t1) * 1e3:.3f} ms [{card}]")
+
+
+def _peak_reset(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def _train_dense(device, cfg, shape, card, drop):
+    """(a): llama3.2-1b, no mesh, remat on; step 0's loss and gradient norm
+    against one step with remat off from the same state; the last loss
+    below the first by more than ``drop``."""
+    from repro_torch.core.telemetry import MetricsRegistry
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.optim import AdamWConfig, global_norm
+    from repro_torch.models import StepOptions
+    from repro_torch.train import TrainConfig, build_state, loss_and_grads, \
+        train
+    from repro_torch.train.loop import device_batch
+    B, S, steps = shape
+    tcfg = TrainConfig(steps=steps, global_batch=B, seq_len=S, log_every=1,
+                       opt=AdamWConfig(warmup_steps=1, total_steps=steps))
+    # remat off, one step from the state train() starts from
+    _peak_reset(device)
+    params = build_state(torch.Generator(device=device).manual_seed(
+        tcfg.seed), cfg, None, None, device)[0]
+    batch = device_batch(SyntheticTokenPipeline(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=S, global_batch=B)).batch(0),
+        device)
+    t0 = time.perf_counter()
+    loss_off, grads = loss_and_grads(params, batch, cfg, None,
+                                     StepOptions(remat=False))
+    gn_off = float(global_norm(grads))
+    loss_off = float(loss_off)
+    off_s = time.perf_counter() - t0
+    peak_off = (torch.cuda.max_memory_allocated(device) / 2**30
+                if torch.device(device).type == "cuda" else 0.0)
+    del params, grads, batch
+    _peak_reset(device)
+    metrics = MetricsRegistry()
+    losses, last, (params, opt_state) = train(cfg, tcfg, verbose=False,
+                                              device=device, metrics=metrics)
+    losses = _report_training("dense " + cfg.name, cfg, metrics, params,
+                              B * S, card, device)
+    _take_apart("dense", params, opt_state, cfg, None, tcfg, device, card)
+    del params, opt_state
+    gn_on = metrics.histogram("train.gnorm").samples[0]
+    err = (abs(losses[0] - loss_off) / abs(loss_off),
+           abs(gn_on - gn_off) / abs(gn_off))
+    log(f"train dense remat off, one step from the same state: loss "
+        f"{loss_off:.5f} gnorm {gn_off:.4f} ({off_s:.3f} s with the first "
+        f"call's set-up, peak {peak_off:.2f} GiB) against remat on: rel "
+        f"{err[0]:.3e} / {err[1]:.3e} (tol {TRAIN_REMAT_TOL:.3e}) [{card}]")
+    if max(err) > TRAIN_REMAT_TOL:
+        raise SystemExit("train dense: remat off and on disagree")
+    if not (last == steps and losses[-1] < losses[0] - drop):
+        raise SystemExit(f"train dense: the loss fell from {losses[0]:.4f} "
+                         f"to {losses[-1]:.4f} (want a drop of more than "
+                         f"{drop})")
+
+
+def _train_moe(device, cfg, shape, card):
+    """(b): granite at published widths on the (1, 4) data x model mesh;
+    step 0's loss against the same model's with no mesh (bf16), and the
+    model's own bf16 error there (the no-mesh loss in float32)."""
+    from repro_torch.core.telemetry import MetricsRegistry
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.dist.sharding import Rules, tree_map
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import train_loss
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, build_state, train
+    from repro_torch.train.loop import device_batch
+    B, S, steps = shape
+    tcfg = TrainConfig(steps=steps, global_batch=B, seq_len=S, log_every=1,
+                       opt=AdamWConfig(warmup_steps=1, total_steps=steps))
+    params = build_state(torch.Generator(device=device).manual_seed(
+        tcfg.seed), cfg, None, None, device)[0]
+    batch = device_batch(SyntheticTokenPipeline(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=S, global_batch=B)).batch(0),
+        device)
+    with torch.no_grad():
+        local = float(train_loss(params, batch, cfg))
+        p32 = tree_map(lambda t: t.float(), params)
+        del params
+        local32 = float(train_loss(p32, batch, dataclasses.replace(
+            cfg, dtype="float32")))
+    del p32
+    mesh = make_mesh((1, 4), ("data", "model"), device=device)
+    _peak_reset(device)
+    metrics = MetricsRegistry()
+    _, last, (params, opt_state) = train(cfg, tcfg, mesh=mesh, verbose=False,
+                                         device=device, metrics=metrics)
+    losses = _report_training(f"moe {cfg.name} on (1, 4) data x model", cfg,
+                              metrics, params, B * S, card, device)
+    _take_apart("moe", params, opt_state, cfg, Rules(mesh, "train"), tcfg,
+                device, card)
+    del params, opt_state
+    err, floor = abs(losses[0] - local) / local, abs(local - local32) / local32
+    log(f"train moe step 0 loss on (1, 4) {losses[0]:.5f}, no mesh "
+        f"{local:.5f} (bf16; float32 {local32:.5f}): rel {err:.3e} (tol "
+        f"{TRAIN_TP_TOL:.3e}); the model's own bf16 error on it {floor:.3e} "
+        f"[{card}]")
+    if err > TRAIN_TP_TOL:
+        raise SystemExit("train moe: the (1, 4) mesh's step 0 loss is off "
+                         "the no-mesh loss")
+    if not (last == steps and losses[-1] < losses[0]):
+        raise SystemExit(f"train moe: the loss did not fall: {losses}")
+
+
+def _train_resume(device, cfg, shape, card, root):
+    """(c): the 100M MoE on (4, 2) under ``moe_overlap``: 8 steps in two
+    runs of 4 through a checkpoint against two uninterrupted runs, under
+    ``torch.use_deterministic_algorithms``; the step-4 checkpoint restored
+    with no mesh, bit-equal, and trained on; pallas raising."""
+    import shutil
+    from repro_torch.core.telemetry import MetricsRegistry
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.dist.sharding import Rules
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import StepOptions
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import (TrainConfig, build_state, loss_and_grads,
+                                   restore_checkpoint, train)
+    from repro_torch.train.checkpoint import _flatten
+    from repro_torch.train.loop import device_batch
+    B, S, steps = shape
+    half = steps // 2
+    shutil.rmtree(root, ignore_errors=True)
+    mesh = make_mesh((4, 2), ("data", "model"), device=device)
+
+    def tcfg(name=None):
+        return TrainConfig(steps=steps, global_batch=B, seq_len=S,
+                           ckpt_dir=str(root / name) if name else "",
+                           ckpt_every=half,
+                           log_every=1, opts=StepOptions(moe_overlap=True),
+                           opt=AdamWConfig(warmup_steps=1, total_steps=steps))
+
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        runs = [train(cfg, tcfg(), mesh=mesh, verbose=False,
+                      device=device)[0] for _ in range(2)]
+        metrics = MetricsRegistry()
+        first, _, (params4, opt4) = train(
+            cfg, tcfg("c"), mesh=mesh, verbose=False, device=device,
+            max_steps_this_run=half, metrics=metrics)
+        shutil.copytree(root / "c", root / "d")
+        second, last, _ = train(cfg, tcfg("c"), mesh=mesh, verbose=False,
+                                device=device, metrics=metrics)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    spread = max(abs(x - y) for x, y in zip(*runs))
+    gap = max(abs(x - y) for x, y in zip(first + second, runs[0]))
+    save_s = metrics.histogram("train.ckpt_save_s").samples
+    log(f"train resume {cfg.name} on (4, 2), {B} x {S}: uninterrupted "
+        f"{' '.join(f'{v:.6f}' for v in runs[0])}; two runs apart by "
+        f"{spread:.3e}, {half} + {steps - half} steps through the step-"
+        f"{half} checkpoint apart from the first by {gap:.3e} (deterministic "
+        f"algorithms; held at {4 * spread:.3e}, 4x the spread); saves "
+        f"{' '.join(f'{v:.3f}' for v in save_s)} s [{card}]")
+    if not (last == steps and len(first) + len(second) == steps
+            and gap <= 4 * spread):
+        raise SystemExit("train resume: the resumed run's losses differ from "
+                         "the uninterrupted run's")
+    like = build_state(torch.Generator(device=device).manual_seed(0), cfg,
+                       None, None, device)[:2]
+    t0 = time.perf_counter()
+    got, at = restore_checkpoint(root / "d", {"params": like[0],
+                                              "opt": like[1]})
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+    restore_s = time.perf_counter() - t0
+    want = _flatten({"params": params4, "opt": opt4})
+    same = at == half and all(torch.equal(v, want[k]) for k, v in
+                              _flatten(got).items())
+    log(f"train resume: the step-{at} checkpoint restored with no mesh in "
+        f"{restore_s:.3f} s, every leaf bit-equal to the (4, 2) run's state: "
+        f"{same} [{card}]")
+    if not same:
+        raise SystemExit("train resume: the restored state differs")
+    del got, like, params4, opt4
+    on, _, (params, _) = train(cfg, tcfg("d"), verbose=False, device=device)
+    log(f"train resume: steps {half}..{steps - 1} with no mesh from the "
+        f"checkpoint: {' '.join(f'{v:.6f}' for v in on)} (the (4, 2) run: "
+        f"{' '.join(f'{v:.6f}' for v in runs[0][half:])}) [{card}]")
+    if not (len(on) == steps - half and all(math.isfinite(v) for v in on)):
+        raise SystemExit("train resume: training on with no mesh failed")
+    b = device_batch(SyntheticTokenPipeline(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=S, global_batch=B)).batch(0),
+        device)
+    try:
+        loss_and_grads(params, b, cfg, Rules(mesh, "train"),
+                       StepOptions(moe_backend="pallas"))
+    except ValueError as e:
+        log(f"train resume: train_loss under moe_backend='pallas' raises "
+            f"ValueError: {e}")
+    else:
+        raise SystemExit("train resume: pallas under autograd did not raise")
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_train(device="cuda", small=False, root=None):
+    """The trainer on the card (``small``: the reduced sizes of the CPU
+    test), with every kernel's launch counter at 0 before and after:
+
+    (a) ``train_dense``: llama3.2-1b at every published width and depth,
+        no mesh, 8 x 512, 6 steps of ``train`` (AdamW warm-up 1, remat),
+        and one step with remat off from the same state: loss and
+        gradient norm within ``TRAIN_REMAT_TOL``; the last loss below the
+        first by ``TRAIN_LOSS_DROP`` (by anything at the small size).
+    (b) ``train_moe``: granite-moe at its published widths, 8 layers, on
+        ``make_mesh((1, 4), ("data", "model"))``, 8 x 512, 4 steps; step
+        0's loss within ``TRAIN_TP_TOL`` of the no-mesh loss, and falling.
+    (c) ``train_resume``: ``examples/train_moe_100m.py``'s config on
+        ``make_mesh((4, 2), ...)`` with ``moe_overlap``, 16 x 256, 8 steps
+        in two runs through a checkpoint (``ckpt_every=4``) against an
+        uninterrupted run, under deterministic algorithms; the step-4
+        checkpoint restored with no mesh bit-equal and trained on; pallas
+        raising under autograd. Checkpoints go to ``root``
+        (``build/repro_torch/train_ckpt`` of the checkout by default) and
+        are removed.
+
+    Each part prints every step's loss, gradient norm and ms, tokens/s,
+    the share of the bf16 peak 6 N tokens reaches and the peak memory,
+    beside the card's name and power limit. Returns the launch counters
+    that moved (none: the trainer launches no hand-written kernel)."""
+    import importlib
+    mods = [importlib.import_module(f"repro_torch.kernels.{m}")
+            for m in KERNELS]
+    for m in mods:
+        m.reset_launches()
+    card = card_label(device)
+    cfgs, shapes = train_configs(small), train_shapes(small)
+    root = Path(root) if root is not None else \
+        ROOT / "build" / "repro_torch" / "train_ckpt"
+    t0 = time.perf_counter()
+    _train_dense(device, cfgs["dense"], shapes["dense"], card,
+                 0.0 if small else TRAIN_LOSS_DROP)
+    _train_moe(device, cfgs["moe"], shapes["moe"], card)
+    _train_resume(device, cfgs["resume"], shapes["resume"], card, root)
+    counts = {name: dict(m.LAUNCHES)
+              for name, m in zip(KERNELS, mods)}
+    log(f"train: all three parts in {time.perf_counter() - t0:.1f} s; kernel "
+        f"launches {counts}")
+    moved = {k: v for k, v in counts.items() if sum(v.values())}
+    if moved:
+        raise SystemExit(f"train: the trainer launched kernels: {moved}")
+    return moved
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=5,
@@ -3522,6 +3906,7 @@ def main(argv=None):
     counted["serve_kinds"] = phase_serve_kinds("cuda")
     counted["serve_mixed"] = phase_serve_mixed("cuda")
     counted["serve_tp"] = phase_serve_tp("cuda")
+    counted["train"] = phase_train("cuda")
     for path, counts in counted.items():
         log(f"launches on the {path} path: {counts}")
     for rec in records:

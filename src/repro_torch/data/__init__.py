@@ -1,0 +1,4 @@
+"""The synthetic token pipeline (port of ``repro.data``)."""
+from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline
+
+__all__ = ["DataConfig", "SyntheticTokenPipeline"]

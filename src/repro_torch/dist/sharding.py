@@ -70,6 +70,13 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def tree_leaves(tree):
+    """The leaves of nested dicts, in :func:`tree_map`'s order."""
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    return [tree]
+
+
 class Rules:
     def __init__(self, mesh, kind: str = "train", *, long_context=False):
         self.mesh = mesh

@@ -1,10 +1,12 @@
-"""The attention architectures in plain torch (port of ``repro.models``)."""
+"""The model zoo in plain torch (port of ``repro.models``): init,
+parameter and cache specs, prefill and decode, and the training loss."""
 from repro_torch.models.model import (StepOptions, cache_specs, decode_step,
                                       forward, init_cache, init_params,
                                       param_specs, params_from_numpy,
-                                      prefill_step)
+                                      prefill_step, train_loss)
 
 __all__ = [
     "StepOptions", "init_params", "params_from_numpy", "param_specs",
-    "prefill_step", "decode_step", "init_cache", "cache_specs", "forward",
+    "train_loss", "prefill_step", "decode_step", "init_cache", "cache_specs",
+    "forward",
 ]

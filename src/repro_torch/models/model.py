@@ -20,7 +20,16 @@ same on one device whatever the sharding. :func:`param_specs` and
 :func:`cache_specs` give the reference's specs (``dist.sharding.P``) of
 the parameters and the decode cache under ``rules``.
 
-Not ported yet: training (``train_loss``, remat).
+Training: :func:`train_loss` is the masked next-token cross entropy over
+:func:`forward` (optionally in sequence chunks, ``loss_chunk``), and its
+gradient is autograd's. Under ``StepOptions.remat`` (the default), when
+autograd is recording, each repeat unit of :func:`apply_blocks` and each
+encoder block runs under ``torch.utils.checkpoint`` (non-reentrant): the
+unit the reference wraps in ``jax.checkpoint``, so only the unit's input
+is kept and its activations are recomputed in the backward pass.
+Prefill and decode run under ``no_grad`` and take no checkpoint. A
+recorder (``dist.mesh.record``, ``models.moe.record_routes``) inside a
+checkpointed forward also logs the recomputation.
 """
 from __future__ import annotations
 
@@ -29,9 +38,10 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import RECURRENT_KINDS
-from repro_torch.dist.sharding import P, tree_map
+from repro_torch.dist.sharding import P, tree_leaves, tree_map
 from repro_torch.models.layers import (apply_norm, dense_init, mlp_apply,
                                        mlp_init, norm_init)
 from repro_torch.models.moe import kernel_weights, moe_param_specs
@@ -51,14 +61,21 @@ F32_LEAVES = ("router", "lam")   # leaves the reference keeps in float32
 
 @dataclass(frozen=True)
 class StepOptions:
-    """Step-level knobs of the reference's ``StepOptions`` that the port's
-    attention and MoE read (remat and the sequence-parallel knobs arrive
-    with training)."""
+    """The reference's step-level knobs. ``scan_layers``, ``seq_parallel``
+    and ``sp_residuals`` only place work in the reference (a scan over the
+    repeats, sharding constraints on the activations); ``Rules.shard`` is
+    the identity on a ``VirtualMesh`` and the port loops over the repeats,
+    so they are accepted and change nothing."""
+    remat: bool = True               # checkpoint each repeat unit (training)
     moe_overlap: bool = False        # CUCo self/remote split dispatch hiding
     moe_quantize: bool = False       # int8 dispatch (paper's quantize phase)
     moe_backend: str = "xla"         # "pallas": the moe_dispatch.cu kernel
     kv_block: int = 1024             # flash KV block
     flash_threshold: int = 8192
+    scan_layers: bool = True
+    loss_chunk: int = 0              # >0: chunked CE loss (seq chunks)
+    seq_parallel: bool = False       # prefill: activations sharded over seq
+    sp_residuals: bool = False       # train: remat carries sharded over seq
 
 
 def _dtype(cfg):
@@ -354,17 +371,38 @@ def _apply_block(p, x, cfg, slot, rules, positions, *, causal, cache, pos,
                             cache=cache, pos=pos, enc_out=enc_out, opts=opts)
 
 
+def _recording(*trees):
+    """True where autograd records a graph through any tensor of
+    ``trees``: grad mode on and one of them requiring grad."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad
+        for tree in trees for t in tree_leaves(tree))
+
+
+def _remat(fn, *args):
+    """``fn(*args)`` under a non-reentrant activation checkpoint: only the
+    arguments are kept for the backward pass, which runs ``fn`` again. The
+    forward draws no random numbers, so no RNG state is kept."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def _call(fn, *args):
+    return fn(*args)
+
+
 def apply_blocks(params_blocks, x, cfg, rules, positions, *, causal=True,
                  cache=None, pos=None, enc_out=None, opts=None,
                  return_cache=False):
     """Every layer in order: repeat ``r`` applies slot ``s0..s{unit-1}``
     with their ``[r]`` parameters (and cache). Returns ``(x, caches)``,
     caches stacked ``(R, ...)`` like the input (``None`` unless
-    ``return_cache``)."""
+    ``return_cache``). With ``opts.remat``, no ``pos`` and autograd
+    recording, each repeat runs under an activation checkpoint."""
     opts = opts or StepOptions()
     unit, R = cfg.repeat_unit, cfg.num_repeats
-    per_r = []
-    for r in range(R):
+
+    def unit_fn(x, r, enc_out):
         new = {}
         for i in range(unit):
             key = f"s{i}"
@@ -374,6 +412,13 @@ def apply_blocks(params_blocks, x, cfg, rules, positions, *, causal=True,
             x, new[key] = _apply_block(p, x, cfg, i, rules, positions,
                                        causal=causal, cache=c, pos=pos,
                                        enc_out=enc_out, opts=opts)
+        return x, new
+
+    run = _remat if opts.remat and pos is None and _recording(
+        params_blocks, {"x": x, "enc": enc_out}) else _call
+    per_r = []
+    for r in range(R):
+        x, new = run(unit_fn, x, r, enc_out)
         per_r.append(new)
     if not return_cache or per_r[0]["s0"] is None:
         return x, None
@@ -383,13 +428,19 @@ def apply_blocks(params_blocks, x, cfg, rules, positions, *, causal=True,
 def encode(params, frames, cfg, rules=None, opts=None):
     """Whisper encoder over stub frame embeddings (B, enc_seq, d):
     non-causal attention blocks, then the encoder's final norm."""
+    opts = opts or StepOptions()
     x = frames + params["enc"]["pos"][None, :frames.shape[1]].to(frames.dtype)
     positions = torch.arange(frames.shape[1], device=frames.device)
     blocks = params["enc"]["blocks"]
-    for layer in range(cfg.enc_layers):
-        x, _ = attn_block_apply(tree_map(lambda a: a[layer], blocks), x,
+
+    def block(x, layer):
+        return attn_block_apply(tree_map(lambda a: a[layer], blocks), x,
                                 cfg, "attn", rules, positions, causal=False,
-                                opts=opts)
+                                opts=opts)[0]
+
+    run = _remat if opts.remat and _recording(blocks, {"x": x}) else _call
+    for layer in range(cfg.enc_layers):
+        x = run(block, x, layer)
     return apply_norm(params["enc"]["final_norm"], x, cfg.norm)
 
 
@@ -416,6 +467,41 @@ def forward(params, batch, cfg, rules=None, opts=None, return_cache=False,
                                 causal=True, cache=cache, enc_out=enc_out,
                                 opts=opts, return_cache=return_cache)
     return apply_norm(params["final_norm"], x, cfg.norm), new_cache
+
+
+def _ce_terms(params, x, labels, cfg):
+    """Summed next-token NLL over the positions whose label is not
+    negative, and their count (a float32 0-d tensor each)."""
+    logits = lm_logits(params, x, cfg)
+    mask = labels >= 0
+    labels_c = torch.clamp(labels, min=0).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels_c[..., None])[..., 0]
+    nll = (lse - gold) * mask
+    return torch.sum(nll), torch.sum(mask).to(F32)
+
+
+def train_loss(params, batch, cfg, rules=None, opts=None):
+    """Mean next-token cross entropy of ``batch`` (``{"tokens", "labels"[,
+    "patches" | "frames"]}``; label -1 is not scored) under ``params``.
+    With ``opts.loss_chunk`` dividing the sequence (and shorter than it),
+    the loss is taken over sequence chunks, each under an activation
+    checkpoint, so the full (B, S, V) logits never exist at once."""
+    opts = opts or StepOptions()
+    x, _ = forward(params, batch, cfg, rules, opts)
+    labels = batch["labels"]
+    S = labels.shape[1]
+    ck = opts.loss_chunk
+    if ck and S % ck == 0 and S > ck:
+        nll = cnt = torch.zeros((), dtype=F32, device=x.device)
+        run = _remat if _recording(params, {"x": x}) else _call
+        for j in range(0, S, ck):
+            n, c = run(_ce_terms, params, x[:, j:j + ck],
+                       labels[:, j:j + ck], cfg)
+            nll, cnt = nll + n, cnt + c
+        return nll / torch.clamp(cnt, min=1)
+    nll, cnt = _ce_terms(params, x, labels, cfg)
+    return nll / torch.clamp(cnt, min=1)
 
 
 def prefill_step(params, batch, cfg, rules=None, seq_len=None, opts=None):

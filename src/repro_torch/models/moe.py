@@ -50,6 +50,12 @@ Two divergences from the reference, on purpose:
   engine extends the rule to its elastic path: ``Engine.degrade`` onto a
   width the kernel cannot take raises at the degrade, and the caller
   switches to ``backend="xla"`` in the open.
+* Under autograd ``backend="pallas"`` raises: a kernel launched through
+  the extension returns tensors with no ``grad_fn``, so the input and the
+  expert weights would quietly get no gradient. The reference never
+  differentiates its Pallas body either (training takes the XLA bodies).
+  The host bodies carry gradients, the mesh's collectives and
+  ``local_shards`` / ``from_shards`` with them.
 * Every body computes the routed and the shared expert FFNs in float32,
   combines them in float32 (gates, the sum over a token's choices, and
   the sums over ranks) and rounds the layer's output to the activation
@@ -68,7 +74,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.dist.sharding import P, from_shards, local_shards, replicated
+from repro_torch.dist.sharding import (P, from_shards, local_shards,
+                                       replicated, tree_leaves)
 from repro_torch.models.layers import dense_init, mlp_apply, mlp_init
 
 F32 = torch.float32
@@ -522,6 +529,7 @@ def _gathered_body(x2, p, cfg, rules):
 
 # ---------------------------------------------------------------- public API
 
+
 def moe_apply(params, x, cfg, rules, *, overlap=False, quantize=False,
               backend="xla", probe=None):
     """Apply the MoE block. x: (B, S, d), the whole batch.
@@ -532,12 +540,19 @@ def moe_apply(params, x, cfg, rules, *, overlap=False, quantize=False,
     dispatch -> FFN -> combine chain through the Hopper kernel (``probe``,
     a ``ScheduleProbe``, records its marks): :func:`_pallas_body` for a
     batch that shards, :func:`_padded_body` for any other; it raises
-    ``ValueError`` where :func:`pallas_moe_eligible` does not hold.
+    ``ValueError`` where :func:`pallas_moe_eligible` does not hold, and
+    where autograd would record through ``x`` or any weight.
     ``backend="xla"`` takes the all-to-all body (the gathered body for a
     batch that does not shard) for ``alltoall`` experts, the replicated
     body for the others."""
     if backend not in ("xla", "pallas"):
         raise ValueError(f"moe backend {backend!r}: 'xla' or 'pallas'")
+    if backend == "pallas" and torch.is_grad_enabled() and any(
+            t.requires_grad for t in tree_leaves({"x": x, "p": params})):
+        raise ValueError(
+            "moe_backend='pallas' under autograd: the moe_dispatch.cu kernel "
+            "has no backward, so the MoE input and the expert weights would "
+            "get no gradient; train with moe_backend='xla'")
     B, S, d = x.shape
     if backend == "pallas" and not pallas_moe_eligible(cfg, rules, B):
         raise ValueError(

@@ -3,8 +3,8 @@
 Mechanisms:
 
 * **Preemption-aware saving** — SIGTERM/SIGINT installs a "save at the
-  next step boundary" flag (:class:`PreemptionGuard`); the loop that
-  honours it (checkpointing, the training loop) is not ported yet.
+  next step boundary" flag (:class:`PreemptionGuard`), which the training
+  loop (``train/loop.py``) honours by checkpointing and returning.
 * **Straggler mitigation** — synchronous steps cannot proceed without
   every worker; the watchdog measures per-step wall time against a rolling
   median and flags persistent stragglers for replacement
