@@ -189,6 +189,19 @@ sizes; every run runs all of them, and any failure exits non-zero):
     gradient norm and ms, tokens/s, the share of 989 TFLOP/s that 6 N
     tokens reaches and the peak memory, beside the card's name and power
     limit.
+26. ``dryrun`` — the dry run (``launch/dryrun.py``, a ``TorchDispatchMode``
+    count of the torch step, ``core/op_count.py``) on two production
+    cells on meta (llama3.2-1b and granite-moe at ``train_4k`` on 16 x
+    16), then held against the card: ``train_dense``'s step, the llama
+    engine's prefill at 8 x 512 and one decode step, and ``train_moe``'s
+    step, each timed and counted on the card and on meta (FLOPs, bytes
+    and collectives equal), the H100 model's ``compute_s``, ``memory_s``
+    and ``step_time_s`` beside the measured step (the bound may not
+    exceed it), the arguments and op_count's peak against
+    ``max_memory_allocated``.
+27. ``examples`` — ``repro_torch.examples``' four scripts at their
+    smallest arguments on the card (``codesign_search`` counted: its
+    cascade launches ``moe_dispatch.cu``) and ``schedule_lint`` clean.
 
 ``--iters`` sets the timed launches per kernel (1 for a quick check after
 a kernel change). The line before the last is the ``kernels`` JSON
@@ -3868,6 +3881,304 @@ def phase_train(device="cuda", small=False, root=None):
     return moved
 
 
+# ------------------------------------------------------------------- dry run
+
+DRYRUN_CELLS = (("llama3.2-1b", "train_4k"),
+                ("granite-moe-3b-a800m", "train_4k"))
+DRYRUN_PEAK_TOL = 0.10     # op_count's peak against the card's, relative
+
+
+def _meta_twin(args):
+    """``args`` (a tuple of trees) with every tensor an uninitialised meta
+    tensor of its shape, strides and type; a 0-d host tensor (the
+    optimizer's step) copied, other leaves as they are."""
+    from repro_torch.dist.sharding import tree_map
+
+    def twin(t):
+        if not isinstance(t, torch.Tensor):
+            return t
+        if t.dim() == 0 and t.device.type == "cpu":
+            return t.clone()
+        return torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                                   device="meta")
+    return tuple(tree_map(twin, a) for a in args)
+
+
+def _step_ms(fn, args, device, steps=3):
+    """The median of ``steps`` calls of ``fn(*args)`` after one warm-up,
+    each on the host clock with the device synchronized."""
+    cuda = torch.device(device).type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(device)) if cuda else (
+        lambda: None)
+    fn(*args)
+    sync()
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        fn(*args)
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), times
+
+
+def _dryrun_steps(device, small):
+    """(b)'s steps, each ``(label, build)``: ``build()`` makes the step's
+    arguments on ``device`` and returns ``(fn, args, meta_fn)`` (the same
+    step over a meta mesh where it has one)."""
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.dist.sharding import Rules
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.specs import (make_prefill_step, make_serve_step,
+                                          make_train_step)
+    from repro_torch.models import StepOptions, init_params
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import build_state
+    from repro_torch.train.loop import device_batch
+    cfgs, shapes = train_configs(small), train_shapes(small)
+    opt = AdamWConfig(warmup_steps=1, total_steps=6)
+    B, S, _ = shapes["dense"]
+    dense = cfgs["dense"]
+    new = serve_shape(small)[2]
+
+    def batch(cfg, B, S):
+        return device_batch(SyntheticTokenPipeline(DataConfig(
+            vocab_size=cfg.vocab_size, seq_len=S, global_batch=B)).batch(0),
+            device)
+
+    def train_dense():
+        params, opt_state = build_state(torch.Generator(
+            device=device).manual_seed(0), dense, None, None, device)[:2]
+        fn = make_train_step(dense, None, StepOptions(), opt)
+        return fn, (params, opt_state, batch(dense, B, S)), fn
+
+    def serve(decode):
+        params = init_params(torch.Generator(device=device).manual_seed(0),
+                             dense, device=device)
+        prefill = make_prefill_step(dense, None, StepOptions(), S + new)
+        tokens = {"tokens": batch(dense, B, S)["tokens"]}
+        if not decode:
+            return prefill, (params, tokens), prefill
+        logits, cache = prefill(params, tokens)
+        tok = torch.argmax(logits[:, -1], -1)[:, None]
+        step = make_serve_step(dense, None, StepOptions())
+        return step, (params, cache, tok, S), step
+
+    def train_moe():
+        cfg = cfgs["moe"]
+        Bm, Sm, _ = shapes["moe"]
+        meshes = [make_mesh((1, 4), ("data", "model"), device=d)
+                  for d in (device, "meta")]
+        rules = [Rules(m, "train") for m in meshes]
+        params, opt_state = build_state(torch.Generator(
+            device=device).manual_seed(0), cfg, meshes[0], rules[0],
+            device)[:2]
+        return (make_train_step(cfg, rules[0], StepOptions(), opt),
+                (params, opt_state, batch(cfg, Bm, Sm)),
+                make_train_step(cfg, rules[1], StepOptions(), opt))
+
+    return [(f"train_dense {dense.name} {B} x {S}", train_dense),
+            (f"prefill {dense.name} {B} x {S}", lambda: serve(False)),
+            (f"decode {dense.name} {B} x 1 at {S}", lambda: serve(True)),
+            (f"train_moe {cfgs['moe'].name} {cfgs['moe'].num_layers} layers "
+             f"on (1, 4), {shapes['moe'][0]} x {shapes['moe'][1]}",
+             train_moe)]
+
+
+def _held_to_card(label, fn, args, meta_fn, device, card):
+    """One step of (b): its time on ``device``, its count there and on
+    meta (equal in FLOPs, bytes and collectives), the H100 model's terms
+    against the measured step, and the memory gates. Returns the line's
+    numbers."""
+    import gc
+    from repro_torch.core.cost_model import roofline_from_count
+    from repro_torch.core.hardware import H100
+    from repro_torch.core.op_count import op_count, storage_bytes
+    cuda = torch.device(device).type == "cuda"
+    ms, times = _step_ms(fn, args, device)
+    arg_b = storage_bytes(args)
+    gc.collect()
+    _peak_reset(device)
+    if cuda:           # what the process holds besides the step's arguments
+        other = torch.cuda.memory_allocated(device) - arg_b
+    with op_count(held=args) as here:
+        fn(*args)
+    if cuda:
+        torch.cuda.synchronize(device)
+        max_alloc = torch.cuda.max_memory_allocated(device)
+        step_peak = max_alloc - other
+    meta_args = _meta_twin(args)
+    meta_fn(*meta_args)                 # a warm-up, as on the device
+    with op_count(held=meta_args) as meta:
+        meta_fn(*meta_args)
+    del meta_args
+    same = (here.flops, here.bytes, [dataclasses.astuple(e) for e in
+                                      here.events]) == \
+        (meta.flops, meta.bytes, [dataclasses.astuple(e) for e in
+                                  meta.events])
+    rep = roofline_from_count(here, None, H100)
+    step_s = ms / 1e3
+    log(f"dryrun {label}: {here.flops:.6e} FLOP, {here.bytes:.6e} bytes, "
+        f"{len(here.events)} collectives, {here.ops} ops on {device} (meta: "
+        f"{meta.flops:.6e} / {meta.bytes:.6e} / {len(meta.events)}; equal "
+        f"{same}); H100 model compute_s {rep.compute_s * 1e3:.3f} ms, "
+        f"memory_s {rep.memory_s * 1e3:.3f} ms, step_time_s "
+        f"{rep.step_time_s * 1e3:.3f} ms ({rep.dominant}) against the "
+        f"measured step {ms:.3f} ms (median of "
+        f"{' '.join(f'{t:.3f}' for t in times)} after a warm-up): "
+        f"{rep.compute_s / step_s:.4f} / {rep.memory_s / step_s:.4f} / "
+        f"{rep.step_time_s / step_s:.4f} of it [{card}]")
+    if not same:
+        raise SystemExit(f"dryrun {label}: the meta trace and the trace on "
+                         f"{device} count different work")
+    if not cuda:
+        log(f"dryrun {label}: arguments {arg_b / 2**30:.3f} GiB, op_count "
+            f"peak {here.peak_bytes / 2**30:.3f} GiB; the card's peak not "
+            f"measured [{card}]")
+        return rep, ms
+    log(f"dryrun {label}: arguments {arg_b / 2**30:.3f} GiB, op_count peak "
+        f"{here.peak_bytes / 2**30:.3f} GiB, max_memory_allocated "
+        f"{max_alloc / 2**30:.3f} GiB less {other / 2**30:.3f} GiB the "
+        f"process held besides the arguments: {step_peak / 2**30:.3f} GiB "
+        f"(op_count/card {here.peak_bytes / step_peak:.4f}, tol "
+        f"{DRYRUN_PEAK_TOL}) [{card}]")
+    if rep.compute_s > step_s or rep.step_time_s > step_s:
+        raise SystemExit(f"dryrun {label}: the card beat the bound — the "
+                         "count is wrong")
+    if arg_b > step_peak or abs(here.peak_bytes - step_peak) \
+            > DRYRUN_PEAK_TOL * step_peak:
+        raise SystemExit(f"dryrun {label}: the count's memory disagrees "
+                         "with the card's")
+    return rep, ms
+
+
+def phase_dryrun(device="cuda", small=False):
+    """The dry run and its count held against the card (``small``: the
+    CPU test's form: (a) at ``decode_32k``, (b) at the reduced sizes):
+
+    (a) ``launch/dryrun.py::run_cell`` on two production cells,
+        llama3.2-1b and granite-moe-3b-a800m at ``train_4k`` on the
+        16 x 16 mesh, traced on meta: one summary line each; granite's
+        must count its MoE layers' collectives (the replicated expert
+        body's all-reduces over the model axis).
+    (b) four steps the smoke already measures, built as the dry run
+        builds them (``launch/specs.py``): ``train_dense``'s step
+        (llama3.2-1b, 8 x 512, no mesh, remat, AdamW), the same model's
+        prefill at 8 x 512 and one decode step after it, and
+        ``train_moe``'s (granite, 8 layers, on (1, 4), 8 x 512). Each is
+        timed (median of 3 after a warm-up), counted on the device and on
+        meta (equal FLOPs, bytes and collectives: the same program), and
+        the H100 model's terms of the whole program on one card are
+        printed beside the measured step. On the card ``compute_s`` and
+        ``step_time_s`` must not exceed the step, and the step's peak
+        (``max_memory_allocated`` less what the process held besides the
+        step's arguments when it started) must be at least the
+        arguments and within ``DRYRUN_PEAK_TOL`` of op_count's peak
+        (arguments and every storage the step makes).
+
+    Every number beside the card's name and power limit."""
+    from repro_torch.launch.dryrun import run_cell
+    card = card_label(device)
+    t0 = time.perf_counter()
+    cells = [(a, "decode_32k") for a, _ in DRYRUN_CELLS] if small \
+        else DRYRUN_CELLS
+    for arch, shape in cells:
+        t1 = time.perf_counter()
+        d = run_cell(arch, shape, False, verbose=False)
+        r, m = d["roofline"], d["memory"]
+        kinds = collections.Counter(c.split()[0] for c in
+                                    d["collective_schedule"])
+        log(f"dryrun cell {arch} {shape} {d['mesh']} (meta, "
+            f"{time.perf_counter() - t1:.1f} s): per device {r['flops']:.4e} "
+            f"FLOP, {r['bytes']:.4e} bytes, {r['n_collectives']} collectives "
+            f"({dict(kinds)} among the 20 largest), H100 model compute "
+            f"{r['compute_s']:.4f} s, memory {r['memory_s']:.4f} s, "
+            f"collective {r['collective_s']:.4f} s, {r['dominant']}; "
+            f"useful FLOPs {d['useful_flops_ratio']:.3f}; arguments "
+            f"{m['argument_bytes'] / 2**30:.3f} GiB, peak "
+            f"{m['peak_bytes'] / 2**30:.3f} GiB a device")
+        if arch.startswith("granite") and not r["n_collectives"]:
+            raise SystemExit(f"dryrun {arch}: no MoE collective counted")
+    for label, build in _dryrun_steps(device, small):
+        fn, args, meta_fn = build()
+        _held_to_card(label, fn, args, meta_fn, device, card)
+        del fn, args, meta_fn
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    log(f"dryrun: {time.perf_counter() - t0:.1f} s [{card}]")
+
+
+# ------------------------------------------------------------------ examples
+
+def phase_examples(device="cuda", small=False, root=None):
+    """The four examples of ``repro_torch.examples`` at their smallest
+    arguments and the schedule lint, on ``device`` (``small``: the CPU
+    test's shorter runs): ``quickstart`` a few steps, ``serve_decode``,
+    ``codesign_search --workload moe_dispatch --generations 1 --islands
+    1`` (its cascade launches ``moe_dispatch.cu`` on the card),
+    ``train_moe_100m`` a few steps with its checkpoints under ``root``
+    (``build/repro_torch/examples`` of the checkout by default, removed),
+    ``schedule_lint`` (exit 0). Each example's output goes to
+    ``<root>/<name>.log``. Returns the moe launch counter of the run."""
+    import contextlib
+    import shutil
+    from repro_torch.examples import (codesign_search, quickstart,
+                                      serve_decode, train_moe_100m)
+    from repro_torch.kernels import moe_dispatch as kern
+    from repro_torch.tools import schedule_lint
+    card = card_label(device)
+    root = Path(root) if root is not None else \
+        ROOT / "build" / "repro_torch" / "examples"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    dev = ["--device", str(device)]
+    runs = [
+        ("quickstart", quickstart.main, ["--steps", "3"] + dev),
+        ("serve_decode", serve_decode.main,
+         (["--batch", "2", "--prompt-len", "8", "--new-tokens", "4"]
+          if small else []) + dev),
+        ("codesign_search", codesign_search.main,
+         ["--workload", "moe_dispatch", "--generations", "1", "--islands",
+          "1"] + dev),
+        ("train_moe_100m", train_moe_100m.main,
+         ["--steps", "1" if small else "3", "--ckpt", str(root / "ckpt")]
+         + (["--batch", "4", "--seq", "16"] if small else []) + dev),
+        ("schedule_lint", schedule_lint.main, ["--quiet"]),
+    ]
+    kern.reset_launches()
+    t0 = time.perf_counter()
+    out = {}
+    for name, main, argv in runs:
+        t1 = time.perf_counter()
+        with open(root / f"{name}.log", "w") as f, \
+                contextlib.redirect_stdout(f):
+            out[name] = main(argv)
+        log(f"examples {name} {' '.join(argv)}: "
+            f"{time.perf_counter() - t1:.1f} s (output in "
+            f"{root / name}.log) [{card}]")
+    counts = dict(kern.LAUNCHES)
+    losses, toks = out["quickstart"]
+    mono, disagg = out["serve_decode"]
+    res = out["codesign_search"]
+    moe_losses, last = out["train_moe_100m"]
+    log(f"examples: quickstart loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+        f"{tuple(toks.shape)} tokens; serve_decode disaggregated equals "
+        f"monolithic: {torch.equal(mono, disagg)}; codesign_search best "
+        f"score {res.best.score:.3f} (seed {res.seed_score:.3f}), moe "
+        f"launches {sum(counts.values())}; train_moe_100m to step {last}, "
+        f"loss {moe_losses[0]:.4f} -> {moe_losses[-1]:.4f}; schedule_lint "
+        f"exit {out['schedule_lint']}; {time.perf_counter() - t0:.1f} s "
+        f"[{card}]")
+    if not (all(math.isfinite(v) for v in losses + moe_losses)
+            and torch.equal(mono, disagg) and out["schedule_lint"] == 0
+            and res.best.score >= res.seed_score):
+        raise SystemExit("examples: an example failed its check")
+    if torch.device(device).type == "cuda" and not sum(counts.values()):
+        raise SystemExit("examples: codesign_search launched no "
+                         "moe_dispatch kernel")
+    shutil.rmtree(root / "ckpt", ignore_errors=True)
+    return counts
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=5,
@@ -3907,6 +4218,8 @@ def main(argv=None):
     counted["serve_mixed"] = phase_serve_mixed("cuda")
     counted["serve_tp"] = phase_serve_tp("cuda")
     counted["train"] = phase_train("cuda")
+    phase_dryrun("cuda")
+    counted["examples"] = phase_examples("cuda")
     for path, counts in counted.items():
         log(f"launches on the {path} path: {counts}")
     for rec in records:

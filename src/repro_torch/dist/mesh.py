@@ -41,6 +41,7 @@ class CollectiveEvent:
     shape: tuple                  # per-rank operand shape
     dtype: str
     payload_bytes: int            # per-rank operand bytes
+    result_bytes: int = 0         # per-rank result bytes
     operand: object = field(default=None, repr=False, compare=False)
     result: object = field(default=None, repr=False, compare=False)
 
@@ -79,6 +80,8 @@ def _log(kind, axis, operand, result):
                          dtype=str(operand.dtype).replace("torch.", ""),
                          payload_bytes=operand[0].numel()
                          * operand.element_size(),
+                         result_bytes=result[0].numel()
+                         * result.element_size(),
                          operand=operand, result=result)
     for rec in _RECORDERS:
         rec.append(ev)

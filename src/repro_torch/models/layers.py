@@ -30,13 +30,24 @@ NEG_INF = -1e30
 
 # ---------------------------------------------------------------- init utils
 
+def draw(gen, shape, uniform=False):
+    """f32 standard normals (``uniform``: U[0, 1)) of ``shape`` from the
+    ``torch.Generator`` ``gen`` on its device. ``gen`` None draws nothing:
+    an uninitialised tensor on the meta device (the shape-only path of
+    ``models.model.param_shapes``)."""
+    if gen is None:
+        return torch.empty(shape, dtype=F32, device="meta")
+    fn = torch.rand if uniform else torch.randn
+    return fn(shape, generator=gen, device=gen.device, dtype=F32)
+
+
 def dense_init(gen, d_in, d_out, dtype, scale=None, device=None):
     """(d_in, d_out) normal / sqrt(d_in) (or ``scale``), drawn in f32 from
-    ``gen`` on its device and cast to ``dtype`` on ``device``."""
+    ``gen`` on its device (:func:`draw`) and cast to ``dtype`` on
+    ``device``."""
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
-    w = torch.randn((d_in, d_out), generator=gen, device=gen.device,
-                    dtype=F32) * scale
-    return w.to(device=device or gen.device, dtype=dtype)
+    w = draw(gen, (d_in, d_out)) * scale
+    return w.to(device=device or w.device, dtype=dtype)
 
 
 def norm_init(d, norm_kind, dtype, device):

@@ -111,7 +111,8 @@ def init_params(gen, cfg, device="cuda"):
     """Random weights of the reference's shapes and scales, drawn from the
     ``torch.Generator`` ``gen`` on its device and placed on ``device``.
     (The numbers differ from the reference's ``jax.random`` draws; tests
-    carry the reference's weights over with :func:`params_from_numpy`.)"""
+    carry the reference's weights over with :func:`params_from_numpy`.)
+    ``gen`` None with ``device="meta"`` draws nothing (:func:`param_shapes`)."""
     dtype = _dtype(cfg)
     Vp, d = cfg.vocab_padded, cfg.d_model
     params = {"embed": dense_init(gen, Vp, d, dtype, scale=0.02,
@@ -136,6 +137,15 @@ def init_params(gen, cfg, device="cuda"):
             "final_norm": norm_init(d, cfg.norm, dtype, device),
         }
     return params
+
+
+def param_shapes(cfg):
+    """:func:`init_params`' tree as :class:`ShapeDtype` leaves, drawing no
+    number (the reference's ``jax.eval_shape(init_params)``): every draw
+    is an uninitialised tensor on the meta device, so a model of any size
+    costs only its metadata."""
+    return tree_map(lambda t: ShapeDtype(tuple(t.shape), t.dtype),
+                    init_params(None, cfg, device="meta"))
 
 
 def params_from_numpy(tree, cfg, device="cuda"):
@@ -391,6 +401,15 @@ def _call(fn, *args):
     return fn(*args)
 
 
+def _unstack(tree):
+    """Each stacked ``(R, ...)`` leaf of ``tree`` as its R repeats' views,
+    taken once. Under autograd their backward stacks the R gradients into
+    one ``(R, ...)`` tensor; a select of each repeat would write a zeroed
+    ``(R, ...)`` gradient per repeat and sum the R of them, traffic that
+    grows as R squared."""
+    return tree_map(lambda a: a.unbind(0), tree)
+
+
 def apply_blocks(params_blocks, x, cfg, rules, positions, *, causal=True,
                  cache=None, pos=None, enc_out=None, opts=None,
                  return_cache=False):
@@ -401,12 +420,13 @@ def apply_blocks(params_blocks, x, cfg, rules, positions, *, causal=True,
     recording, each repeat runs under an activation checkpoint."""
     opts = opts or StepOptions()
     unit, R = cfg.repeat_unit, cfg.num_repeats
+    layers = _unstack(params_blocks)
 
     def unit_fn(x, r, enc_out):
         new = {}
         for i in range(unit):
             key = f"s{i}"
-            p = tree_map(lambda a: a[r], params_blocks[key])
+            p = tree_map(lambda a: a[r], layers[key])
             c = tree_map(lambda a: a[r], cache[key]) if cache is not None \
                 else None
             x, new[key] = _apply_block(p, x, cfg, i, rules, positions,
@@ -432,9 +452,10 @@ def encode(params, frames, cfg, rules=None, opts=None):
     x = frames + params["enc"]["pos"][None, :frames.shape[1]].to(frames.dtype)
     positions = torch.arange(frames.shape[1], device=frames.device)
     blocks = params["enc"]["blocks"]
+    layers = _unstack(blocks)
 
     def block(x, layer):
-        return attn_block_apply(tree_map(lambda a: a[layer], blocks), x,
+        return attn_block_apply(tree_map(lambda a: a[layer], layers), x,
                                 cfg, "attn", rules, positions, causal=False,
                                 opts=opts)[0]
 
@@ -522,7 +543,7 @@ def decode_step(params, cache, token, pos, cfg, rules=None, opts=None):
     if cfg.learned_pos:
         p = pos % MAX_LEARNED_POS
         x = x + params["pos"][p:p + 1][None].to(x.dtype)
-    positions = torch.tensor([pos], device=token.device)
+    positions = torch.full((1,), pos, device=token.device)
     x, new_cache = apply_blocks(params["blocks"], x, cfg, rules, positions,
                                 causal=True, cache=cache, pos=pos, opts=opts,
                                 return_cache=True)

@@ -76,7 +76,7 @@ import torch.nn.functional as F
 
 from repro_torch.dist.sharding import (P, from_shards, local_shards,
                                        replicated, tree_leaves)
-from repro_torch.models.layers import dense_init, mlp_apply, mlp_init
+from repro_torch.models.layers import dense_init, draw, mlp_apply, mlp_init
 
 F32 = torch.float32
 
@@ -85,7 +85,7 @@ def moe_init(gen, cfg, dtype, device):
     E, d, f = cfg.num_experts_padded, cfg.d_model, cfg.moe_d_ff
 
     def normal(shape, fan_in):
-        w = torch.randn(shape, generator=gen, device=gen.device, dtype=F32)
+        w = draw(gen, shape)
         return (w / math.sqrt(fan_in)).to(device=device, dtype=dtype)
 
     p = {"router": dense_init(gen, d, E, F32, device=device),  # router f32
@@ -195,7 +195,11 @@ def _dispatch_indices(idx, E_pad, C):
     """idx: (..., T, k). Returns flat (..., T*k) expert ids, the slot within
     the expert (over each leading index's tokens), keep."""
     flat_e = idx.reshape(*idx.shape[:-2], -1)
-    oh = F.one_hot(flat_e, E_pad)                               # (..., Tk, E)
+    # (..., Tk, E) one-hot by the same ops on every device: F.one_hot
+    # checks its range on the host for a CPU tensor and takes other ops on
+    # meta, so a count of the step would differ between the two
+    oh = (flat_e[..., None] == torch.arange(E_pad, device=flat_e.device)
+          ).long()
     pos = ((torch.cumsum(oh, dim=-2) - 1) * oh).sum(dim=-1)    # slot in expert
     return flat_e, pos, pos < C
 

@@ -23,7 +23,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import apply_norm, dense_init, norm_init
+from repro_torch.models.layers import apply_norm, dense_init, draw, norm_init
 
 F32 = torch.float32
 _C = 8.0
@@ -32,11 +32,9 @@ _C = 8.0
 def rglru_init(gen, cfg, dtype, device):
     d = cfg.d_model
     # Lambda init so a^(1/c) ~ U[0.9, 0.999] (griffin appendix)
-    u = torch.rand((d,), generator=gen, device=gen.device, dtype=F32) \
-        * (0.999 - 0.9) + 0.9
+    u = draw(gen, (d,), uniform=True) * (0.999 - 0.9) + 0.9
     lam = torch.log(torch.expm1(-torch.log(u)))          # softplus^-1(-log u)
-    conv_w = torch.randn((cfg.conv_width, d), generator=gen, device=gen.device,
-                         dtype=F32) / math.sqrt(cfg.conv_width)
+    conv_w = draw(gen, (cfg.conv_width, d)) / math.sqrt(cfg.conv_width)
     return {
         "norm": norm_init(d, cfg.norm, dtype, device),
         "in_a": dense_init(gen, d, d, dtype, device=device),

@@ -20,7 +20,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import apply_norm, dense_init, norm_init
+from repro_torch.models.layers import apply_norm, dense_init, draw, norm_init
 
 F32 = torch.float32
 M_INIT = -1e30
@@ -174,8 +174,7 @@ def slstm_init(gen, cfg, dtype, device):
     H = cfg.num_heads
     dh = d // H
     ff = -(-int(4 * d / 3) // 16) * 16            # shard-friendly multiple of 16
-    r = torch.randn((H, dh, 4 * dh), generator=gen, device=gen.device,
-                    dtype=F32) / math.sqrt(dh)
+    r = draw(gen, (H, dh, 4 * dh)) / math.sqrt(dh)
 
     def dense(d_in, d_out):
         return dense_init(gen, d_in, d_out, dtype, device=device)
