@@ -202,6 +202,18 @@ sizes; every run runs all of them, and any failure exits non-zero):
 27. ``examples`` — ``repro_torch.examples``' four scripts at their
     smallest arguments on the card (``codesign_search`` counted: its
     cascade launches ``moe_dispatch.cu``) and ``schedule_lint`` clean.
+28. ``suites`` — the reference's five acceptance suites
+    (``repro_torch.suites``, ``tests/scripts/*_suite.py``), counted as one
+    path: the workload suite (moe_dispatch, kv_shuttle, gemm_allgather and
+    ring_attention against each workload's oracle); telemetry,
+    search_scale and serving on the reference's ``V5E`` context, whose
+    artifacts must equal the checked-in ``BENCH_search.json``,
+    ``BENCH_search_scale.json`` and ``BENCH_serving.json``; then those
+    three and verify on the ``H100`` model into ``build/suites/``: search
+    wall s a candidate, the warm-start and transfer payoffs, the four
+    serving rows, l0 and l2 ms and their ratio against the reference's
+    0.1 gate. Four ``kernels``-line records at the workload suite's
+    shapes.
 
 ``--iters`` sets the timed launches per kernel (1 for a quick check after
 a kernel change). The line before the last is the ``kernels`` JSON
@@ -212,7 +224,7 @@ gemm_allgather from ``ga_main``, flash and ring from ``ring_main``, the
 moe records at the llama4 shapes from ``serve_moe``, the n = 3 records
 from ``faults``, the padded decode record from ``serve_mixed``, whisper's
 cross handoff from ``serve_kinds``, granite's handoff from
-``serve_tp``); the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
+``serve_tp``, the workload suite's records from ``suites``); the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 outside a checkout, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -4179,6 +4191,231 @@ def phase_examples(device="cuda", small=False, root=None):
     return counts
 
 
+# ------------------------------------------------------------------ suites
+
+def _suite_kernels():
+    from repro_torch.kernels import (gemm_allgather, kv_shuttle,
+                                     moe_dispatch, ring_attention)
+    return {"moe_dispatch": moe_dispatch, "kv_shuttle": kv_shuttle,
+            "gemm_allgather": gemm_allgather,
+            "ring_attention": ring_attention}
+
+
+def suite_record_cases():
+    """(kernel module, workload-suite case, directive) of phase ``suites``'
+    ``kernels``-line records: one a kernel, at the workload suite's shape —
+    the ring's COUNTER TILE_FUSED point (BH 4, seq 512, hd 64), moe's
+    pipelined tight dispatch (4 x 256 tokens, d 128, f 256, skew 3), the
+    FLUX shuttle at ``kv_chunk`` 32 and gemm_allgather's TILE_FUSED SIGNAL
+    at ``tile_m`` 32 (each at its workload's verification inputs)."""
+    from repro_torch.suites import workload as suite
+    ring, moe, _, _, kv, ga = suite.cases()
+    return [("ring_attention", ring, ring[2][4]),
+            ("moe_dispatch", moe, moe[2][4]),
+            ("kv_shuttle", kv, kv[2][4]),
+            ("gemm_allgather", ga, ga[2][2])]
+
+
+def _suite_plain(w, d, ins):
+    """The plain version of the kernel ``w.build(d)`` launches, with the
+    knobs the build passes, on ``ins``."""
+    if w.name == "gemm_allgather":
+        from repro_torch.kernels.gemm_allgather import gemm_allgather_plain
+        k = w.kernel_knobs(d, ins[0].shape[1])
+        return lambda: gemm_allgather_plain(
+            *ins, tile_m=k["tile_m"], fused=k["fused"], counter=k["counter"],
+            contexts=k["contexts"])
+    k = w.kernel_knobs(d)
+    if w.name == "moe_dispatch":
+        from repro_torch.kernels.moe_dispatch import moe_dispatch_combine_ref
+        counts = [int(c) for c in w._counts(ins[0].shape[1])]
+        return lambda: moe_dispatch_combine_ref(
+            *ins, counts=counts, block_tokens=k["block_tokens"],
+            tight=k["tight"], wire_i8=bool(k["wire_i8"]),
+            contexts=k["contexts"])
+    if w.name == "kv_transfer":
+        from repro_torch.kernels.kv_shuttle import kv_shuttle_plain
+        return lambda: kv_shuttle_plain(
+            *ins, chained=k["chained"], fused=k["fused"],
+            counter=k["counter"], kv_chunk=k["kv_chunk"],
+            contexts=k["contexts"])
+    from repro_torch.kernels.ring_attention import ring_attention_plain
+    return lambda: ring_attention_plain(
+        *ins, causal=True, fused=k["fused"], counter=k["counter"],
+        kv_chunk=k["kv_chunk"], pipelined=k["pipelined"],
+        eager_wait=k["eager"], contexts=k["contexts"])
+
+
+def _suite_bound_and_library(bench, w, ins):
+    """(bound, library) of one call of ``w``'s kernel on ``ins``: the
+    bounds of the kernel phases and the same library calls."""
+    if w.name == "moe_dispatch":
+        x, w1, w2 = ins
+        counts = [int(c) for c in w._counts(x.shape[1])]
+        bnd = moe_bound(w.n_dev, counts, x.shape[2], w2.shape[1])
+        return bnd, moe_library(bench, x, w1, w2, counts, None)
+    if w.name == "kv_transfer":
+        x, wk, wv = ins
+        return (kv_bound(pure=False, rows=x.shape[1], width=wk.shape[1],
+                         d=x.shape[2]),
+                ("matmul", bench.ms(lambda: (torch.matmul(x[0], wk),
+                                             torch.matmul(x[0], wv)))))
+    if w.name == "gemm_allgather":
+        a, b = ins
+        n, M_l, K = a.shape
+        sink = torch.empty((n, n * M_l, b.shape[1]), device=a.device)
+        return ga_bound(n, M_l, K, b.shape[1]), ("matmul+copy", bench.ms(
+            lambda: sink.copy_(torch.matmul(a.reshape(-1, K), b)[None]
+                               .expand_as(sink))))
+    n, BH, Sl, hd = ins[0].shape
+    whole = [gathered(t).contiguous() for t in ins]
+    return attn_bound(BH, n * Sl, hd, True), (
+        "sdpa", bench.ms(lambda: _sdpa(*whole, True)))
+
+
+def suite_records(device="cuda", iters=5):
+    """The ``kernels``-line records of :func:`suite_record_cases`, taken
+    after the counted run: each kernel launched once through its
+    workload's build (the launch it adds to its wrapper's count names the
+    record's key on the ``suites`` path), held to its plain version within
+    1e-4 and timed beside its bound and library call."""
+    from repro_torch.core.cascade import _full_f32
+    from repro_torch.suites import workload as suite
+    sources = {"moe_dispatch": (SOURCE, REPLACES),
+               "kv_shuttle": (KV_SOURCE, KV_REPLACES),
+               "gemm_allgather": (GA_SOURCE, GA_REPLACES),
+               "ring_attention": (RING_SOURCE, RING_REPLACES)}
+    kerns = _suite_kernels()
+    bench = Bench(device, iters)
+    out = []
+    with _full_f32(torch.device(device)):
+        for name, (wname, n, _, kw), d in suite_record_cases():
+            w, mesh, ins = suite.inputs(wname, n, kw, torch.device(device))
+            run = lambda: w.build(d, mesh)(*ins)  # noqa: E731
+            before = collections.Counter(kerns[name].LAUNCHES)
+            with torch.no_grad():
+                got = run()
+            new = [k for k, v in kerns[name].LAUNCHES.items()
+                   if v != before.get(k, 0)]
+            key = new[0] if new else (d.placement, "plain")
+            shape = f"{wname} " + ", ".join(
+                "x".join(map(str, t.shape)) for t in ins)
+            bnd, lib = _suite_bound_and_library(bench, w, ins)
+            out.append(bench.record(
+                f"{name}/{key[0]}@workload_suite", f"{shape} f32", run,
+                _suite_plain(w, d, ins), 1e-4, bnd, lib, *sources[name],
+                (name, *key), "suites", got=got, contexts=d.contexts))
+            del got, ins
+    return out
+
+
+def phase_suites(device="cuda", small=False, root=None, iters=5):
+    """The reference's five acceptance suites (``repro_torch.suites``) on
+    ``device``, with every launch counter at 0 for the whole phase (the
+    ``suites`` path): the workload suite (each workload's builds against
+    its oracle; on the card moe_dispatch, kv_shuttle, gemm_allgather and
+    ring_attention); then telemetry, search_scale and serving on the
+    reference's ``V5E`` context (under ``common.left_fold_sum``, the
+    summation the checked-in artifacts were written under) whose
+    artifacts must equal the root's ``BENCH_search.json``,
+    ``BENCH_search_scale.json`` and ``BENCH_serving.json``, with both
+    payoffs at least 2x; then the same three and verify on the card's
+    ``H100`` model, the port's own artifacts, into ``root``
+    (``build/suites/`` of the checkout by default): search wall s a
+    candidate, the payoffs, the four serving rows, l0 and l2 ms and their
+    ratio against the reference's 0.1 gate. Any failed check raises.
+    Returns (the launch counts of the path, the ``kernels``-line records
+    of :func:`suite_records`)."""
+    from repro_torch.core.hardware import H100, V5E
+    from repro_torch.suites import (common, search_scale, serving,
+                                    telemetry, verify, workload)
+    card = card_label(device)
+    cuda = torch.device(device).type == "cuda"
+    root = Path(root) if root is not None else ROOT / "build" / "suites"
+    kerns = _suite_kernels()
+    for k in kerns.values():
+        k.reset_launches()
+    t0 = time.perf_counter()
+    wl = workload.run(device)
+    for name, errs in wl["workloads"]:
+        log(f"suites workload {name}: host and {len(errs) - 1} builds within "
+            f"tol of reference(), max abs err {max(errs.values()):.3e} "
+            f"[{card}]")
+    with common.left_fold_sum():
+        v5e = [(mod, mod.run(device, chip=V5E, out=root / "v5e"
+                             / mod.ARTIFACT))
+               for mod in (telemetry, search_scale, serving)]
+    for mod, r in v5e:
+        moved = common.diff(r["artifact"], common.read_json(
+            ROOT / mod.ARTIFACT))
+        if moved:
+            raise SystemExit(f"suites: {mod.ARTIFACT} regenerated on the "
+                             f"reference's context differs from the "
+                             f"checked-in one at {moved[:6]}")
+        log(f"suites {mod.__name__.rsplit('.', 1)[1]} on V5E: {r['out']} "
+            f"equals the checked-in {mod.ARTIFACT} [{card}]")
+    sc5 = v5e[1][1]
+    if not (sc5["warm_payoff"] >= 2 and sc5["transfer_payoff"] >= 2
+            and sc5["transfer_gate"] == "met"):
+        raise SystemExit(f"suites: V5E payoffs {sc5['warm_payoff']} / "
+                         f"{sc5['transfer_payoff']}")
+    tel = telemetry.run(device, chip=H100, out=root / telemetry.ARTIFACT)
+    sc = search_scale.run(device, chip=H100, out=root / search_scale.ARTIFACT)
+    sv = serving.run(device, chip=H100, out=root / serving.ARTIFACT)
+    vf = verify.run(device, small=small, out=root / verify.ARTIFACT)
+    counts = {}
+    for name, k in kerns.items():
+        counts.update(_prefixed(name, k.LAUNCHES))
+    _contexts_seen("suites", list(kerns.values()))
+    for label, r in (("V5E", v5e[0][1]), ("H100", tel)):
+        lv = ", ".join(f"{k} {v * 1e3:.3f}"
+                       for k, v in r["levels_s_per_candidate"].items())
+        log(f"suites telemetry ({label}): {r['evals']} candidates in "
+            f"{r['wall_s']:.3f} s, {r['wall_s_per_candidate']:.4f} s a "
+            f"candidate (ms a candidate: {lv}); best {r['best_score']:.3f} "
+            f"({r['best_t_model_ms']:.4f} ms, {label} model); quarantine "
+            f"after {r['quarantine']['elapsed_s']:.2f} s [{card}]")
+    for row in tel["probes"]:
+        what = row.get("probe") or {}
+        log(f"suites probe fused={row['fused']} counter={row['counter']} "
+            f"contexts={row['contexts']}: "
+            + (f"log of {row['log']['ctas']} CTAs, {row['log']['rounds']} "
+               f"rounds -> ok; " if "log" in row else "")
+            + (f"probe.check {what['rounds']} rounds, max depth "
+               f"{what['max_depth']}, {what['recv_waits']} receive waits"
+               if what else "differs from the schedule (a 128 x 128 card "
+               "tile holds both 32-row rounds, ROADMAP §3): "
+               + row["divergence"]))
+    for label, r in (("V5E", sc5), ("H100", sc)):
+        ws, tr = r["artifact"]["warm_start"], r["artifact"]["transfer"]
+        log(f"suites search_scale ({label}): warm start {ws['cold_evals_to_best']}"
+            f" cold evals to best, {ws['warm_fresh_evals_to_best']} fresh "
+            f"warm ({r['warm_payoff']:.1f}x, {ws['cache_hits']} cache hits); "
+            f"transfer {tr['cold_evals_to_best']} cold, "
+            f"{tr['transfer_fresh_evals_to_best']} fresh "
+            f"({r['transfer_payoff']:.1f}x, gate {r['transfer_gate']}); "
+            f"batched on threads {r['batched_on_threads']}; "
+            f"{r['wall_s']:.2f} s [{card}]")
+    for row in sv["artifact"]["rows"]:
+        log(f"suites serving row (H100 model) {row['name']}: "
+            f"{row['us_per_call']:.3f} us, {row['derived']}")
+    log(f"suites serving: cascade {sv['cascade']}, two-stream err "
+        f"{sv['two_stream_err']:.3e} marks {sv['marks']}; pallas engine == "
+        f"host tokens; handoff bit for bit; degrade refused under pallas, "
+        f"served on xla [{card}]")
+    s = vf["artifact"]["summary"]
+    log(f"suites verify: {vf['n_points_ok']} points clean, "
+        f"{len(vf['mutations'])} mutation classes caught; l0 mean "
+        f"{s['l0_mean_ms']:.4f} ms, l2 mean {s['l2_mean_ms']:.4f} ms on "
+        f"{s['l2_device']}: ratio {s['ratio']:.4f} against the gate "
+        f"{s['gate_ratio']} -> {s['gate']} [{card}]")
+    if cuda and not all(any(k[0] == name for k in counts)
+                        for name in kerns):
+        raise SystemExit(f"suites: a kernel was not launched: {counts}")
+    log(f"suites: {time.perf_counter() - t0:.1f} s [{card}]")
+    return counts, suite_records(device, 1 if small else iters)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=5,
@@ -4220,6 +4457,8 @@ def main(argv=None):
     counted["train"] = phase_train("cuda")
     phase_dryrun("cuda")
     counted["examples"] = phase_examples("cuda")
+    counted["suites"], suited = phase_suites("cuda", iters=args.iters)
+    records += suited
     for path, counts in counted.items():
         log(f"launches on the {path} path: {counts}")
     for rec in records:

@@ -41,7 +41,7 @@ from repro_torch.core.schedule import (DispatchSchedule,  # noqa: F401
                                        sanitize_combine_tile)
 
 MAX_RANKS = 8                 # MOE_MAXN in the CUDA source
-TILE = 64                     # d, f and fs must be multiples of it
+TILE = 64                     # the kernel takes d, f and fs in multiples of it
 TIMEOUT_MS = 20_000           # a spin-wait traps after this long
 MAX_ROW_BYTES = 64 * 1024     # MOE_SLOT: a dispatched row stages whole
 
@@ -335,14 +335,57 @@ def moe_dispatch_combine(x, w1, w2, *, counts, block_tokens=64, tight=True,
     sched = make_schedule(counts, block_tokens, tight)
     if sched.n != x.shape[0] or sum(sched.counts) != x.shape[1]:
         raise ValueError(f"counts {counts} do not route x {tuple(x.shape)}")
+    d = x.shape[2]
+    x, w1, w2, shared = pad_to_tiles(x, w1, w2, shared)
     knobs = dict(barrier=barrier, pipelined=pipelined, tile_fused=tile_fused,
                  wire_i8=wire_i8, combine_tile=combine_tile, shared=shared,
                  contexts=contexts)
     if probe is not None:
         out, log, starts = _launch(x, w1, w2, sched, probe=True, **knobs)
         record_card(probe, window.decode(log.events, log.counts), starts)
+    else:
+        out = _launch(x, w1, w2, sched, **knobs)
+    if x.shape[2] == d:
         return out
-    return _launch(x, w1, w2, sched, **knobs)
+    if shared is not None:
+        return out[0][..., :d], out[1][..., :d]
+    return out[..., :d]
+
+
+def _pad_last(t, n):
+    return t if t.shape[-1] == n else F.pad(t, (0, n - t.shape[-1]))
+
+
+def _pad_swiglu(w, d, f):
+    """(..., d0, 2 f0) gate | up weights -> (..., d, 2 f), each half
+    padded apart."""
+    g, u = torch.chunk(w, 2, dim=-1)
+    w = torch.cat([_pad_last(g, f), _pad_last(u, f)], dim=-1)
+    return _pad_last(w.transpose(-1, -2), d).transpose(-1, -2).contiguous()
+
+
+def pad_to_tiles(x, w1, w2, shared=None):
+    """The operands with d, f and fs padded with zeros to multiples of
+    ``TILE`` (the tile GEMM's), where they are not: a zero column of x and
+    zero rows and columns of the weights add exact zeros to every real
+    sum, and a padded hidden unit is silu(0) * 0 = 0, so the first d
+    columns of the output are the unpadded call's (the int8 wire's row
+    scales, a row's max, are unchanged too). Returns ``(x, w1, w2,
+    shared)``, the inputs themselves where nothing needs padding."""
+    d0, f0 = x.shape[2], w2.shape[1]
+    fs0 = shared[2].shape[0] if shared is not None else TILE
+    up = lambda v: -(-v // TILE) * TILE  # noqa: E731
+    d, f, fs = up(d0), up(f0), up(fs0)
+    if (d, f, fs) == (d0, f0, fs0):
+        return x, w1, w2, shared
+    x = _pad_last(x, d).contiguous()
+    w1 = _pad_swiglu(w1, d, f)
+    w2 = _pad_last(F.pad(w2, (0, 0, 0, f - f0)), d).contiguous()
+    if shared is not None:
+        xs, s1, s2 = shared
+        shared = (_pad_last(xs, d).contiguous(), _pad_swiglu(s1, d, fs),
+                  _pad_last(F.pad(s2, (0, 0, 0, fs - fs0)), d).contiguous())
+    return x, w1, w2, shared
 
 
 # ------------------------------------------------------------ the op recorder

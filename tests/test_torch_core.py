@@ -276,7 +276,8 @@ names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 import chip_smoke  # noqa: F401
-bad = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("repro",
+                                                          "benchmarks"))
 assert not bad, bad
 print(" ".join(names))
 """
@@ -302,3 +303,7 @@ def test_port_imports_no_jax_and_no_repro():
             "repro_torch.core.archive", "repro_torch.core.database",
             "repro_torch.core.meta", "repro_torch.models.moe",
             "repro_torch.dist.sharding", "repro_torch.launch.serve"} <= names
+    # the fourteenth slice's: the reference's acceptance suites
+    assert {f"repro_torch.suites.{m}" for m in (
+        "common", "telemetry", "search_scale", "serving", "verify",
+        "workload")} <= names

@@ -150,11 +150,36 @@ def test_gemm_core_matches_matmul(cuda_device, M, K, N, swiglu):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["tile_fused", "deferred_signal"])
+@pytest.mark.parametrize("shape", [(4, 32, 32, 64, 0), (4, 96, 100, 72, 40)])
+def test_kernel_pads_unaligned_widths(cuda_device, variant, shape):
+    """d, f or fs off the tile GEMM's 64 (the verify suite's moe point is
+    d 32, f 64): the entry pads them with zeros and cuts the output back,
+    within 1e-4 of the plain version on the operands as given."""
+    n, T, d, f, fs = shape
+    ts = inputs_from_numpy(*numpy_inputs(n, T, d, f, fs, seed=d + f),
+                           device=cuda_device)
+    shared = (ts[0], ts[3], ts[4]) if fs else None
+    counts = TMoE(n_dev=n, tokens_per_rank=T, d=d, f=f)._counts(T)
+    kw = dict(counts=counts, block_tokens=16, **kern.VARIANTS[variant])
+    got = kern.moe_dispatch_combine(*ts[:3], shared=shared, **kw)
+    want = kern.moe_dispatch_combine_ref(*ts[:3], counts=counts,
+                                         block_tokens=16, shared=shared)
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and rel_err(g.cpu(), w.cpu()) <= 1e-4
+
+
+@pytest.mark.gpu
 def test_kernel_rejects_what_it_cannot_take(cuda_device):
     x = torch.zeros((4, 64, 100), device=cuda_device)
     w1 = torch.zeros((4, 100, 128), device=cuda_device)
     w2 = torch.zeros((4, 64, 100), device=cuda_device)
+    # the entry pads d = 100 to the tile (test_kernel_pads_unaligned_widths);
+    # the launch itself takes multiples of it only
     with pytest.raises(ValueError, match="multiples"):
-        kern.moe_dispatch_combine(x, w1, w2, counts=[16] * 4)
+        kern.moe_dispatch_logged(x, w1, w2, counts=[16] * 4)
     with pytest.raises(ValueError, match="float32"):
         kern.moe_dispatch_combine(x.double(), w1, w2, counts=[16] * 4)

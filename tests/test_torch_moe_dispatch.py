@@ -237,3 +237,32 @@ def test_comm_graph_matches_reference_at_one_rank():
     assert [p[0] for p in tg.phases()] == [p[0] for p in jg.phases()]
     assert tg.nodes[1].producers and tg.nodes[0].consumers
     assert "all-to-all" in tg.describe()
+
+
+@pytest.mark.parametrize("shape", [(4, 32, 32, 64, 0), (4, 96, 100, 72, 40),
+                                   (2, 64, 64, 64, 48), (2, 64, 64, 64, 64)])
+@pytest.mark.parametrize("wire_i8", [False, True])
+def test_padding_to_the_tile_keeps_the_function(shape, wire_i8):
+    """``pad_to_tiles`` (what the card's entry does where d, f or fs is not
+    a multiple of the tile GEMM's 64): the plain version on the padded
+    operands, cut back to d columns, is the plain version on the operands
+    as given, and every padded column is zero."""
+    n, T, d, f, fs = shape
+    ts = inputs_from_numpy(*numpy_inputs(n, T, d, f, fs, seed=d + f),
+                           device="cpu")
+    shared = (ts[0], ts[3], ts[4]) if fs else None
+    counts = TMoE(n_dev=n, tokens_per_rank=T, d=d, f=f)._counts(T)
+    x, w1, w2, sp = kern.pad_to_tiles(*ts[:3], shared)
+    assert x.shape[2] % kern.TILE == 0 and w2.shape[1] % kern.TILE == 0
+    if sp is not None:
+        assert sp[2].shape[0] % kern.TILE == 0
+    kw = dict(counts=counts, block_tokens=16, wire_i8=wire_i8)
+    want = kern.moe_dispatch_combine_ref(*ts[:3], shared=shared, **kw)
+    got = kern.moe_dispatch_combine_ref(x, w1, w2, shared=sp, **kw)
+    want = want if isinstance(want, tuple) else (want,)
+    got = got if isinstance(got, tuple) else (got,)
+    for g, w in zip(got, want):
+        assert bool((g[..., d:] == 0).all())
+        assert rel_err(g[..., :d], w) <= 1e-6
+    if (d, f, fs or kern.TILE) == (64, 64, 64):
+        assert x is ts[0] and w1 is ts[1] and w2 is ts[2]
