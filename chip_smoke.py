@@ -214,6 +214,20 @@ sizes; every run runs all of them, and any failure exits non-zero):
     serving rows, l0 and l2 ms and their ratio against the reference's
     0.1 gate. Four ``kernels``-line records at the workload suite's
     shapes.
+29. ``figures`` — the paper's tables and figures (``repro_torch.figures``,
+    ``benchmarks/``), counted as one path: fig3, fig4 at n 2 and 8, fig5,
+    fig6 and table5 on the ``H100`` model, each point its workload's
+    ``check`` accepts run at the paper's shape (fig3's ring at BH 96, seq
+    8192; fig4's 4096 tokens a rank at d 7168; fig5's T 8192, dk 1024;
+    fig6's 8192^3; table5's 6144 tokens on the int8 wire) through its
+    Hopper kernel (host points plain torch), held to the workload's
+    oracle (2e-3; 0.1 on the int8 wire) and timed: one ``figure`` line a
+    point (H100 model beside the card), one ``figure order`` line a shape
+    (the card's order of its points against the model's); fig9-13
+    through the card's cascade at ``GENS`` 10 on 4 ranks; ``roofline_cells``
+    over the cells phase ``dryrun`` wrote to ``artifacts/dryrun_torch/``.
+    Tables in ``build/figures/``; six ``kernels``-line records at the
+    figures' largest shapes.
 
 ``--iters`` sets the timed launches per kernel (1 for a quick check after
 a kernel change). The line before the last is the ``kernels`` JSON
@@ -224,7 +238,9 @@ gemm_allgather from ``ga_main``, flash and ring from ``ring_main``, the
 moe records at the llama4 shapes from ``serve_moe``, the n = 3 records
 from ``faults``, the padded decode record from ``serve_mixed``, whisper's
 cross handoff from ``serve_kinds``, granite's handoff from
-``serve_tp``, the workload suite's records from ``suites``); the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
+``serve_tp``, the workload suite's records from ``suites``, the
+figures' records from ``figures``); the last line is
+``{"ok": true, "device": {...}}``. Without a CUDA device, or
 outside a checkout, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -250,6 +266,8 @@ sys.path.insert(0, str(ROOT / "src"))
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import torch  # noqa: E402
+
+from repro_torch.core.hardware import card_label  # noqa: E402
 
 # f32-accurate products on the TF32 tensor cores: 3xTF32 issues three TF32
 # products per multiply-add, at the data sheet's 495 TFLOP/s dense TF32
@@ -3166,20 +3184,6 @@ TP_LLAMA4_NEW = 16
 TP_BF16_TOL = 6.789e-2
 
 
-def card_label(device, _seen={}):
-    """The card's name and power limit as ``nvidia-smi`` gives them (each
-    number a phase reads on the card is printed beside it); off the card,
-    the device's type."""
-    if torch.device(device).type != "cuda":
-        return str(torch.device(device).type)
-    if "smi" not in _seen:
-        _seen["smi"] = "; ".join(subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60, check=True).stdout.strip().splitlines())
-    return _seen["smi"]
-
-
 def _forced_logits(eng, batch, toks, prompt, routes=None):
     """Every step's logits of engine ``eng`` over the real vocab on the
     token stream ``toks`` (B, new): (B, new, V). ``routes``, a list, gets
@@ -4063,7 +4067,7 @@ def _held_to_card(label, fn, args, meta_fn, device, card):
     return rep, ms
 
 
-def phase_dryrun(device="cuda", small=False):
+def phase_dryrun(device="cuda", small=False, artifacts=None):
     """The dry run and its count held against the card (``small``: the
     CPU test's form: (a) at ``decode_32k``, (b) at the reduced sizes):
 
@@ -4071,7 +4075,9 @@ def phase_dryrun(device="cuda", small=False):
         llama3.2-1b and granite-moe-3b-a800m at ``train_4k`` on the
         16 x 16 mesh, traced on meta: one summary line each; granite's
         must count its MoE layers' collectives (the replicated expert
-        body's all-reduces over the model axis).
+        body's all-reduces over the model axis). With ``artifacts`` (a
+        directory) each cell is also written there as ``launch.dryrun``
+        writes it, for phase ``figures``' ``roofline_cells``.
     (b) four steps the smoke already measures, built as the dry run
         builds them (``launch/specs.py``): ``train_dense``'s step
         (llama3.2-1b, 8 x 512, no mesh, remat, AdamW), the same model's
@@ -4110,6 +4116,10 @@ def phase_dryrun(device="cuda", small=False):
             f"{m['peak_bytes'] / 2**30:.3f} GiB a device")
         if arch.startswith("granite") and not r["n_collectives"]:
             raise SystemExit(f"dryrun {arch}: no MoE collective counted")
+        if artifacts is not None:
+            Path(artifacts).mkdir(parents=True, exist_ok=True)
+            (Path(artifacts) / f"{arch}__{shape}__single.json").write_text(
+                json.dumps(d, indent=1, default=str))
     for label, build in _dryrun_steps(device, small):
         fn, args, meta_fn = build()
         _held_to_card(label, fn, args, meta_fn, device, card)
@@ -4273,39 +4283,48 @@ def _suite_bound_and_library(bench, w, ins):
         "sdpa", bench.ms(lambda: _sdpa(*whole, True)))
 
 
+SOURCES = {"moe_dispatch": (SOURCE, REPLACES),
+           "kv_shuttle": (KV_SOURCE, KV_REPLACES),
+           "gemm_allgather": (GA_SOURCE, GA_REPLACES),
+           "ring_attention": (RING_SOURCE, RING_REPLACES)}
+
+
+def build_record(bench, name, label, w, d, mesh, ins, path, tol=1e-4):
+    """The ``kernels``-line record of kernel ``name`` as ``w.build(d)``
+    launches it on ``ins``: launched once (the launch it adds to its
+    wrapper's count names the record's key on ``path``), held to its
+    plain version within ``tol`` and timed beside its bound and library
+    call (:func:`_suite_bound_and_library`)."""
+    kern = _suite_kernels()[name]
+    run = lambda: w.build(d, mesh)(*ins)  # noqa: E731
+    before = collections.Counter(kern.LAUNCHES)
+    with torch.no_grad():
+        got = run()
+    new = [k for k, v in kern.LAUNCHES.items() if v != before.get(k, 0)]
+    key = new[0] if new else (d.placement, "plain")
+    shape = f"{w.name} " + ", ".join("x".join(map(str, t.shape))
+                                     for t in ins)
+    bnd, lib = _suite_bound_and_library(bench, w, ins)
+    return bench.record(
+        f"{name}/{key[0]}@{label}", f"{shape} f32", run,
+        _suite_plain(w, d, ins), tol, bnd, lib, *SOURCES[name],
+        (name, *key), path, got=got, contexts=d.contexts)
+
+
 def suite_records(device="cuda", iters=5):
-    """The ``kernels``-line records of :func:`suite_record_cases`, taken
-    after the counted run: each kernel launched once through its
-    workload's build (the launch it adds to its wrapper's count names the
-    record's key on the ``suites`` path), held to its plain version within
-    1e-4 and timed beside its bound and library call."""
+    """The ``kernels``-line records of :func:`suite_record_cases`
+    (:func:`build_record` on the ``suites`` path, within 1e-4), taken
+    after the counted run."""
     from repro_torch.core.cascade import _full_f32
     from repro_torch.suites import workload as suite
-    sources = {"moe_dispatch": (SOURCE, REPLACES),
-               "kv_shuttle": (KV_SOURCE, KV_REPLACES),
-               "gemm_allgather": (GA_SOURCE, GA_REPLACES),
-               "ring_attention": (RING_SOURCE, RING_REPLACES)}
-    kerns = _suite_kernels()
     bench = Bench(device, iters)
     out = []
     with _full_f32(torch.device(device)):
         for name, (wname, n, _, kw), d in suite_record_cases():
             w, mesh, ins = suite.inputs(wname, n, kw, torch.device(device))
-            run = lambda: w.build(d, mesh)(*ins)  # noqa: E731
-            before = collections.Counter(kerns[name].LAUNCHES)
-            with torch.no_grad():
-                got = run()
-            new = [k for k, v in kerns[name].LAUNCHES.items()
-                   if v != before.get(k, 0)]
-            key = new[0] if new else (d.placement, "plain")
-            shape = f"{wname} " + ", ".join(
-                "x".join(map(str, t.shape)) for t in ins)
-            bnd, lib = _suite_bound_and_library(bench, w, ins)
-            out.append(bench.record(
-                f"{name}/{key[0]}@workload_suite", f"{shape} f32", run,
-                _suite_plain(w, d, ins), 1e-4, bnd, lib, *sources[name],
-                (name, *key), "suites", got=got, contexts=d.contexts))
-            del got, ins
+            out.append(build_record(bench, name, "workload_suite", w, d,
+                                    mesh, ins, "suites"))
+            del ins
     return out
 
 
@@ -4416,6 +4435,143 @@ def phase_suites(device="cuda", small=False, root=None, iters=5):
     return counts, suite_records(device, 1 if small else iters)
 
 
+# ----------------------------------------------------------------- figures
+
+# the figure runs of phase ``figures``: (module, its arguments, table name)
+FIGURE_RUNS = (("fig3_flash_attention", {}, "fig3_flash_attention"),
+               ("fig4_moe_skew", {"n_dev": 2}, "fig4_moe_skew"),
+               ("fig4_moe_skew", {"n_dev": 8}, "fig4_moe_skew_n8"),
+               ("fig5_kv_transfer", {}, "fig5_kv_transfer"),
+               ("fig6_gemm_allgather", {}, "fig6_gemm_allgather"),
+               ("table5_moe_phases", {}, "table5_moe_phases"))
+
+
+def figure_record_cases(small=False):
+    """(kernel, label, workload, its arguments, directive) of phase
+    ``figures``' ``kernels``-line records, each at its figure's largest
+    measured shape: fig4's skew 5 (n 2) FLUX and DeepEP tight points,
+    table5's DeepEP point on the int8 wire, fig5's T 8192 dk 1024 cuco
+    point and fig6's 8192 FLUX and DEFERRED points (``small``: the
+    figures' test cut)."""
+    from repro_torch.figures import common as fc
+    from repro_torch.figures import (fig4_moe_skew, fig5_kv_transfer,
+                                     fig6_gemm_allgather, table5_moe_phases)
+    f4 = fig4_moe_skew.points()
+    f6 = dict(fig6_gemm_allgather.POINTS)
+    ga = dict(n_dev=4, M=8192, K=8192, N=8192)
+    cases = [
+        ("moe_dispatch", "fig4_skew5", "moe_dispatch",
+         fig4_moe_skew.shape(2, 5.0), f4["flux"]),
+        ("moe_dispatch", "fig4_skew5", "moe_dispatch",
+         fig4_moe_skew.shape(2, 5.0), f4["deepep_tight"]),
+        ("moe_dispatch", "table5", "moe_dispatch", table5_moe_phases.SHAPE,
+         table5_moe_phases.points()["deepep_kernel_total_ms"]),
+        ("kv_shuttle", "fig5_T8192_dk1024", "kv_transfer",
+         dict(T=8192, d=4096, dk=1024), dict(fig5_kv_transfer.POINTS)["cuco"]),
+        ("gemm_allgather", "fig6_8192", "gemm_allgather", ga, f6["flux"]),
+        ("gemm_allgather", "fig6_8192", "gemm_allgather", ga,
+         f6["deferred"])]
+    return [(k, label, wname, fc.small_kw(wname, kw)[0] if small else kw, d)
+            for k, label, wname, kw, d in cases]
+
+
+def figure_records(device="cuda", small=False, iters=5):
+    """The ``kernels``-line records of :func:`figure_record_cases`
+    (:func:`build_record` on the ``figures`` path, on the figure's inputs,
+    within 1e-4; 1e-3 on the int8 wire), taken after the counted run."""
+    from repro_torch.core.cascade import _full_f32
+    from repro_torch.dist.mesh import VirtualMesh
+    from repro_torch.figures import common as fc
+    from repro_torch.workloads import get_workload
+    bench = Bench(device, iters)
+    dev = torch.device(device)
+    out = []
+    with _full_f32(dev):
+        for name, label, wname, kw, d in figure_record_cases(small):
+            w = get_workload(wname, **kw)
+            ins = fc.inputs(w, dev, 0)
+            out.append(build_record(
+                bench, name, label, w, d, VirtualMesh(w.n_dev, device=dev),
+                ins, "figures", 1e-3 if d.tunable("wire_i8", 0) else 1e-4))
+            del ins
+    return out
+
+
+def phase_figures(device="cuda", small=False, root=None, iters=5,
+                  artifacts=None):
+    """The paper's tables and figures (``repro_torch.figures``) on
+    ``device`` with every launch counter at 0 for the whole phase (the
+    ``figures`` path): fig3, fig4 at n 2 and 8, fig5, fig6 and table5 on
+    the ``H100`` model, each point ``check`` accepts measured at the
+    paper's shape through its Hopper kernel (``small``: the figures' test
+    cut) and held to its workload's oracle; fig9-13 through the card's
+    cascade at ``GENS`` 10 on 4 ranks; ``roofline_cells`` over
+    ``artifacts`` (default ``artifacts/dryrun_torch/``). Tables go to
+    ``root`` (default ``build/figures/``), one ``bench-rows/v1`` file
+    each. For each figure it prints the H100 model and the card side by
+    side, whether the card orders each shape's points as the model does,
+    and its seconds. A figure module that raises (an output out of its
+    tolerance, a kernel point that launched no kernel) stops the phase,
+    as does a kernel the path never launched. Returns (the launch counts
+    of the path, the ``kernels``-line records of :func:`figure_records`)."""
+    import importlib
+
+    from repro_torch.core.hardware import H100
+    from repro_torch.dist.mesh import VirtualMesh
+    from repro_torch.figures import common as fc
+    from repro_torch.figures import fig9_13_ablations, roofline_cells
+    card = card_label(device)
+    cuda = torch.device(device).type == "cuda"
+    root = Path(root) if root is not None else ROOT / "build" / "figures"
+    kerns = _suite_kernels()
+    for k in kerns.values():
+        k.reset_launches()
+    t0 = time.perf_counter()
+    for modname, kw, table in FIGURE_RUNS:
+        mod = importlib.import_module(f"repro_torch.figures.{modname}")
+        t1 = time.perf_counter()
+        try:
+            rows = mod.run(device, chip=H100, small=small, iters=iters,
+                           out=root / f"{table}.json", **kw)
+        except Exception as e:
+            raise SystemExit(f"figures: {table} raised "
+                             f"{type(e).__name__}: {e}") from e
+        model = {n: us for n, us, _ in rows}
+        measured = [r for r in rows if r[0].endswith("_card")]
+        for n, us, derived in measured:
+            log(f"figure {n[:-len('_card')]}: H100 model "
+                f"{model[n[:-len('_card')]]:.3f} us, card {us:.3f} us "
+                f"({derived})")
+        for group, mo, me, verdict in fc.orderings(rows, mod.POINT_NAMES):
+            log(f"figure order {group}: model {' < '.join(mo)}; card "
+                f"{' < '.join(me)} -> {verdict}")
+        log(f"figure {table}: {len(rows)} rows, {len(measured)} measured, "
+            f"in {time.perf_counter() - t1:.1f} s [{card}]")
+    t1 = time.perf_counter()
+    for n, v, derived in fig9_13_ablations.run(
+            device, chip=H100, mesh=VirtualMesh(4, device=device),
+            small=small, out=root / "fig9_13_ablations.json"):
+        log(f"figure {n}: {v:.3f} ({derived})")
+    log(f"figure fig9_13_ablations: {time.perf_counter() - t1:.1f} s "
+        f"[{card}]")
+    cells = roofline_cells.run(device, out=root / "roofline_cells.json",
+                               artifacts=artifacts)
+    for n, us, derived in cells:
+        log(f"figure {n}: {us:.3f} us ({derived}; H100 model)")
+    log(f"figure roofline_cells: {len(cells)} cells from "
+        f"{artifacts or roofline_cells.ARTIFACTS}")
+    counts = {}
+    for name, k in kerns.items():
+        counts.update(_prefixed(name, k.LAUNCHES))
+    _contexts_seen("figures", list(kerns.values()))
+    if cuda and not all(any(k[0] == name for k in counts)
+                        for name in kerns):
+        raise SystemExit(f"figures: a kernel was not launched: {counts}")
+    log(f"figures: {time.perf_counter() - t0:.1f} s, tables in {root} "
+        f"[{card}]")
+    return counts, figure_records(device, small, 1 if small else iters)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=5,
@@ -4455,10 +4611,12 @@ def main(argv=None):
     counted["serve_mixed"] = phase_serve_mixed("cuda")
     counted["serve_tp"] = phase_serve_tp("cuda")
     counted["train"] = phase_train("cuda")
-    phase_dryrun("cuda")
+    phase_dryrun("cuda", artifacts=ROOT / "artifacts" / "dryrun_torch")
     counted["examples"] = phase_examples("cuda")
     counted["suites"], suited = phase_suites("cuda", iters=args.iters)
     records += suited
+    counted["figures"], figured = phase_figures("cuda", iters=args.iters)
+    records += figured
     for path, counts in counted.items():
         log(f"launches on the {path} path: {counts}")
     for rec in records:

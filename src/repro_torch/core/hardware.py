@@ -9,6 +9,8 @@ line; :data:`H100` adds the card the port runs on.
 """
 from __future__ import annotations
 
+import functools
+import subprocess
 from dataclasses import dataclass
 
 
@@ -86,3 +88,21 @@ def extract_hardware_context(mesh, chip: ChipSpec = H100) -> HardwareContext:
     return HardwareContext(chip=chip, mesh_shape=shape, mesh_axes=axes,
                            chips_per_pod=per_pod, n_chips=n, has_dcn=has_dcn,
                            device_name=name, sm_count=sms)
+
+
+@functools.lru_cache(maxsize=None)
+def _smi():
+    return "; ".join(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines())
+
+
+def card_label(device):
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` gives them (the label every
+    number measured on the card is printed beside); off the card, the
+    device's type."""
+    import torch
+    device = torch.device(device)
+    return _smi() if device.type == "cuda" else device.type

@@ -307,3 +307,8 @@ def test_port_imports_no_jax_and_no_repro():
     assert {f"repro_torch.suites.{m}" for m in (
         "common", "telemetry", "search_scale", "serving", "verify",
         "workload")} <= names
+    # the fifteenth slice's: the paper's tables and figures
+    assert {f"repro_torch.figures.{m}" for m in (
+        "common", "fig3_flash_attention", "fig4_moe_skew",
+        "fig5_kv_transfer", "fig6_gemm_allgather", "table5_moe_phases",
+        "fig9_13_ablations", "roofline_cells", "run")} <= names

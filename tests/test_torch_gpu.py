@@ -1,4 +1,6 @@
-"""The Hopper moe_dispatch kernel against its plain version, on the card.
+"""The Hopper moe_dispatch kernel against its plain version, on the card,
+and each kernelized point of the paper's figures (``repro_torch.figures``:
+moe_dispatch, kv_shuttle, gemm_allgather, ring_attention) at a mid shape.
 
 Marked ``gpu``: each test skips (inside a fixture) where there is no H100
 and ``nvcc``. This file imports only torch and the port, so it runs on the
@@ -183,3 +185,68 @@ def test_kernel_rejects_what_it_cannot_take(cuda_device):
         kern.moe_dispatch_logged(x, w1, w2, counts=[16] * 4)
     with pytest.raises(ValueError, match="float32"):
         kern.moe_dispatch_combine(x.double(), w1, w2, counts=[16] * 4)
+
+
+# ----------------------------------------- the figures' kernel points
+# (``repro_torch.figures``): each kernelized point of fig3-6 and table5 at
+# a mid shape, through its workload's build on the card, against the same
+# build on CPU copies of the inputs (where each wrapper computes its plain
+# version): ring hd 32 and 64, kv dk 1024, moe n 8 and block_tokens 128
+def _figure_points():
+    from repro_torch.figures import (fig3_flash_attention, fig4_moe_skew,
+                                     fig5_kv_transfer, fig6_gemm_allgather,
+                                     table5_moe_phases)
+    f4 = fig4_moe_skew.points()
+    f4k = [k for k in fig4_moe_skew.POINT_NAMES if k.startswith(("deepep",
+                                                                  "flux"))]
+    t5 = table5_moe_phases.points()
+    cases = []
+    for n, T in ((8, 512), (2, 1024)):
+        kw = dict(n_dev=n, tokens_per_rank=T, d=1024, f=256, skew=5.0)
+        cases += [(f"fig4_n{n}_{k}", "moe_dispatch", kw, f4[k]) for k in f4k]
+    kw = dict(n_dev=2, tokens_per_rank=1536, d=1024, f=512, skew=2.0)
+    cases += [(f"table5_{k}", "moe_dispatch", kw, t5[k])
+              for k in ("deepep_kernel_total_ms", "flux_kernel_total_ms")]
+    cases.append(("fig5_dk1024_cuco", "kv_transfer",
+                  dict(T=2048, d=1024, dk=1024),
+                  dict(fig5_kv_transfer.POINTS)["cuco"]))
+    cases += [(f"fig6_{k}", "gemm_allgather",
+               dict(n_dev=4, M=2048, K=1024, N=1024), d)
+              for k, d in fig6_gemm_allgather.POINTS if k in ("deferred",
+                                                              "flux")]
+    for hd in (32, 64):
+        cases += [(f"fig3_hd{hd}_{k}", "ring_attention",
+                   dict(n_dev=4, BH=8, seq=2048, hd=hd), d)
+                  for k, d in fig3_flash_attention.POINTS
+                  if k in ("deferred", "flux")]
+    return cases
+
+
+FIGURE_POINTS = _figure_points()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FIGURE_POINTS, ids=[c[0] for c in
+                                                     FIGURE_POINTS])
+def test_figure_kernel_points_match_plain_version(cuda_device, case):
+    """One launch of the point's kernel, within 1e-4 of the plain version
+    (1e-3 on the int8 wire), max-abs-normalised."""
+    from repro_torch.dist.mesh import VirtualMesh
+    from repro_torch.figures import common
+    from repro_torch.workloads import get_workload
+    _, wname, kw, d = case
+    w = get_workload(wname, **kw)
+    ins = common.inputs(w, cuda_device, seed=1)
+    kmod = common.kernel_module(wname)
+    before = kmod.launches()
+    with torch.no_grad():
+        got = w.build(d, VirtualMesh(w.n_dev, device=cuda_device))(*ins)
+        want = w.build(d, VirtualMesh(w.n_dev, device="cpu"))(
+            *(t.cpu() for t in ins))
+    torch.cuda.synchronize()
+    assert kmod.launches() == before + 1
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    tol = 1e-3 if d.tunable("wire_i8", 0) else 1e-4
+    for g, wt in zip(got, want):
+        assert g.shape == wt.shape and rel_err(g.cpu(), wt) <= tol
