@@ -190,15 +190,17 @@ sizes; every run runs all of them, and any failure exits non-zero):
     tokens reaches and the peak memory, beside the card's name and power
     limit.
 26. ``dryrun`` — the dry run (``launch/dryrun.py``, a ``TorchDispatchMode``
-    count of the torch step, ``core/op_count.py``) on two production
-    cells on meta (llama3.2-1b and granite-moe at ``train_4k`` on 16 x
-    16), then held against the card: ``train_dense``'s step, the llama
-    engine's prefill at 8 x 512 and one decode step, and ``train_moe``'s
-    step, each timed and counted on the card and on meta (FLOPs, bytes
-    and collectives equal), the H100 model's ``compute_s``, ``memory_s``
-    and ``step_time_s`` beside the measured step (the bound may not
-    exceed it), the arguments and op_count's peak against
-    ``max_memory_allocated``.
+    count of the torch step, ``core/op_count.py``) on three production
+    cells on meta (llama3.2-1b, granite-moe and xlstm-350m at
+    ``train_4k`` on 16 x 16; xLSTM's scaled in its loops' trip counts),
+    then held against the card: ``train_dense``'s step, the llama
+    engine's prefill at 8 x 512 and one decode step, ``train_moe``'s
+    step and ``train_xlstm``'s (two units, 4 x 512), each timed and
+    counted on the card and on meta (FLOPs, bytes and collectives
+    equal; xLSTM's also equal to its scaled count), the H100 model's
+    ``compute_s``, ``memory_s`` and ``step_time_s`` beside the measured
+    step (the bound may not exceed it), the arguments and op_count's
+    peak against ``max_memory_allocated``.
 27. ``examples`` — ``repro_torch.examples``' four scripts at their
     smallest arguments on the card (``codesign_search`` counted: its
     cascade launches ``moe_dispatch.cu``) and ``schedule_lint`` clean.
@@ -3900,8 +3902,22 @@ def phase_train(device="cuda", small=False, root=None):
 # ------------------------------------------------------------------- dry run
 
 DRYRUN_CELLS = (("llama3.2-1b", "train_4k"),
-                ("granite-moe-3b-a800m", "train_4k"))
+                ("granite-moe-3b-a800m", "train_4k"),
+                ("xlstm-350m", "train_4k"))
 DRYRUN_PEAK_TOL = 0.10     # op_count's peak against the card's, relative
+DRYRUN_SCALED_S = 60       # what an xLSTM cell's trace should take, s
+
+
+def xlstm_train(small=False):
+    """Part (b)'s xLSTM step: xlstm-350m at its published widths, two
+    repeat units (an mLSTM and an sLSTM block each), 4 x 512 (4 chunks);
+    ``small``: the reduced config, two units, 4 x 32 (4 chunks of 8).
+    Returns (cfg, batch, sequence)."""
+    from repro_torch.configs import get_arch, reduced
+    cfg = get_arch("xlstm-350m")
+    if small:
+        return reduced(cfg, num_layers=2 * cfg.repeat_unit), 4, 32
+    return dataclasses.replace(cfg, num_layers=2 * cfg.repeat_unit), 4, 512
 
 
 def _meta_twin(args):
@@ -3938,9 +3954,12 @@ def _step_ms(fn, args, device, steps=3):
 
 
 def _dryrun_steps(device, small):
-    """(b)'s steps, each ``(label, build)``: ``build()`` makes the step's
-    arguments on ``device`` and returns ``(fn, args, meta_fn)`` (the same
-    step over a meta mesh where it has one)."""
+    """(b)'s steps, each ``(label, build, scaled)``: ``build()`` makes the
+    step's arguments on ``device`` and returns ``(fn, args, meta_fn)``
+    (the same step over a meta mesh where it has one); ``scaled`` is
+    ``(cfg, shape)`` where the dry run scales the step's loops
+    (``launch.dryrun.scaled_count``, which builds the step as
+    ``launch.specs.input_specs`` does: default AdamW), else None."""
     from repro_torch.data import DataConfig, SyntheticTokenPipeline
     from repro_torch.dist.sharding import Rules
     from repro_torch.launch.mesh import make_mesh
@@ -3950,6 +3969,7 @@ def _dryrun_steps(device, small):
     from repro_torch.optim import AdamWConfig
     from repro_torch.train import build_state
     from repro_torch.train.loop import device_batch
+    from repro_torch.configs.base import ShapeConfig
     cfgs, shapes = train_configs(small), train_shapes(small)
     opt = AdamWConfig(warmup_steps=1, total_steps=6)
     B, S, _ = shapes["dense"]
@@ -3992,19 +4012,35 @@ def _dryrun_steps(device, small):
                 (params, opt_state, batch(cfg, Bm, Sm)),
                 make_train_step(cfg, rules[1], StepOptions(), opt))
 
-    return [(f"train_dense {dense.name} {B} x {S}", train_dense),
-            (f"prefill {dense.name} {B} x {S}", lambda: serve(False)),
-            (f"decode {dense.name} {B} x 1 at {S}", lambda: serve(True)),
+    xcfg, Bx, Sx = xlstm_train(small)
+
+    def train_xlstm():
+        params, opt_state = build_state(torch.Generator(
+            device=device).manual_seed(0), xcfg, None, None, device)[:2]
+        fn = make_train_step(xcfg, None, StepOptions(), AdamWConfig())
+        tokens = {k: v.to(torch.int32)         # the dry run's int32 batch
+                  for k, v in batch(xcfg, Bx, Sx).items()}
+        return fn, (params, opt_state, tokens), fn
+
+    return [(f"train_dense {dense.name} {B} x {S}", train_dense, None),
+            (f"prefill {dense.name} {B} x {S}", lambda: serve(False), None),
+            (f"decode {dense.name} {B} x 1 at {S}", lambda: serve(True),
+             None),
             (f"train_moe {cfgs['moe'].name} {cfgs['moe'].num_layers} layers "
              f"on (1, 4), {shapes['moe'][0]} x {shapes['moe'][1]}",
-             train_moe)]
+             train_moe, None),
+            (f"train_xlstm {xcfg.name} {xcfg.num_layers} layers, {Bx} x {Sx}",
+             train_xlstm, (xcfg, ShapeConfig("train_xlstm", Sx, Bx,
+                                              "train")))]
 
 
-def _held_to_card(label, fn, args, meta_fn, device, card):
+def _held_to_card(label, fn, args, meta_fn, device, card, scaled=None):
     """One step of (b): its time on ``device``, its count there and on
     meta (equal in FLOPs, bytes and collectives), the H100 model's terms
-    against the measured step, and the memory gates. Returns the line's
-    numbers."""
+    against the measured step, and the memory gates; with ``scaled``
+    (see ``_dryrun_steps``) also the dry run's scaled count of the step,
+    equal to the count on ``device`` in FLOPs and bytes and to the dry
+    run's full meta trace in peak. Returns the line's numbers."""
     import gc
     from repro_torch.core.cost_model import roofline_from_count
     from repro_torch.core.hardware import H100
@@ -4046,6 +4082,8 @@ def _held_to_card(label, fn, args, meta_fn, device, card):
     if not same:
         raise SystemExit(f"dryrun {label}: the meta trace and the trace on "
                          f"{device} count different work")
+    if scaled is not None:
+        _scaled_held(label, scaled, here, card)
     if not cuda:
         log(f"dryrun {label}: arguments {arg_b / 2**30:.3f} GiB, op_count "
             f"peak {here.peak_bytes / 2**30:.3f} GiB; the card's peak not "
@@ -4067,22 +4105,55 @@ def _held_to_card(label, fn, args, meta_fn, device, card):
     return rep, ms
 
 
+def _scaled_held(label, scaled, here, card):
+    """``launch.dryrun.scaled_count`` of a step, from short traces on meta,
+    against the step's count ``here`` (FLOPs, bytes) and the peak of the
+    dry run's full trace of it (``launch.dryrun._trace``: what the run
+    makes, arguments not held)."""
+    from repro_torch.launch.dryrun import _trace, scaled_count
+    from repro_torch.models import StepOptions
+    cfg, shape = scaled
+    t0 = time.perf_counter()
+    got, traces = scaled_count(cfg, shape, None, StepOptions())
+    t1 = time.perf_counter()
+    full = _trace(cfg, shape, None, StepOptions())
+    same = (got.flops, got.bytes, got.peak_bytes) == (here.flops,
+                                                      here.bytes,
+                                                      full.peak_bytes)
+    log(f"dryrun {label}: scaled count ({traces} meta traces, "
+        f"{t1 - t0:.1f} s) "
+        f"{got.flops:.6e} FLOP, {got.bytes:.6e} bytes, peak "
+        f"{got.peak_bytes} bytes against the count on the device "
+        f"{here.flops:.6e} / {here.bytes:.6e} and the full meta trace's "
+        f"peak {full.peak_bytes} ({time.perf_counter() - t1:.1f} s): equal "
+        f"{same} [{card}]")
+    if not same:
+        raise SystemExit(f"dryrun {label}: the scaled count differs from "
+                         "the full trace")
+
+
 def phase_dryrun(device="cuda", small=False, artifacts=None):
     """The dry run and its count held against the card (``small``: the
     CPU test's form: (a) at ``decode_32k``, (b) at the reduced sizes):
 
-    (a) ``launch/dryrun.py::run_cell`` on two production cells,
-        llama3.2-1b and granite-moe-3b-a800m at ``train_4k`` on the
-        16 x 16 mesh, traced on meta: one summary line each; granite's
-        must count its MoE layers' collectives (the replicated expert
-        body's all-reduces over the model axis). With ``artifacts`` (a
-        directory) each cell is also written there as ``launch.dryrun``
-        writes it, for phase ``figures``' ``roofline_cells``.
-    (b) four steps the smoke already measures, built as the dry run
-        builds them (``launch/specs.py``): ``train_dense``'s step
-        (llama3.2-1b, 8 x 512, no mesh, remat, AdamW), the same model's
-        prefill at 8 x 512 and one decode step after it, and
-        ``train_moe``'s (granite, 8 layers, on (1, 4), 8 x 512). Each is
+    (a) ``launch/dryrun.py::run_cell`` on three production cells,
+        llama3.2-1b, granite-moe-3b-a800m and xlstm-350m at ``train_4k``
+        on the 16 x 16 mesh, traced on meta (xLSTM's by
+        ``scaled_count``, which should take under ``DRYRUN_SCALED_S``):
+        one summary line each; granite's must count its MoE layers'
+        collectives (the replicated expert body's all-reduces over the
+        model axis). With ``artifacts`` (a directory) each cell is also
+        written there as ``launch.dryrun`` writes it, for phase
+        ``figures``' ``roofline_cells``.
+    (b) five steps, built as the dry run builds them
+        (``launch/specs.py``): ``train_dense``'s step (llama3.2-1b, 8 x
+        512, no mesh, remat, AdamW), the same model's prefill at 8 x 512
+        and one decode step after it, ``train_moe``'s (granite, 8
+        layers, on (1, 4), 8 x 512) and ``train_xlstm`` (xlstm-350m at
+        its published widths, two repeat units, 4 x 512, remat, AdamW;
+        ``xlstm_train``; int32 tokens, as the dry run's), whose scaled
+        count must also equal its count on the device (FLOPs, bytes) and
+        the dry run's full meta trace of it (peak). Each is
         timed (median of 3 after a warm-up), counted on the device and on
         meta (equal FLOPs, bytes and collectives: the same program), and
         the H100 model's terms of the whole program on one card are
@@ -4094,7 +4165,8 @@ def phase_dryrun(device="cuda", small=False, artifacts=None):
         (arguments and every storage the step makes).
 
     Every number beside the card's name and power limit."""
-    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.configs import get_arch, get_shape
+    from repro_torch.launch.dryrun import loops_over_tokens, run_cell
     card = card_label(device)
     t0 = time.perf_counter()
     cells = [(a, "decode_32k") for a, _ in DRYRUN_CELLS] if small \
@@ -4105,8 +4177,12 @@ def phase_dryrun(device="cuda", small=False, artifacts=None):
         r, m = d["roofline"], d["memory"]
         kinds = collections.Counter(c.split()[0] for c in
                                     d["collective_schedule"])
-        log(f"dryrun cell {arch} {shape} {d['mesh']} (meta, "
-            f"{time.perf_counter() - t1:.1f} s): per device {r['flops']:.4e} "
+        took = time.perf_counter() - t1
+        how = " scaled by the loops' trip counts" if loops_over_tokens(
+            get_arch(arch), get_shape(shape)) else ""
+        log(f"dryrun cell {arch} {shape} {d['mesh']} (meta{how}, "
+            f"{took:.1f} s{f', limit {DRYRUN_SCALED_S} s' if how else ''})"
+            f": per device {r['flops']:.4e} "
             f"FLOP, {r['bytes']:.4e} bytes, {r['n_collectives']} collectives "
             f"({dict(kinds)} among the 20 largest), H100 model compute "
             f"{r['compute_s']:.4f} s, memory {r['memory_s']:.4f} s, "
@@ -4120,9 +4196,9 @@ def phase_dryrun(device="cuda", small=False, artifacts=None):
             Path(artifacts).mkdir(parents=True, exist_ok=True)
             (Path(artifacts) / f"{arch}__{shape}__single.json").write_text(
                 json.dumps(d, indent=1, default=str))
-    for label, build in _dryrun_steps(device, small):
+    for label, build, scaled in _dryrun_steps(device, small):
         fn, args, meta_fn = build()
-        _held_to_card(label, fn, args, meta_fn, device, card)
+        _held_to_card(label, fn, args, meta_fn, device, card, scaled)
         del fn, args, meta_fn
         if torch.device(device).type == "cuda":
             torch.cuda.empty_cache()

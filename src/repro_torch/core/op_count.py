@@ -26,6 +26,13 @@ as it runs, on meta tensors (no data, any size) or on the card, through a
   are left out of the FLOPs and the bytes, which the wire term covers.
   The storage a collective's result takes is memory all the same, and
   stays in the peak.
+* **Peak by site** (``op_count(sites=True)``): the most bytes live at
+  each allocation site, a site being the op's frames in this package
+  inside the count (file and line), and, in a backward pass, the autograd
+  node that runs it with the site that made that node in the forward.
+  A site names no loop index, so the iterations of a loop share it;
+  ``launch/dryrun.py`` scales these per-site peaks in the loops' trip
+  counts.
 * **Hand-written kernels are opaque**: a wrapper launches its kernel
   through ``ctypes``, which no aten op shows. ``opaque`` names every
   kernel whose ``LAUNCHES`` counter moved in the pass, with its launches;
@@ -39,17 +46,30 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
+import sys
 import threading
 import weakref
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import flop_registry
 
 from repro_torch.dist import mesh as _mesh
 
 aten = torch.ops.aten
+_HERE = os.path.abspath(__file__)
+_PACKAGE = os.path.dirname(os.path.dirname(_HERE)) + os.sep
+_OURS = {}        # a code object's file name -> in this package, not here
+
+
+def _ours(name):
+    """True for a file of this package other than this module (a file
+    name as the import made it, relative where ``sys.path`` was)."""
+    if name not in _OURS:
+        path = os.path.abspath(name)
+        _OURS[name] = path.startswith(_PACKAGE) and path != _HERE
+    return _OURS[name]
 
 KERNELS = ("moe_dispatch", "kv_shuttle", "gemm_allgather", "flash_attention",
            "ring_attention")
@@ -81,10 +101,25 @@ def _bytes(t):
     return n * t.element_size()
 
 
+def _leaves(x, out):
+    """The leaves of an op's arguments or results (tuples, lists and dicts
+    of tensors and numbers) into ``out``: ``tree_leaves`` without its
+    registry, in the dispatch path of every op."""
+    if isinstance(x, (tuple, list)):
+        for y in x:
+            _leaves(y, out)
+    elif isinstance(x, dict):
+        for y in x.values():
+            _leaves(y, out)
+    else:
+        out.append(x)
+    return out
+
+
 def _tensors(tree):
     """The distinct tensors of ``tree`` (the same view twice counts once)."""
     seen, out = set(), []
-    for t in tree_leaves(tree):
+    for t in _leaves(tree, []):
         if isinstance(t, torch.Tensor):
             k = (_key(t), t.storage_offset(), tuple(t.shape), t.stride(),
                  t.dtype)
@@ -106,7 +141,8 @@ class OpCount:
     program's (every rank of a ``VirtualMesh`` together); ``peak_bytes``
     the most bytes live at once, ``held`` included; ``events`` the
     recorder's ``CollectiveEvent`` (without their tensors); ``opaque``
-    kernel name -> launches."""
+    kernel name -> launches; ``site_peaks`` (None unless asked for) site
+    -> the most bytes live just after an allocation there."""
     flops: int = 0
     bytes: int = 0
     ops: int = 0
@@ -114,13 +150,25 @@ class OpCount:
     peak_bytes: int = 0
     events: list = dataclasses.field(default_factory=list)
     opaque: dict = dataclasses.field(default_factory=dict)
+    site_peaks: dict | None = None
 
     def __post_init__(self):
         self._lock = threading.RLock()
         self._live = {}
+        self._node_sites = {}
+        self._outer = set()      # the frames that entered the count
 
-    def hold(self, t):
-        """Count the storage of ``t`` live until it dies."""
+    def enter(self):
+        """Mark the frames on the stack now as outside every site (kept
+        alive here, so no later frame takes one's identity)."""
+        f = sys._getframe(1)
+        while f is not None:
+            self._outer.add(f)
+            f = f.f_back
+
+    def hold(self, t, site=None):
+        """Count the storage of ``t`` live until it dies (made at
+        ``site``)."""
         s = t.untyped_storage()
         k = s._cdata
         with self._lock:
@@ -130,7 +178,29 @@ class OpCount:
             self._live[k] = n
             self.live_bytes += n
             self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+            if self.site_peaks is not None:
+                self.site_peaks[site] = max(self.site_peaks.get(site, 0),
+                                            self.live_bytes)
         weakref.finalize(s, self._free, k)
+
+    def site(self):
+        """The running op's site (see the module's docstring); records it
+        as the forward site of the autograd node the op made, if any."""
+        frames, f = [], sys._getframe(1)
+        while f is not None and f not in self._outer:
+            name = f.f_code.co_filename
+            if _ours(name):
+                frames.append((name, f.f_lineno))
+            f = f.f_back
+        node = torch._C._current_autograd_node()
+        made = None if node is None else (
+            node.name(), self._node_sites.get(node._sequence_nr()))
+        site = (tuple(frames), made)
+        # autograd makes an op's node before the op reaches this mode
+        seq = torch._C._autograd._get_sequence_nr() - 1
+        if seq >= 0:
+            self._node_sites.setdefault(seq, site)
+        return site
 
     def _free(self, k):
         with self._lock:
@@ -142,18 +212,100 @@ class OpCount:
                                                result=None))
 
 
+class _Uncached(Exception):
+    pass
+
+
+def _meta_key(x):
+    """What a meta op's result depends on: every tensor argument's
+    metadata and every other argument's type and value (``2`` and ``2.0``
+    promote apart)."""
+    if isinstance(x, torch.Tensor):
+        if x.device.type != "meta":
+            raise _Uncached
+        return (tuple(x.shape), x.stride(), x.storage_offset(), x.dtype)
+    if isinstance(x, (list, tuple)):
+        return tuple(map(_meta_key, x))
+    if isinstance(x, dict):
+        return tuple((k, _meta_key(v)) for k, v in x.items())
+    return type(x), x
+
+
+class _Like(tuple):
+    """A result tensor's metadata (shape, stride, dtype), not the tensor:
+    keeping the tensor would keep its storage alive."""
+
+
+def _skeleton(out):
+    """``out``'s metadata; raises ``_Uncached`` for a tensor that a new
+    meta tensor of its shape and strides would not reproduce (one on
+    another device, an offset into or a part of a larger storage)."""
+    if isinstance(out, torch.Tensor):
+        size = 0 if 0 in out.shape else 1 + sum(
+            (n - 1) * st for n, st in zip(out.shape, out.stride()))
+        if out.device.type != "meta" or out.storage_offset() \
+                or out.untyped_storage().nbytes() != size * out.element_size():
+            raise _Uncached
+        return _Like((tuple(out.shape), out.stride(), out.dtype))
+    if isinstance(out, (list, tuple)):
+        return type(out)(map(_skeleton, out))
+    return out
+
+
+def _fresh(skel):
+    """New meta tensors of the metadata ``_skeleton`` kept."""
+    if isinstance(skel, _Like):
+        shape, stride, dtype = skel
+        return torch.empty_strided(shape, stride, dtype=dtype, device="meta")
+    if isinstance(skel, (list, tuple)):
+        return type(skel)(map(_fresh, skel))
+    return skel
+
+
 class _Counter(TorchDispatchMode):
+    """A meta op that makes new tensors (no view, alias or in-place
+    write) gives results that depend on its arguments' metadata only: its
+    results are kept by that metadata, and a repeat of it (every
+    iteration of a loop over tokens) makes new meta tensors of the same
+    metadata instead of running the op's shape function again."""
+
     def __init__(self, count):
         super().__init__()
         self.count = count
+        self._meta = {}
+        self._aliasing = set()
+
+    def _run(self, func, args, kwargs):
+        schema = func._schema
+        if func.is_view or schema.is_mutable or func in self._aliasing or any(
+                r.alias_info is not None for r in schema.returns):
+            return func(*args, **kwargs)
+        try:
+            key = (func, _meta_key(args), _meta_key(kwargs))
+            hash(key)
+        except (_Uncached, TypeError):
+            return func(*args, **kwargs)
+        if key in self._meta:
+            return _fresh(self._meta[key])
+        out = func(*args, **kwargs)
+        own = {_key(t) for t in _tensors((args, kwargs))}
+        if any(_key(t) in own for t in _tensors(out)):
+            self._aliasing.add(func)     # ``_unsafe_view``: no new storage
+            return out
+        try:
+            self._meta[key] = _skeleton(out)
+        except _Uncached:
+            pass
+        return out
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        out = func(*args, **kwargs)
         c = self.count
+        site = c.site() if c.site_peaks is not None else None
+        out = self._run(func, args, kwargs)
         outs = _tensors(out)
         for t in outs:
-            c.hold(t)
+            c.hold(t, site)
         if _mesh.in_collective():
             return out
         flops = 0
@@ -187,16 +339,18 @@ def _launches():
 
 
 @contextlib.contextmanager
-def op_count(held=()):
+def op_count(held=(), sites=False):
     """Count every aten op run inside the context (on this thread and the
     autograd engine's): yields the :class:`OpCount`, complete at exit.
     ``held``: tensors live from the start (a step's arguments), counted
-    in the peak."""
-    count = OpCount()
+    in the peak; ``sites``: also keep the peak of every site."""
+    count = OpCount(site_peaks={} if sites else None)
+    count.enter()
     for t in _tensors(held):
         count.hold(t)
     before = _launches()
     with _mesh.record(count), _Counter(count):
         yield count
+    count._outer.clear()
     count.opaque = {k: v - before[k] for k, v in _launches().items()
                     if v != before[k]}

@@ -10,6 +10,10 @@ runs on any machine:
   python -m repro_torch.launch.dryrun --arch llama3.2-1b --shape train_4k [--multi-pod]
   python -m repro_torch.launch.dryrun --all [--jobs 4]
 
+A train or prefill cell over xLSTM's stack, whose sLSTM loops over
+tokens, is counted from short traces scaled in the loops' trip counts
+(:func:`scaled_count`).
+
 Artifacts are JSON with the reference's keys (``launch/report.py`` of
 either package renders them), in ``artifacts/dryrun_torch/``. The port's
 program differs from the reference's by design: it partitions no dense
@@ -34,7 +38,7 @@ import torch
 from repro_torch.configs import cells, get_arch, get_shape
 from repro_torch.core.cost_model import roofline_from_count
 from repro_torch.core.hardware import extract_hardware_context
-from repro_torch.core.op_count import op_count
+from repro_torch.core.op_count import OpCount, op_count
 from repro_torch.dist.sharding import P, sanitize_specs, tree_leaves, tree_map
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.specs import SDS, input_specs, rules_for, stand_ins
@@ -87,6 +91,126 @@ def _outputs(cfg, shape, rules, mesh, in_sds, in_specs):
     return logits + cache, cache
 
 
+TOKEN_LOOP_KINDS = ("mlstm", "slstm")
+
+
+def loops_over_tokens(cfg, shape):
+    """True where a cell takes :func:`scaled_count`: a train or prefill
+    step over a stack whose every block loops over tokens (sLSTM) or
+    chunks (mLSTM), at a length of whole chunks, at least three."""
+    W = cfg.mlstm_chunk
+    return (shape.kind in ("train", "prefill")
+            and all(k in TOKEN_LOOP_KINDS for k in cfg.block_pattern)
+            and shape.seq_len % W == 0 and shape.seq_len >= 3 * W)
+
+
+def _depth(cfg, k):
+    """``cfg`` with ``k`` repeat units (0: no layer stack)."""
+    kw = {"num_layers": k * cfg.repeat_unit}
+    if cfg.is_encoder_decoder:
+        kw["enc_layers"] = k * (cfg.enc_layers // cfg.num_repeats)
+    return dataclasses.replace(cfg, **kw)
+
+
+def _trace(cfg, shape, mesh, opts, sites=False):
+    fn, in_sds, _, _ = input_specs(cfg, shape, mesh, opts)
+    with op_count(sites=sites) as count:
+        fn(*stand_ins(in_sds))
+    return count
+
+
+def scaled_count(cfg, shape, mesh, opts):
+    """The count of ``shape``'s step over ``cfg``'s R repeat units, from
+    traces whose loops run few times: the loops' trip counts scale as the
+    dry run scales depth. Returns ``(OpCount, traces)``: FLOPs, bytes,
+    ops and peak live bytes, and the number of traces taken.
+
+    On meta a step's ops depend on its trip counts only. With c(k, S)
+    the trace at k repeat units and length S, two short lengths S1 < S2
+    (two and three chunks: with one, the first chunk is also the last and
+    carries no state on) and two depths a, a + 1 (below):
+
+      count(R, S) = c(0, S) + l(a) - l(0) + (R - a) (l(a + 1) - l(a)),
+
+    l(k) the count at k units taken at S1 and S2 and extended to S in a
+    straight line: every term of a unit's count is affine in S. c(0, S)
+    (no layer stack: embedding, loss, optimizer) walks no token and is
+    traced at S itself, so what the outside does only at S (the loss
+    over sequence chunks once S passes ``loss_chunk``) is counted as it
+    runs. FLOPs, bytes and ops are exact integers; a step that records a
+    collective or launches a kernel is refused.
+
+    Peak live bytes is the largest over allocation sites
+    (``op_count(sites=True)``) of each site's peak at (R, S). A site of
+    the units (none without a stack) is bilinear in (R, S) from its peaks
+    at a and a + 1 units at S1 and S2. A site of the outside has its
+    peak in c(0, S) plus what the units add there (bilinear in the same
+    way); a site only c(0, S) has (the chunked loss) adds what the units
+    add at the sites only S1 and S2 have (the unchunked loss), which
+    must agree. a is 1 for a train step under remat, which keeps every
+    unit's input until its backward, and 2 otherwise: there the first
+    unit's input (the embedding, which the forward holds anyway) costs
+    nothing more, so one unit is not a repeat of the others. This is
+    exact as long as each site peaks at the same iteration of its loops
+    (the first or the last) at S1, S2 and S:
+    ``tests/test_torch_dryrun_xlstm.py`` holds the scaled count to a full
+    trace at held-out lengths and depths."""
+    W = cfg.mlstm_chunk
+    S, R = shape.seq_len, cfg.num_repeats
+    S1, S2 = 2 * W, 3 * W
+    a = 1 if shape.kind == "train" and opts.remat else 2
+    if S % W or S < S2 or R < a:
+        raise ValueError(f"scaled count: a length of whole chunks of {W}, "
+                         f"at least {S2}, and {a} or more repeat units "
+                         f"(got {S} and {R})")
+    k = (S - S1) // W
+    full0 = _trace(_depth(cfg, 0), shape, mesh, opts, True)
+    c = {(d, s): _trace(_depth(cfg, d), dataclasses.replace(shape,
+                                                            seq_len=s),
+                        mesh, opts, True)
+         for d in (0, a, a + 1) for s in (S1, S2)}
+    for cnt in (full0, *c.values()):
+        if cnt.events or cnt.opaque:
+            raise ValueError("scaled count: the step records collectives or "
+                             "launches kernels; trace it whole")
+
+    def line(f, d):
+        """f at d units, extended from S1 and S2 to S."""
+        return f(d, S1) + k * (f(d, S2) - f(d, S1))
+
+    def bilinear(f):
+        """f(units, length) at (R, S) from a and a + 1 units."""
+        return line(f, a) + (R - a) * (line(f, a + 1) - line(f, a))
+
+    def total(attr):
+        def f(d, s):
+            return getattr(c[d, s], attr)
+        return getattr(full0, attr) + bilinear(f) - line(f, 0)
+
+    sp = {key: cnt.site_peaks for key, cnt in c.items()}
+    short = set.intersection(*(set(p) for p in sp.values()))
+    units = set.intersection(*(set(sp[d, s]) for d in (a, a + 1)
+                               for s in (S1, S2))) - set(sp[0, S1]) \
+        - set(sp[0, S2])
+
+    def added(key):
+        return bilinear(lambda d, s: sp[d, s][key] - sp[0, s][key])
+    peaks = [bilinear(lambda d, s: sp[d, s][key]) for key in units]
+    regime = {added(key) for key in short - set(full0.site_peaks)}
+    for key, v in full0.site_peaks.items():
+        if key in short:
+            peaks.append(v + added(key))
+        elif len(regime) == 1:
+            peaks.append(v + next(iter(regime)))
+        else:
+            raise ValueError("scaled count: a site of the step at "
+                             f"{S} tokens has no counterpart at {S1} and "
+                             f"{S2} ({len(regime)} additions)")
+    count = OpCount(flops=total("flops"), bytes=total("bytes"),
+                    ops=total("ops"), peak_bytes=max(peaks))
+    return count, 1 + len(c)
+
+
 def run_cell(arch: str, shape_name: str, multi_pod: bool, opts_kw=None,
              mesh=None, verbose=True):
     """Three-trace dry run for one cell.
@@ -103,6 +227,12 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, opts_kw=None,
     over its shard count); output and alias bytes from the step's
     donation; temp bytes the full-depth trace's peak live bytes (every
     storage the step makes, the arguments not included) over the ranks.
+
+    A train or prefill cell over a stack that loops over tokens (xLSTM:
+    :func:`loops_over_tokens`) would walk every token in each of those
+    traces; it takes :func:`scaled_count` instead, which scales short
+    traces in the loops' trip counts as well as in depth. Its FLOPs, bytes and peak equal a full trace's
+    (``tests/test_torch_dryrun_xlstm.py``).
     """
     cfg = get_arch(arch)
     shape = get_shape(shape_name)
@@ -123,28 +253,21 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, opts_kw=None,
     t0 = time.time()
 
     def trace(c):
-        fn, in_sds, _, _ = input_specs(c, shape, mesh, opts)
-        with op_count() as count:
-            fn(*stand_ins(in_sds))
+        count = _trace(c, shape, mesh, opts)
         return roofline_from_count(count, mesh, hw.chip), count.peak_bytes
 
-    unit = cfg.repeat_unit
     R = cfg.num_repeats
-    enc_per = (cfg.enc_layers // R) if cfg.is_encoder_decoder else 0
-
-    def depth_cfg(k):
-        kw = {"num_layers": k * unit}
-        if cfg.is_encoder_decoder:
-            kw["enc_layers"] = k * enc_per
-        return dataclasses.replace(cfg, **kw)
-
-    rep1, peak = trace(depth_cfg(1))
-    if R > 1:
-        rep2, _ = trace(depth_cfg(2))
+    if loops_over_tokens(cfg, shape):
+        count, _ = scaled_count(cfg, shape, mesh, opts)
+        rep, peak = roofline_from_count(count, mesh, hw.chip), \
+            count.peak_bytes
+    elif R > 1:
+        rep1, _ = trace(_depth(cfg, 1))
+        rep2, _ = trace(_depth(cfg, 2))
         rep = rep1.extrapolate(rep2, R)
         _, peak = trace(cfg)
     else:
-        rep = rep1
+        rep, peak = trace(cfg)
     t_compile = time.time() - t0
     t_lower = 0.0
     _, in_sds, in_specs, _ = input_specs(cfg, shape, mesh, opts)

@@ -122,10 +122,13 @@ def _flash_attention(q, k, v, qpos, kpos, kind, window, chunk, causal, scale,
     per step."""
     B, Sq, Hkv, G, hd = q.shape
     if Sq > q_block and Sq % q_block == 0:
-        outs = [_flash_attention(q[:, i:i + q_block], k, v,
-                                 qpos[i:i + q_block], kpos, kind, window,
-                                 chunk, causal, scale, kv_block, q_block)
-                for i in range(0, Sq, q_block)]
+        # blocks taken once (here and below): the backward of a split is
+        # one cat, where a slice per block would write and sum a zeroed
+        # gradient of the whole input per block
+        outs = [_flash_attention(qb, k, v, pb, kpos, kind, window, chunk,
+                                 causal, scale, kv_block, q_block)
+                for qb, pb in zip(q.split(q_block, dim=1),
+                                  qpos.split(q_block))]
         return torch.cat(outs, dim=1)
     Skv = k.shape[1]
     nb = -(-Skv // kv_block)
@@ -137,11 +140,10 @@ def _flash_attention(q, k, v, qpos, kpos, kind, window, chunk, causal, scale,
     m = torch.full((B, Hkv, G, Sq), NEG_INF, dtype=F32, device=q.device)
     l = torch.zeros((B, Hkv, G, Sq), dtype=F32, device=q.device)
     acc = torch.zeros((B, Hkv, G, Sq, hd), dtype=F32, device=q.device)
-    for b in range(nb):
-        blk = slice(b * kv_block, (b + 1) * kv_block)
-        kb, vb = k[:, blk], v[:, blk]
+    for kb, vb, kp in zip(k.split(kv_block, dim=1), v.split(kv_block, dim=1),
+                          kpos.split(kv_block)):
         s = torch.einsum("bqhgd,bkhd->bhgqk", q, kb).to(F32) * scale
-        mask = attn_mask(qpos, kpos[blk], kind, window, chunk, causal)
+        mask = attn_mask(qpos, kp, kind, window, chunk, causal)
         s = torch.where(mask[None, None, None], s, torch.full_like(s, NEG_INF))
         m_new = torch.maximum(m, torch.amax(s, dim=-1))
         alpha = torch.exp(m - m_new)

@@ -123,8 +123,10 @@ def init_params(gen, cfg, device="cuda"):
     R = cfg.num_repeats
     params["blocks"] = {
         f"s{i}": _stack([_block_init(gen, cfg, i, dtype, device)
-                         for _ in range(R)])
+                         for _ in range(max(R, 1))])
         for i in range(cfg.repeat_unit)}
+    if R == 0:                  # no layer stack: (0, ...) leaves
+        params["blocks"] = tree_map(lambda a: a[:0].clone(), params["blocks"])
     params["final_norm"] = norm_init(d, cfg.norm, dtype, device)
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, d, Vp, dtype, device=device)
@@ -440,7 +442,7 @@ def apply_blocks(params_blocks, x, cfg, rules, positions, *, causal=True,
     for r in range(R):
         x, new = run(unit_fn, x, r, enc_out)
         per_r.append(new)
-    if not return_cache or per_r[0]["s0"] is None:
+    if not return_cache or not per_r or per_r[0]["s0"] is None:
         return x, None
     return x, {key: _stack([c[key] for c in per_r]) for key in per_r[0]}
 

@@ -51,10 +51,20 @@ def mlstm_init(gen, cfg, dtype, device):
     }
 
 
+def _log_sigmoid(x):
+    """log sigmoid(x) = -log(1 + exp(-x)), the reference's
+    ``jax.nn.log_sigmoid`` (-softplus(-x)), as one softplus of beta -1
+    (linear, so x, past -20). ``F.logsigmoid`` agrees to an ulp, but its
+    forward keeps a buffer of the input's size on the host and on meta
+    and none on CUDA, so a meta count of the step would not be the
+    card's."""
+    return F.softplus(x, beta=-1.0)
+
+
 def _mlstm_gates(u, p):
     i_raw = (u @ p["wi"]).to(F32) + p["bi"].to(F32)          # (B,S,H)
     f_raw = (u @ p["wf"]).to(F32) + p["bf"].to(F32)
-    return i_raw, F.logsigmoid(f_raw)
+    return i_raw, _log_sigmoid(f_raw)
 
 
 def _mlstm_qkv(u, p, H):
@@ -94,8 +104,10 @@ def _mlstm_chunk_scan(q, k, v, i_raw, log_f, state, W):
     tri = torch.tril(torch.ones((W, W), dtype=torch.bool, device=q.device))
     Cb, nb, m0 = state["C"], state["n"], state["m"]
     hs = []
-    for c in range(nC):
-        qb, kb, vb, ib, lfb = (t[:, c] for t in (qc, kc, vc, ic, lfc))
+    # each chunk's slices taken once: their backward is one stack, where a
+    # select per chunk would write and sum nC zeroed inputs' worth
+    for qb, kb, vb, ib, lfb in zip(*(t.unbind(1)
+                                     for t in (qc, kc, vc, ic, lfc))):
         Bt = torch.cumsum(lfb, dim=1)                         # (B,W,H)
         # intra-chunk log weights: D[t,s] = Bt[t]-Bt[s]+i[s], s<=t
         Dts = Bt[:, :, None, :] - Bt[:, None, :, :] + ib[:, None, :, :]
@@ -211,7 +223,7 @@ def _slstm_cell(state, wx_t, r, H):
     h_prev = state["h"].reshape(B, H, d // H)
     rec = torch.einsum("bhd,hde->bhe", h_prev, r).reshape(B, 4 * d)
     i_raw, f_raw, z_raw, o_raw = torch.chunk(wx_t + rec, 4, dim=-1)
-    log_f = F.logsigmoid(f_raw)
+    log_f = _log_sigmoid(f_raw)
     m_new = torch.maximum(log_f + state["m"], i_raw)
     ip = torch.exp(i_raw - m_new)
     fp = torch.exp(log_f + state["m"] - m_new)
@@ -232,8 +244,8 @@ def slstm_apply(p, x, cfg, state=None, decode=False):
     if decode:
         assert S == 1
     hs = []
-    for t in range(S):
-        state = _slstm_cell(state, wx[:, t], r, H)
+    for wx_t in wx.unbind(1):          # one stack in the backward, as above
+        state = _slstm_cell(state, wx_t, r, H)
         hs.append(state["h"])
     y = x + torch.stack(hs, dim=1).to(x.dtype)                 # (B,S,d)
     # post up-projection gated FFN

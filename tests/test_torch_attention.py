@@ -473,36 +473,6 @@ def test_cascade_rejects_a_wrong_ring():
 # ------------------------------------------------------------- chip_smoke
 
 
-def test_chip_smoke_attention_phases_on_the_cpu():
-    """The smoke's attention phases at a tiny size on the CPU, where the
-    wrappers compute the plain versions (every error 0, no launch
-    counted); ``ring_main`` also runs its checks of the public wrappers
-    against each other and the oracle, and gives the records of fig3's
-    row from its counted run's outputs."""
-    small, deploy = chip_smoke.ring_workload(small=True), \
-        chip_smoke.deploy_shape(small=True)
-    recs = chip_smoke.phase_attn_kernels("cpu", small, iters=1)
-    assert [r["name"] for r in recs] == \
-        [f"flash_attention/{k}" for k in fa.VARIANTS] \
-        + [f"ring_attention/{k}" for k in ra.VARIANTS] \
-        + [f"ring_attention/{k}" for k in ra.BF16_VARIANTS]
-    counts, deployed = chip_smoke.phase_ring_main("cpu", small, deploy,
-                                                  iters=1)
-    assert counts == {}
-    assert [r["name"] for r in deployed] == \
-        ["ring_attention/pipelined", "ring_attention/fused_counter"]
-    BH, seq = deploy
-    assert [r["_key"][3] for r in deployed] == [BH, BH]
-    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
-    for rec in recs + deployed:
-        assert keys <= set(rec) and rec["max_abs_err"] == 0.0
-        assert rec["_path"] == "ring_main"
-        assert os.path.exists(os.path.join(ROOT, rec["source"]))
-        assert rec["replaces"] in ("src/repro/kernels/flash_attention.py:72",
-                                   "src/repro/kernels/ring_attention.py:197")
-
-
 def test_chip_smoke_attention_bounds_from_the_shapes():
     """f32 attention at the 3xTF32 rate (495 / 3 TFLOP/s), as the
     kernels compute it on the tensor cores; bf16 at 989."""

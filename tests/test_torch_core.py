@@ -312,3 +312,6 @@ def test_port_imports_no_jax_and_no_repro():
         "common", "fig3_flash_attention", "fig4_moe_skew",
         "fig5_kv_transfer", "fig6_gemm_allgather", "table5_moe_phases",
         "fig9_13_ablations", "roofline_cells", "run")} <= names
+    # the sixteenth slice's: the train-step timer beside the dry run
+    assert {"repro_torch.launch.step_time",
+            "repro_torch.launch.dryrun"} <= names

@@ -17,8 +17,6 @@ another order, through recurrences that carry each rounding on (the
 attention models' 1e-5 holds where no state is carried). 2e-2 in
 bfloat16, where the two libraries round at other places.
 """
-import functools
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,7 +25,6 @@ import torch
 
 from repro.configs import get_arch as jarch
 from repro.configs import reduced as jreduced
-from repro.models import decode_step as jdecode
 from repro.models import forward as jforward
 from repro.models import init_params as jinit
 from repro.models import prefill_step as jprefill
@@ -48,46 +45,12 @@ from repro_torch.models import xlstm as txlstm
 from repro_torch.models.model import lm_logits
 from repro_torch.serve import Engine, Request, Scheduler, ServeConfig
 from torch_port_helpers import first_repeat, rel_err
-
-KINDS = ["xlstm-350m", "recurrentgemma-9b"]
-TOL = 1e-4
-
-
-@functools.lru_cache(maxsize=None)
-def pair(name, dtype="float32"):
-    jcfg = jreduced(jarch(name), dtype=dtype)
-    tcfg = reduced(get_arch(name), dtype=dtype)
-    jp = jinit(jax.random.PRNGKey(0), jcfg)
-    tp = params_from_numpy(jax.tree.map(np.asarray, jp), tcfg, device="cpu")
-    return jcfg, tcfg, jp, tp
+from torch_recurrent_helpers import KINDS, TOL, pair, prompts
 
 
 @pytest.fixture(params=KINDS)
 def kind(request):
     return pair(request.param)
-
-
-def prompts(cfg, B, S, seed=0):
-    return np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, S))
-
-
-def leaves(cache):
-    return {(blk, leaf): v for blk, node in cache.items()
-            for leaf, v in node.items()}
-
-
-def assert_caches_equal(tc, jc, tol=TOL):
-    t, j = leaves(tc), leaves(jax.tree.map(np.asarray, jc))
-    assert t.keys() == j.keys()
-    for key, want in j.items():
-        got = t[key]
-        assert tuple(got.shape) == want.shape, key
-        assert got.dtype == {np.dtype("float32"): torch.float32,
-                             np.dtype("int32"): torch.int32}[want.dtype], key
-        if want.dtype == np.int32:
-            assert np.array_equal(got.numpy(), want), key
-        else:
-            assert rel_err(got, want) <= tol, key
 
 
 # ------------------------------------------------------------------ blocks
@@ -140,38 +103,6 @@ def test_mlstm_chunk_scan_equals_reference(S, W):
 
 
 # ------------------------------------------------------------------ models
-
-
-@pytest.mark.parametrize("name,S", [("xlstm-350m", 5), ("xlstm-350m", 13),
-                                    ("xlstm-350m", 24),
-                                    ("recurrentgemma-9b", 21),
-                                    ("recurrentgemma-9b", 37)])
-def test_prefill_and_decode_equal_reference(name, S):
-    """``prefill_step``'s logits and every cache leaf (the states, the
-    conv tail, the local-attention ring), then 3 ``decode_step``s, each
-    step's logits and cache, against the reference on the same tokens.
-    xLSTM: one short chunk, a padded one, whole chunks. RecurrentGemma:
-    prompts past the window of 16, so the ring holds real positions only
-    (a prompt shorter than the ring is where the reference's attention
-    cache goes wrong, ROADMAP §3: that case is held through ``forward``
-    in the next test)."""
-    jcfg, tcfg, jp, tp = pair(name)
-    toks = prompts(tcfg, 2, S, seed=S)
-    jl, jc = jprefill(jp, {"tokens": jnp.asarray(toks)}, jcfg, None,
-                      seq_len=S)
-    tl, tc = prefill_step(tp, {"tokens": torch.from_numpy(toks)}, tcfg,
-                          seq_len=S)
-    assert rel_err(tl, np.asarray(jl)) <= TOL
-    assert_caches_equal(tc, jc)
-    jstep = jax.jit(lambda p, c, t, pos: jdecode(p, c, t, pos, jcfg, None))
-    tok = np.asarray(jnp.argmax(jl[:, -1], -1)).astype(np.int32)
-    for i in range(3):
-        jl, jc = jstep(jp, jc, jnp.asarray(tok[:, None]), jnp.int32(S + i))
-        tl, tc = decode_step(tp, tc, torch.from_numpy(tok[:, None]).long(),
-                             S + i, tcfg)
-        assert rel_err(tl, np.asarray(jl)) <= TOL, i
-        assert_caches_equal(tc, jc)
-        tok = np.asarray(jnp.argmax(jl[:, -1], -1)).astype(np.int32)
 
 
 @pytest.mark.parametrize("S", [5, 13, 21])
@@ -334,25 +265,3 @@ def test_forward_has_no_cache_by_default(kind):
     jx, _ = jforward(jp, {"tokens": jnp.asarray(toks)}, jcfg, None)
     assert rel_err(lm_logits(tp, x, tcfg),
                    np.asarray(jlogits(jp, jx, jcfg, None))) <= TOL
-
-
-def test_chip_smoke_serve_kinds_on_the_cpu():
-    """The smoke's serve_kinds phase at the reduced sizes on the CPU (the
-    shuttle's plain version, so no launch is counted); the full configs
-    are the published ones, uncut, at the shapes the phase names."""
-    import dataclasses
-    import os
-    import sys
-    sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-    import chip_smoke
-    assert chip_smoke.phase_serve_kinds(
-        "cpu", chip_smoke.kind_configs(small=True)) == {}
-    full = chip_smoke.kind_configs()
-    assert [(c.name, s) for c, s in full] == [
-        ("xlstm-350m", (4, 512, 32)), ("recurrentgemma-9b", (2, 2304, 16)),
-        ("whisper-large-v3", (4, 64, 32))]
-    assert all(dataclasses.asdict(c) == dataclasses.asdict(get_arch(c.name))
-               for c, _ in full)
-    rg = full[1][0]
-    assert full[1][1][1] > rg.window == 2048
-    assert 7.0e9 < rg.param_count() < 8.0e9

@@ -395,20 +395,6 @@ def test_moe_apply_passes_contexts_2_and_its_probe_to_the_kernel(monkeypatch):
 # ------------------------------------------------------------- chip_smoke
 
 
-def test_chip_smoke_window_phase_on_the_cpu():
-    """The smoke's ``window`` phase at a tiny size on the CPU, where the
-    wrappers compute the plain versions: every cooperative variant at
-    contexts 1, 2 and 4, one time each, no launch counted."""
-    times = chip_smoke.phase_window("cpu", iters=1, small=True)
-    assert {k[0] for k in times} == {"moe_dispatch", "kv_shuttle",
-                                     "gemm_allgather", "ring_attention"}
-    assert {v for k in times for v in [k[1]]} >= set(moe.VARIANTS) \
-        | set(kv.VARIANTS) | set(ga.VARIANTS) | set(ra.VARIANTS)
-    assert all(sorted(row) == [1, 2, 4] for row in times.values())
-    for kern in (moe, kv, ga, ra):
-        assert kern.launches() == 0 and not kern.CONTEXTS_LAUNCHED
-
-
 def test_chip_smoke_holds_the_directives_contexts():
     """A counted path fails where a directive's ``contexts`` never reached
     the kernel, and passes where it did."""
