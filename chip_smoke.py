@@ -329,7 +329,11 @@ def phase_build(device="cuda"):
         log("build: skipped on the cpu (kernels need nvcc and a card)")
         return
     t0 = time.perf_counter()
-    build.build(KERNELS)
+    # with the counting builds, which load_kernel would otherwise compile
+    # one after the other
+    build.build_jobs([(name, ()) for name in KERNELS],
+                     [(name, build.STATS_DEFINES)
+                      for name in ("moe_dispatch", "kv_shuttle")])
     libs = [m.load_kernel() for m in (moe_dispatch, kv_shuttle,
                                       gemm_allgather, flash_attention,
                                       ring_attention)]

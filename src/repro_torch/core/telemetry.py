@@ -13,18 +13,27 @@
   records (wall-clock fields stay out).
 * :class:`MetricsRegistry` — counters / gauges / histograms with a JSON
   snapshot.
+* :func:`span`, :data:`TRACE`, :func:`kernel_counters`, :func:`collect`,
+  :func:`spans` — the program's own trace: host spans in the kernel
+  wrappers and cycle counters inside the kernels, on exactly while a
+  ``torch.profiler`` records (``src/repro_torch/OBSERVABILITY.md``).
 """
 from __future__ import annotations
 
+import collections
+import contextlib
+import itertools
 import json
 import math
 import time
 from dataclasses import dataclass, field, replace
 
 import torch
+from torch._C._profiler import _RecordFunctionFast
 
 __all__ = ["wallclock_us", "EvalRecord", "SearchTelemetry",
-           "MetricsRegistry"]
+           "MetricsRegistry", "TRACE", "span", "spans", "kernel_counters",
+           "collect", "cycle_share", "reset"]
 
 
 def wallclock_us(fn, inputs, iters=3):
@@ -369,6 +378,10 @@ class MetricsRegistry:
         return self._histograms.setdefault(str(name),
                                            _Histogram(max_samples))
 
+    def clear(self):
+        for instruments in (self._counters, self._gauges, self._histograms):
+            instruments.clear()
+
     def snapshot(self):
         return {
             "counters": {k: c.value for k, c in sorted(self._counters.items())},
@@ -384,3 +397,155 @@ class MetricsRegistry:
         with open(path, "w") as f:
             f.write(self.to_json(indent=indent))
             f.write("\n")
+
+
+# ----------------------------------------------------------- program trace
+#
+# Spans in the kernel wrappers and cycle counters in the kernels, on
+# exactly while a torch.profiler records: an untraced call pays one C call
+# a span (``torch.autograd._profiler_enabled``) and launches the production
+# build of its kernel, which compiles no counter, with a null pointer.
+# A span's times are ``time.time_ns()``, the clock the profiler stamps its
+# host and device events on, so the log lines up with the profiler's
+# kernels. One thread opens the spans (the wrappers are called from the
+# launching thread).
+#
+# A span's range in the profiler is a function-scope range
+# (``_RecordFunctionFast``), not ``record_function``'s user-scope one: the
+# profiler gives a user-scope range a device-side copy spanning the
+# kernels launched inside it, which a reader of the trace's device
+# operations would count as device time; a function-scope range has
+# none, and costs about 2 us where the other costs 15.
+#
+# Of a kernel's traced launches, every COUNT_EVERY-th (the first
+# included) runs the counting build; the others run the production build,
+# so that the profiler's kernel times stay the production kernel's. The
+# stride is prime, so it meets every position of a loop over a pool of
+# inputs whose size it does not divide.
+
+SPAN_LOG_CAP = 1 << 18   # spans kept: the newest; a traced window holds fewer
+COUNT_EVERY = 17
+# a CTA role's counters, in the order of csrc/cta_stats.cuh's buckets
+KERNEL_BUCKETS = ("ctas", "cycles", "wait", "gemm")
+
+TRACE = MetricsRegistry()
+# (name, call id, parent name, t0 ns, t1 ns)
+_LOG = collections.deque(maxlen=SPAN_LOG_CAP)
+_OPEN = []               # (name, call id) of the open spans, innermost last
+_CALLS = itertools.count(1)
+_KERNELS = {}            # (kernel, device) -> (roles, int64 (roles, buckets))
+_TRACED = collections.Counter()   # (kernel, device) -> traced launches
+_NULL = contextlib.nullcontext()
+
+
+class _Span:
+    __slots__ = ("name", "call", "parent", "range", "t0")
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        self.range = _RecordFunctionFast(self.name)
+        self.range.__enter__()
+        self.parent, self.call = _OPEN[-1] if _OPEN else (None,
+                                                          next(_CALLS))
+        _OPEN.append((self.name, self.call))
+        self.t0 = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.time_ns()
+        _OPEN.pop()
+        _LOG.append((self.name, self.call, self.parent, self.t0, t1))
+        self.range.__exit__(*exc)
+        return False
+
+
+def span(name):
+    """A context manager over a named piece of the program. While a
+    ``torch.profiler`` records it opens a profiler range of that name (in
+    the profiler's host timeline, nested in the ranges around it), appends
+    ``(name, call id, parent, t0, t1)`` to the log (:func:`spans`; the
+    spans under one outermost span share its call id, ``parent`` is the
+    enclosing span's name); otherwise it does nothing."""
+    if not torch.autograd._profiler_enabled():
+        return _NULL
+    return _Span(name)
+
+
+def spans():
+    """The closed spans so far (the newest ``SPAN_LOG_CAP``), in the order
+    they closed."""
+    return list(_LOG)
+
+
+def kernel_counters(kernel, roles, device):
+    """The accumulator a launch of ``kernel`` on ``device`` passes as its
+    ``stats`` pointer, to the counting build (``kernels.build.
+    STATS_DEFINES``), on every ``COUNT_EVERY``-th launch while a profiler
+    records, the first included: int64 (len(roles), len(KERNEL_BUCKETS))
+    on the device, zeroed once and kept for the process, to which each CTA
+    of role r adds its counts at exit. None otherwise (the production
+    build and a null pointer)."""
+    if not torch.autograd._profiler_enabled():
+        return None
+    key = (kernel, torch.device(device))
+    _TRACED[key] += 1
+    if (_TRACED[key] - 1) % COUNT_EVERY:
+        return None
+    if key not in _KERNELS:
+        _KERNELS[key] = (tuple(roles), torch.zeros(
+            (len(roles), len(KERNEL_BUCKETS)), dtype=torch.int64,
+            device=device))
+    return _KERNELS[key][1]
+
+
+def _counts():
+    """Every kernel's device counters, ``<kernel>.<role>.<bucket>``
+    summed over devices, with one synchronizing read a device."""
+    got = {}
+    for dev in {dev for _, dev in _KERNELS}:
+        keys = [k for k in _KERNELS if k[1] == dev]
+        vals = iter(torch.cat([_KERNELS[k][1].flatten()
+                               for k in keys]).tolist())
+        for kernel, _ in keys:
+            for role in _KERNELS[(kernel, dev)][0]:
+                for bucket in KERNEL_BUCKETS:
+                    name = f"{kernel}.{role}.{bucket}"
+                    got[name] = got.get(name, 0.0) + next(vals)
+    return got
+
+
+def collect():
+    """TRACE made anew from the program's trace: a histogram of each
+    span's durations (ms) from the log, and the kernels' counters
+    (``<kernel>.<role>.<bucket>``, summed over devices) with one
+    synchronizing read a device; returns the counters as a dict."""
+    TRACE.clear()
+    for name, _, _, t0, t1 in _LOG:
+        TRACE.histogram(name, SPAN_LOG_CAP).observe((t1 - t0) / 1e6)
+    got = _counts()
+    for name, v in got.items():
+        TRACE.counter(name).value = v
+    return got
+
+
+def cycle_share(kernel, bucket):
+    """The share (%) of ``kernel``'s CTA cycles, every role together,
+    counted in ``bucket`` (``"wait"`` or ``"gemm"``), from the counters
+    :func:`collect` reads; None when no CTA of it was counted."""
+    got = _counts()
+    total = sum(v for k, v in got.items()
+                if k.startswith(f"{kernel}.") and k.endswith(".cycles"))
+    part = sum(v for k, v in got.items()
+               if k.startswith(f"{kernel}.") and k.endswith(f".{bucket}"))
+    return 100.0 * part / total if total else None
+
+
+def reset():
+    """Forget the log, TRACE's instruments and the kernels' counters and
+    traced launches."""
+    _LOG.clear()
+    TRACE.clear()
+    _KERNELS.clear()
+    _TRACED.clear()

@@ -45,6 +45,13 @@
 // that are not 16-byte multiples (dk or the cache width, f32, not a
 // multiple of 4) keep plain stores and only defer the flag.
 //
+// Counters (cta_stats.cuh): in the counting build (-DCUCO_STATS, one traced
+// launch in 17 takes it) each CTA counts its cycles, those its thread 0
+// spends waiting on flags and bulk groups (the decode warp: its receive
+// waits) and those in tile products, and adds them to the `stats`
+// accumulator by role: prefill, decode. The production build compiles no
+// counter.
+//
 // The decode rank computes nothing, so it gets one CTA (one warp of it
 // waits, 32 chunks at a time) and the prefill partition every other
 // co-resident CTA. The wrapper zeroes the flags on
@@ -70,6 +77,7 @@
 #include <stdint.h>
 #include <stdio.h>
 
+#include "cta_stats.cuh"
 #include "flags.cuh"
 #include "tc_gemm.cuh"
 #include "window.cuh"
@@ -97,8 +105,15 @@ struct ShuttleParams {
   void* ko;         // the decode rank's K slab (rows, dk)
   void* vo;         // the decode rank's V slab (rows, dk)
   unsigned* flag;   // (2, nchunks): elements landed per (half, chunk)
-  int* log;         // (grid, log_cap, 4): window events (-DCUCO_PROBE builds)
-  int* log_n;       // (grid): events each CTA appended
+  // one slot, so the struct keeps the size and layout the production build
+  // was tuned at (a field more moved its spills): no build takes both
+  union {
+    int* log;                   // -DCUCO_PROBE: (grid, log_cap, 4) window events
+    unsigned long long* stats;  // -DCUCO_STATS: (2 roles: prefill, decode;
+                                // cta_stats.cuh's buckets) cycle counters
+  };                            // null in the production build (cta_log only
+                                // offsets it, note compiles to nothing)
+  int* log_n;       // (grid): events each CTA appended (-DCUCO_PROBE)
 };
 
 // a round: rows [row0, row0 + nrows) x ncols of one half, whose release
@@ -173,9 +188,12 @@ __device__ void gemm_unit(const ShuttleParams& P, KvWindow& w, int half, int mt,
                           char* smem) {
   const int row0 = mt * BM, col0 = ct * BN;
   const int nrows = min(BM, P.rows - row0), ncols = min(BN, P.dk - col0);
-  if (threadIdx.x == 0) win::wait_read_all();  // the last tile's bulk stores read smem
-  tc::tile<float, VEC>(tc::TileA{P.x, nullptr, P.d, (size_t)row0, nrows},
-                       tc::TileB{half ? P.wv : P.wk, P.dk, col0, col0 + 64, ncols}, P.d, smem);
+  // the last tile's bulk stores read smem
+  if (threadIdx.x == 0) win::wait_read_all(stats::wait());
+  stats::gemm([&] {
+    tc::tile<float, VEC>(tc::TileA{P.x, nullptr, P.d, (size_t)row0, nrows},
+                         tc::TileB{half ? P.wv : P.wk, P.dk, col0, col0 + 64, ncols}, P.d, smem);
+  });
   float* out = reinterpret_cast<float*>(half ? P.vo : P.ko) + (size_t)row0 * P.dk + col0;
   auto release = [&](const KvRound& r) { release_round(P, r); };
   const KvRound round{P.flag + (size_t)half * P.nchunks, row0, nrows, ncols};
@@ -200,7 +218,8 @@ __device__ void gemm_unit(const ShuttleParams& P, KvWindow& w, int half, int mt,
 // window first: the wait covers its K units too)
 __device__ void drain_k(const ShuttleParams& P, KvWindow& w) {
   if (threadIdx.x == 0) win::drain(w, [&](const KvRound& r) { release_round(P, r); }, 0);
-  cta_wait(P.flag, (unsigned)P.chunk_rows * P.dk, P.timeout_ms, "kv_shuttle", "K drain", 0, 0);
+  stats::cta_wait(P.flag, (unsigned)P.chunk_rows * P.dk, P.timeout_ms, "kv_shuttle", "K drain",
+                  0, 0);
 }
 
 __device__ void prefill_copy(const ShuttleParams& P, KvWindow& w, char* slot, int pid, int npre) {
@@ -251,7 +270,9 @@ __device__ void prefill_gemm(const ShuttleParams& P, KvWindow& w, int pid, int n
 // one warp; lane i waits on chunk c0 + i, 32 chunks at a time: the loads
 // of a 32-chunk window are in flight together, where one thread walking
 // the flags would pay an L2 round trip per chunk after the last arrival
-// Each chunk's K / V pair is one receive in the probe log.
+// Each chunk's K / V pair is one receive in the probe log. The warp's
+// waits (cta_stats.cuh) are lane 0's cycles from a 32-chunk window's first
+// load to the warp's join after its last arrival.
 __device__ void decode(const ShuttleParams& P) {
   if (threadIdx.x >= 32) return;
   const win::Log lg = win::cta_log(P.log, P.log_n, P.log_cap);
@@ -261,6 +282,7 @@ __device__ void decode(const ShuttleParams& P) {
   const unsigned* vf = P.flag + P.nchunks;
   for (int pass = 0; pass < (P.fused && P.counter ? 1 : 2); ++pass) {
     for (int c0 = 0; c0 < P.nchunks; c0 += 32) {
+      if (lane == 0) stats::mark();
       const int c = c0 + lane;
       if (c < P.nchunks) {
         if (P.fused && P.counter) {  // COUNTER: per chunk, K then V
@@ -274,6 +296,7 @@ __device__ void decode(const ShuttleParams& P) {
         }
       }
       __syncwarp();
+      if (lane == 0) stats::add_wait();
     }
   }
   __threadfence();
@@ -292,12 +315,15 @@ template <bool PURE>
 __global__ void __launch_bounds__(NT, PURE ? 4 : 2) kv_shuttle_kernel(ShuttleParams P) {
   extern __shared__ __align__(16) char smem[];
   const int npre = gridDim.x - 1;  // the last CTA is the decode rank
+  if (threadIdx.x == 0) stats::open((int)blockIdx.x >= npre);  // role: prefill (0) or decode (1)
   if ((int)blockIdx.x >= npre) {
     decode(P);
+    if (threadIdx.x == 0) stats::close(P.stats);
     return;
   }
   KvWindow& w = *reinterpret_cast<KvWindow*>(smem + smem_of<PURE>() - sizeof(KvWindow));
-  if (threadIdx.x == 0) win::open(w, P.contexts, win::cta_log(P.log, P.log_n, P.log_cap));
+  if (threadIdx.x == 0)
+    win::open(w, P.contexts, win::cta_log(P.log, P.log_n, P.log_cap), stats::wait());
   if constexpr (PURE) {
     prefill_copy(P, w, smem, blockIdx.x, npre);
   } else {
@@ -307,6 +333,7 @@ __global__ void __launch_bounds__(NT, PURE ? 4 : 2) kv_shuttle_kernel(ShuttlePar
       prefill_gemm<false>(P, w, blockIdx.x, npre, smem);
   }
   if (threadIdx.x == 0) win::drain(w, [&](const KvRound& r) { release_round(P, r); }, 1);
+  if (threadIdx.x == 0) stats::close(P.stats);
 }
 
 // ------------------------------------------------------------ C interface

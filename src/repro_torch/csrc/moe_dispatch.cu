@@ -70,6 +70,12 @@
 // in the global order, never on a combine flag, so the argument above
 // stands. A row is at most 64 KB (d <= 16384 in f32).
 //
+// Counters (cta_stats.cuh): in the counting build (-DCUCO_STATS, one traced
+// launch in 17 takes it) each CTA counts its cycles, those its thread 0
+// spends waiting on flags and bulk groups, and those in tile products, and
+// adds them to the `stats` accumulator by role: routed stream, second
+// stream. The production build compiles no counter.
+//
 // GEMMs: tc_gemm.cuh's 64 x 128 tensor-core tile (3xTF32 mma.sync, f32
 // accurate, cp.async ring). A unit is one tile; the units of one GEMM walk
 // the m-tiles inside a column slab, so the CTAs that run together share
@@ -85,6 +91,7 @@
 #include <stdint.h>
 #include <stdio.h>
 
+#include "cta_stats.cuh"
 #include "flags.cuh"
 #include "tc_gemm.cuh"
 #include "window.cuh"
@@ -116,8 +123,15 @@ struct MoeParams {
   unsigned* h_ready;   // (n rank, n src, b_max) GEMM1 units done per segment
   unsigned* o_ready;   // (n rank, n src) GEMM2 units done per segment (non-fused)
   unsigned* hs_ready;  // (n) second-stream GEMM1 units done
-  int* log;            // (grid, log_cap, 4): window events (-DCUCO_PROBE builds)
-  int* log_n;          // (grid): events each CTA appended
+  // one slot, so the struct keeps the size and layout the production build
+  // was tuned at: no build takes both
+  union {
+    int* log;                   // -DCUCO_PROBE: (grid, log_cap, 4) window events
+    unsigned long long* stats;  // -DCUCO_STATS: (2 roles: routed, second stream;
+                                // cta_stats.cuh's buckets) cycle counters
+  };                            // null in the production build (cta_log only
+                                // offsets it, note compiles to nothing)
+  int* log_n;          // (grid): events each CTA appended (-DCUCO_PROBE)
 };
 
 #define KNAME "moe_dispatch"
@@ -227,12 +241,15 @@ __device__ void gemm1(const MoeParams& P, const AT* A, const float* S, const Seg
         if (sg.src >= 0) {  // pipelined: the microblocks this tile reads have landed
           const int j1 = sg.j0 + (min(m0 + BM, sg.rows) - 1) / P.B;
           for (int j = sg.j0 + m0 / P.B; j <= j1; ++j)
-            cta_wait(&P.disp_flag[((size_t)st.me * P.n + sg.src) * P.b_max + j], (unsigned)P.B,
-                     P.timeout_ms, KNAME, "dispatch", sg.src, j);
+            stats::cta_wait(&P.disp_flag[((size_t)st.me * P.n + sg.src) * P.b_max + j],
+                            (unsigned)P.B, P.timeout_ms, KNAME, "dispatch", sg.src, j);
         }
-        if (threadIdx.x == 0) win::wait_read_all();  // a combine tile's stores read smem
-        tc::tile<AT, true>(tc::TileA{A, S, K, sg.a_row0 + m0, clampi(sg.valid - m0, 0, BM)},
-                           tc::TileB{W, 2 * F, c0, F + c0, BN}, K, smem);
+        // a combine tile's stores read smem
+        if (threadIdx.x == 0) win::wait_read_all(stats::wait());
+        stats::gemm([&] {
+          tc::tile<AT, true>(tc::TileA{A, S, K, sg.a_row0 + m0, clampi(sg.valid - m0, 0, BM)},
+                             tc::TileB{W, 2 * F, c0, F + c0, BN}, K, smem);
+        });
         tc::store_swiglu(smem, H + (sg.a_row0 + m0) * F + c0, F, min(BM, sg.rows - m0));
         cta_signal(sg.h_ready, 1u);
       }
@@ -247,12 +264,15 @@ __device__ void gemm2(const MoeParams& P, const float* H, const Seg* segs, int n
       for (int m0 = 0; m0 < segs[s].rows; m0 += BM) {
         if (!st.take()) continue;
         const Seg& sg = segs[s];
-        cta_wait(sg.h_ready, sg.h_units, P.timeout_ms, KNAME, "H ready", st.me, s);
+        stats::cta_wait(sg.h_ready, sg.h_units, P.timeout_ms, KNAME, "H ready", st.me, s);
         const int rows = min(BM, sg.rows - m0), valid = clampi(sg.valid - m0, 0, BM);
         const int ncols = min(BN, N - c0);
-        if (threadIdx.x == 0) win::wait_read_all();  // a combine tile's stores read smem
-        tc::tile<float, true>(tc::TileA{H, nullptr, K, sg.a_row0 + m0, valid},
-                              tc::TileB{W, N, c0, c0 + 64, ncols}, K, smem);
+        // a combine tile's stores read smem
+        if (threadIdx.x == 0) win::wait_read_all(stats::wait());
+        stats::gemm([&] {
+          tc::tile<float, true>(tc::TileA{H, nullptr, K, sg.a_row0 + m0, valid},
+                                tc::TileB{W, N, c0, c0 + 64, ncols}, K, smem);
+        });
         if (sg.comb_flag) {
           // the tile-fused combine: round (off, tile) of the window, sent
           // from the tile in shared memory (padding rows zeroed first);
@@ -340,7 +360,7 @@ __device__ void routed(const MoeParams& P, Stream& st, char* smem, MoeWindow& w)
         const float* src =
             k < P.counts[e] ? P.x + ((size_t)me * P.T + P.offsets[e] + k) * d : nullptr;
         const size_t row = (size_t)me * stride + k;
-        if (threadIdx.x == 0) win::wait_read_all();  // the slot's last row was read
+        if (threadIdx.x == 0) win::wait_read_all(stats::wait());  // the slot's last row was read
         __syncthreads();
         stage_row(src, reinterpret_cast<WT*>(smem), dsc + row, d);
         win::fence_to_async();
@@ -409,8 +429,8 @@ __device__ void routed(const MoeParams& P, Stream& st, char* smem, MoeWindow& w)
       // BARRIER / DEFERRED: every edge lands before any expert compute
       for (int s = 0; s < n; ++s)
         for (int j = 0; j < mb; ++j)
-          cta_wait(&P.disp_flag[((size_t)me * n + (me + s) % n) * bmax + j], (unsigned)B,
-                   P.timeout_ms, KNAME, "dispatch", (me + s) % n, j);
+          stats::cta_wait(&P.disp_flag[((size_t)me * n + (me + s) % n) * bmax + j], (unsigned)B,
+                          P.timeout_ms, KNAME, "dispatch", (me + s) % n, j);
       gemm1<WT>(P, recv, rs, segs, n, d, w1, f, h, st, smem);
       gemm2(P, h, segs, n, f, w2, d, st, smem);
     }
@@ -422,7 +442,7 @@ __device__ void routed(const MoeParams& P, Stream& st, char* smem, MoeWindow& w)
       for (int j = 0; j < mb; ++j) {
         const unsigned mine = rows_of(st, B);
         if (mine) {
-          cta_wait(segs[off].o_ready, o_units, P.timeout_ms, KNAME, "out ready", me, off);
+          stats::cta_wait(segs[off].o_ready, o_units, P.timeout_ms, KNAME, "out ready", me, off);
           if (threadIdx.x == 0)
             win::push(w, MoeRound{&P.comb_flag[q * n + me], mine * d, mine * d}, off, j,
                       release_round);
@@ -441,8 +461,8 @@ __device__ void routed(const MoeParams& P, Stream& st, char* smem, MoeWindow& w)
 
   // ---- assemble: region e of my combine slab holds my tokens for expert e
   for (int e = 0; e < n; ++e)
-    cta_wait(&P.comb_flag[me * n + e], (unsigned)P.blocks[e] * B * d, P.timeout_ms, KNAME,
-             "combine", me, e);
+    stats::cta_wait(&P.comb_flag[me * n + e], (unsigned)P.blocks[e] * B * d, P.timeout_ms, KNAME,
+                    "combine", me, e);
   const float* comb = P.comb + (size_t)me * slab * d;
   for (int k = 0; k < P.T; ++k) {
     if (!st.take()) continue;
@@ -463,14 +483,17 @@ __global__ void __launch_bounds__(NT, 2) moe_kernel(MoeParams P) {
   int s = 0;
   while (s + 1 < 2 * P.n && (int)blockIdx.x >= P.cta0[s + 1]) ++s;
   if ((int)blockIdx.x >= P.cta0[2 * P.n]) return;
+  if (threadIdx.x == 0) stats::open(s & 1);  // role: routed (0) or second stream (1)
   Stream st{s / 2, (int)blockIdx.x - P.cta0[s], P.cta0[s + 1] - P.cta0[s], 0};
   if (s & 1) {
     shared_stream(P, st, smem);
   } else {
     MoeWindow& w = *reinterpret_cast<MoeWindow*>(smem + tc::SMEM);
-    if (threadIdx.x == 0) win::open(w, P.contexts, win::cta_log(P.log, P.log_n, P.log_cap));
+    if (threadIdx.x == 0)
+      win::open(w, P.contexts, win::cta_log(P.log, P.log_n, P.log_cap), stats::wait());
     routed<WT>(P, st, smem, w);
   }
+  if (threadIdx.x == 0) stats::close(P.stats);
 }
 
 // The tile GEMM alone, one CTA a tile (m-tiles inside a column slab), for

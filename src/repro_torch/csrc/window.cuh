@@ -45,6 +45,10 @@
 // count runs on past its log's capacity, and the decoder
 // (kernels/window.py) refuses a log whose count exceeds it: an overflow is
 // never silent. The production build compiles no log code.
+//
+// The counting build (-DCUCO_STATS, cta_stats.cuh) adds the cycles the
+// owner spends in bulk-group waits (retirement, a slot's read) to the
+// counter its window was opened with; other builds compile no counting.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -87,6 +91,19 @@ __device__ __forceinline__ void commit_group() {
 // owner, before its CTA writes a slot again)
 __device__ __forceinline__ void wait_read_all() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// the same, its cycles added to *wait in a counting build (-DCUCO_STATS,
+// cta_stats.cuh) when wait is set
+__device__ __forceinline__ void wait_read_all(unsigned long long* wait) {
+#ifdef CUCO_STATS
+  const long long c0 = wait ? clock64() : 0;
+  wait_read_all();
+  if (wait) *wait += clock64() - c0;
+#else
+  (void)wait;
+  wait_read_all();
+#endif
 }
 
 #define WIN_WAIT(N)                                                 \
@@ -152,20 +169,35 @@ struct Window {
   unsigned last[MAXCAP];    // `groups` after each unretired round's last piece
   R round[MAXCAP];
   Log log;
+#ifdef CUCO_STATS
+  unsigned long long* wait;  // the owner's bulk-group waits, counted (or null)
+#endif
 };
 
 template <class R>
-__device__ __forceinline__ void open(Window<R>& w, int contexts, const Log& lg) {
+__device__ __forceinline__ void open(Window<R>& w, int contexts, const Log& lg,
+                                     unsigned long long* wait = nullptr) {
   w.cap = contexts < 1 ? 1 : (contexts > MAXCAP ? MAXCAP : contexts);
   w.head = w.count = 0;
   w.groups = 0;
   w.log = lg;
+#ifdef CUCO_STATS
+  w.wait = wait;
+#else
+  (void)wait;
+#endif
 }
 
 // the oldest round's bulk stores have landed: fence, then release its flags
 template <class R, class Release>
 __device__ __forceinline__ void retire_oldest(Window<R>& w, Release&& release) {
+#ifdef CUCO_STATS
+  const long long c0 = w.wait ? clock64() : 0;
   wait_landed(w.groups - w.last[w.head]);
+  if (w.wait) *w.wait += clock64() - c0;
+#else
+  wait_landed(w.groups - w.last[w.head]);
+#endif
   asm volatile("fence.proxy.async.global;\n" ::: "memory");
   __threadfence();
   release(w.round[w.head]);
@@ -225,7 +257,11 @@ __device__ __forceinline__ void ship(Window<R>& w, char* slot, unsigned slot_byt
       for (int i = 0; i < DEPTH; ++i)
         if (u0 + i * NTH < units) v[i] = __ldcg(sp + u0 + i * NTH);
       if (b0 == 0) {  // the slot is free once its last bulk store has read it
+#ifdef CUCO_STATS
+        if (threadIdx.x == 0) wait_read_all(w.wait);
+#else
         if (threadIdx.x == 0) wait_read_all();
+#endif
         sync();
       }
 #pragma unroll

@@ -27,11 +27,16 @@ from repro_torch import compat
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# the counting build of moe_dispatch.cu and kv_shuttle.cu (csrc/cta_stats.cuh),
+# which one traced launch in 17 takes (core/telemetry.py::kernel_counters)
+STATS_DEFINES = ("CUCO_STATS",)
 
 _LOCK = threading.Lock()
 _LOADED = {}          # (source name, defines) -> ctypes.CDLL
 _LOGS = {}            # (source name, defines) -> ptxas lines of its build
 _GRIDS = {}           # (library, device index, grid args) -> (grid, per_sm)
+_FAILED = {}          # library path -> compiler output of its failed build
+_PRELOADED = set()    # (source name, device, grid args) preloaded
 
 
 class KernelBuildError(RuntimeError):
@@ -57,63 +62,81 @@ def build(names, defines=()):
     ``-D`` each of ``defines``: one ``nvcc`` per source, all started
     together, each waited for. Raises with the compiler's output of every
     build that failed."""
-    defines = tuple(defines)
+    build_jobs([(name, tuple(defines)) for name in dict.fromkeys(names)])
+
+
+def build_jobs(jobs, optional=()):
+    """Compile the library of each ``(name, defines)`` in ``jobs`` and in
+    ``optional`` that is missing, all started together. A build of
+    ``optional`` that fails raises nothing here; a library that failed to
+    build raises its compiler output when a later call wants it, without
+    another ``nvcc``."""
     with _LOCK:
-        todo = [(name, *_library(name, defines))
-                for name in dict.fromkeys(names)
-                if (name, defines) not in _LOADED]
-        todo = [(name, src, lib) for name, src, lib in todo
-                if not lib.exists()]
+        want = [(key, True) for key in jobs]
+        want += [(key, False) for key in optional if key not in jobs]
+        todo = [(key, must, *_library(*key)) for key, must in want
+                if key not in _LOADED]
+        todo = [job for job in todo if not job[3].exists()]
+        known = [_FAILED[lib] for _, must, _, lib in todo
+                 if must and lib in _FAILED]
+        if known:
+            raise KernelBuildError("\n".join(known))
+        todo = [job for job in todo if job[3] not in _FAILED]
         if not todo:
             return
         nvcc = compat.nvcc_path()
         if nvcc is None:
-            raise KernelBuildError(f"no nvcc to build {todo[0][1]}")
+            raise KernelBuildError(f"no nvcc to build {todo[0][2]}")
         compat.build_dir().mkdir(parents=True, exist_ok=True)
         running = []
-        for name, src, lib in todo:
+        for (name, defines), must, src, lib in todo:
             tmp = lib.with_suffix(".so.tmp")
             proc = subprocess.Popen([nvcc, *NVCC_FLAGS,
                                      *(f"-D{d}" for d in defines), "-o",
                                      str(tmp), str(src)],
                                     stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT, text=True)
-            running.append((name, proc, tmp, lib))
+            running.append((name, defines, must, proc, tmp, lib))
         failed = []
-        for name, proc, tmp, lib in running:
+        for name, defines, must, proc, tmp, lib in running:
             log, _ = proc.communicate()
             _LOGS[(name, defines)] = [ln for ln in log.splitlines()
                                       if "ptxas info" in ln
                                       or "bytes spill" in ln]
             if proc.returncode:
-                failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+                _FAILED[lib] = f"{name}: nvcc exited {proc.returncode}\n{log}"
+                if must:
+                    failed.append(_FAILED[lib])
             else:
                 tmp.replace(lib)
         if failed:
             raise KernelBuildError("\n".join(failed))
 
 
-def load(name, defines=()):
+def load(name, defines=(), together=()):
     """The loaded library of ``csrc/<name>.cu`` (built with ``defines``),
-    compiling it first if its library is missing (once per process)."""
+    compiling it first if its library is missing (once per process), and
+    with it the builds of ``name`` with each define set of ``together``
+    that are missing, all started together; one of those that fails to
+    build does not fail this load."""
     key = (name, tuple(defines))
     with _LOCK:
         if key in _LOADED:
             return _LOADED[key]
-    build([name], defines)
+    build_jobs([key], [(name, tuple(d)) for d in together])
     with _LOCK:
         if key not in _LOADED:
             _LOADED[key] = ctypes.CDLL(str(_library(*key)[1]))
         return _LOADED[key]
 
 
-def load_typed(name, params, grid_args=None, defines=()):
+def load_typed(name, params, grid_args=None, defines=(), together=()):
     """:func:`load` with the library's C interface typed (once):
     ``params`` is the ctypes mirror of the source's parameter struct,
     checked against ``<name>_params_size()``; a cooperative kernel takes
     ``grid_args`` ints in ``<name>_grid`` and its grid in
     ``<name>_launch``."""
-    lib = load(name, defines)
+    lib = load(name, defines, together)
     if getattr(lib, "_kernel", None) is None:
         fn = lambda what: getattr(lib, f"{name}_{what}")  # noqa: E731
         coop = [] if grid_args is None else [ctypes.c_int]
@@ -150,6 +173,22 @@ def grid(lib, device, *args):
                 *args, ctypes.byref(size), ctypes.byref(per_sm)), "grid")
         _GRIDS[key] = (size.value, per_sm.value)
     return _GRIDS[key]
+
+
+def preload(name, load, device, *args):
+    """Load the library ``load()`` returns and size its grid on ``device``
+    for ``args`` (:func:`grid`), once a process for ``(name, device,
+    args)``, so that the first launch that takes it waits for no module
+    load. Best effort: a library that fails to build or load is left to
+    that launch, which raises."""
+    key = (name, device, args)
+    if key in _PRELOADED:
+        return
+    _PRELOADED.add(key)
+    try:
+        grid(load(), device, *args)
+    except (OSError, RuntimeError):
+        pass
 
 
 def launch(lib, params, device, *grid_size):

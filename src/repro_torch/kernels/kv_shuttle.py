@@ -33,6 +33,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core import telemetry
 from repro_torch.kernels import build, window
 
 # The schedule machinery is defined once, in repro_torch.core.schedule;
@@ -147,23 +148,41 @@ class _Params(ctypes.Structure):
             "rows", "d", "dk", "chunk_rows", "nchunks", "fused", "chained",
             "counter", "pure", "vec", "esize", "unit_rows", "timeout_ms",
             "contexts", "log_cap")]
-        + [(k, ctypes.c_void_p) for k in ("x", "wk", "wv", "ko", "vo",
-                                          "flag", "log", "log_n")])
+        + [(k, ctypes.c_void_p) for k in ("x", "wk", "wv", "ko", "vo", "flag")]
+        + [("slot", window.LogOrStats), ("log_n", ctypes.c_void_p)])
+    _anonymous_ = ("slot",)
+
+# the kernel's CTA roles, in the order of its ``stats`` accumulator's rows
+STAT_ROLES = ("prefill", "decode")
 
 
-def load_kernel(probe=False):
+def load_kernel(probe=False, stats=False):
     """Build (if needed) and load the kernel without running it — the
     fast path's stage A and the cascade's l1. ``probe``: the build with
-    ``-DCUCO_PROBE``, which logs its window (:func:`check_log`)."""
+    ``-DCUCO_PROBE``, which logs its window (:func:`check_log`);
+    ``stats``: the counting build (``build.STATS_DEFINES``), which one
+    traced launch in 17 takes (``telemetry.kernel_counters``), built
+    together with the production build so that a traced launch never
+    waits for ``nvcc``; its failure does not fail the production build."""
+    if probe:
+        return build.load_typed("kv_shuttle", _Params, grid_args=1,
+                                defines=window.PROBE_DEFINES)
     return build.load_typed("kv_shuttle", _Params, grid_args=1,
-                            defines=window.PROBE_DEFINES if probe else ())
+                            defines=build.STATS_DEFINES if stats else (),
+                            together=((), build.STATS_DEFINES))
 
 
-def grid_for(device, pure=False, probe=False):
+def grid_for(device, pure=False, probe=False, stats=False):
     """The co-resident grid of the projection (or, with ``pure``, the row
     copy) kernel: CTAs per SM x SMs, one of them the decode rank's. Raises
-    when fewer than two CTAs fit."""
-    return build.grid(load_kernel(probe), device, int(pure))
+    when fewer than two CTAs fit. The production grid preloads the
+    counting build's (:func:`build.preload`), so that a traced launch
+    waits for no module load."""
+    got = build.grid(load_kernel(probe, stats), device, int(pure))
+    if not probe and not stats:
+        build.preload("kv_shuttle", lambda: load_kernel(stats=True), device,
+                      int(pure))
+    return got
 
 
 def _aligned(*tensors):
@@ -172,53 +191,73 @@ def _aligned(*tensors):
 
 def _launch(x, wk, wv, *, chained, fused, counter, kv_chunk, contexts, pure,
             probe=False):
-    rows, width, sched = _shape(x, wk, pure=pure, fused=fused,
-                                kv_chunk=kv_chunk, contexts=contexts)
-    chunk_rows = sched.kv_chunk if fused else rows
-    operands = [x] if pure else [x, wk, wv]
-    for t in operands:
-        if t.device != x.device or not t.is_contiguous():
-            raise ValueError(f"kv_shuttle wants contiguous tensors on "
-                             f"{x.device}; got one on {t.device}")
-    if not pure:
-        if any(t.dtype != torch.float32 for t in operands):
-            raise ValueError("kv_shuttle's projections take float32 x, wk "
-                             "and wv; got "
-                             + ", ".join(str(t.dtype) for t in operands))
-        if wk.shape != (x.shape[2], width) or wv.shape != wk.shape:
-            raise ValueError(f"wk {tuple(wk.shape)}, wv {tuple(wv.shape)} do "
-                             f"not project x {tuple(x.shape)}")
-    if chunk_rows * width >= 2**32:
-        raise ValueError(f"a chunk of {chunk_rows} x {width} elements "
-                         "overflows its 32-bit flag")
-    grid, _ = grid_for(x.device, pure, probe)
-    ko = torch.empty((2, rows, width), dtype=x.dtype, device=x.device)
-    vo = torch.empty_like(ko)
-    ko[0].zero_()                 # the prefill rank's rows: never written
-    vo[0].zero_()
-    nchunks = rows // chunk_rows
-    flags = torch.zeros(2 * nchunks, dtype=torch.int32, device=x.device)
-    esize = x.element_size()
-    if pure:
-        vec = (width * esize) % 16 == 0 and _aligned(x, ko[1], vo[1])
-    else:
-        vec = x.shape[2] % 4 == 0 and width % 4 == 0 \
-            and _aligned(x, wk, wv, ko[1], vo[1])
-    unit_rows = max(1, COPY_UNIT_BYTES // (width * esize))
-    total = len(_units(rows, width, chunk_rows, fused, pure, unit_rows))
-    log = window.DeviceLog.alloc(grid if probe else 1,
-                                 2 * -(-total // (grid - 1)) + nchunks + 8
-                                 if probe else 1, x.device)
-    p = _Params(rows=rows, d=0 if pure else x.shape[2], dk=width,
-                chunk_rows=chunk_rows, nchunks=nchunks, fused=int(fused),
-                chained=int(chained), counter=int(counter), pure=int(pure),
-                vec=int(vec), esize=esize,
-                unit_rows=unit_rows, timeout_ms=TIMEOUT_MS,
-                contexts=int(contexts),
-                x=x.data_ptr(), wk=None if pure else wk.data_ptr(),
-                wv=None if pure else wv.data_ptr(), ko=ko[1].data_ptr(),
-                vo=vo[1].data_ptr(), flag=flags.data_ptr(), **log.params())
-    build.launch(load_kernel(probe), p, x.device, grid)
+    """One launch on ``x``'s card, in three spans: ``kv_shuttle.prepare``
+    (the checks, the grid, the ``_Params`` pack), ``kv_shuttle.alloc``
+    (K / V, the prefill rows' zero fill, the flags) and
+    ``kv_shuttle.launch``. Returns ``(ko, vo)``, or with ``probe`` (the
+    ``-DCUCO_PROBE`` build, uncounted) ``(ko, vo, (log, grid,
+    unit_rows))``."""
+    with telemetry.span("kv_shuttle.prepare"):
+        rows, width, sched = _shape(x, wk, pure=pure, fused=fused,
+                                    kv_chunk=kv_chunk, contexts=contexts)
+        chunk_rows = sched.kv_chunk if fused else rows
+        operands = [x] if pure else [x, wk, wv]
+        for t in operands:
+            if t.device != x.device or not t.is_contiguous():
+                raise ValueError(f"kv_shuttle wants contiguous tensors on "
+                                 f"{x.device}; got one on {t.device}")
+        if not pure:
+            if any(t.dtype != torch.float32 for t in operands):
+                raise ValueError("kv_shuttle's projections take float32 x, "
+                                 "wk and wv; got "
+                                 + ", ".join(str(t.dtype) for t in operands))
+            if wk.shape != (x.shape[2], width) or wv.shape != wk.shape:
+                raise ValueError(f"wk {tuple(wk.shape)}, wv "
+                                 f"{tuple(wv.shape)} do not project x "
+                                 f"{tuple(x.shape)}")
+        if chunk_rows * width >= 2**32:
+            raise ValueError(f"a chunk of {chunk_rows} x {width} elements "
+                             "overflows its 32-bit flag")
+        # while a profiler records: the counting build and its counters
+        stats = None if probe else telemetry.kernel_counters(
+            "kv_shuttle_kernel", STAT_ROLES, x.device)
+        grid, _ = grid_for(x.device, pure, probe, stats is not None)
+        nchunks = rows // chunk_rows
+        esize = x.element_size()
+        unit_rows = max(1, COPY_UNIT_BYTES // (width * esize))
+        p = _Params(rows=rows, d=0 if pure else x.shape[2], dk=width,
+                    chunk_rows=chunk_rows, nchunks=nchunks, fused=int(fused),
+                    chained=int(chained), counter=int(counter),
+                    pure=int(pure), esize=esize, unit_rows=unit_rows,
+                    timeout_ms=TIMEOUT_MS, contexts=int(contexts),
+                    x=x.data_ptr(), wk=None if pure else wk.data_ptr(),
+                    wv=None if pure else wv.data_ptr(),
+                    stats=None if stats is None else stats.data_ptr())
+    with telemetry.span("kv_shuttle.alloc"):
+        ko = torch.empty((2, rows, width), dtype=x.dtype, device=x.device)
+        vo = torch.empty_like(ko)
+        ko[0].zero_()             # the prefill rank's rows: never written
+        vo[0].zero_()
+        flags = torch.zeros(2 * nchunks, dtype=torch.int32, device=x.device)
+        if pure:
+            vec = (width * esize) % 16 == 0 and _aligned(x, ko[1], vo[1])
+        else:
+            vec = x.shape[2] % 4 == 0 and width % 4 == 0 \
+                and _aligned(x, wk, wv, ko[1], vo[1])
+        p.vec, p.ko, p.vo = int(vec), ko[1].data_ptr(), vo[1].data_ptr()
+        p.flag = flags.data_ptr()
+        # the probe build logs its window; the production build writes no
+        # log and keeps null log pointers
+        if probe:
+            total = len(_units(rows, width, chunk_rows, fused, pure,
+                               unit_rows))
+            log = window.DeviceLog.alloc(
+                grid, 2 * -(-total // (grid - 1)) + nchunks + 8, x.device)
+            for k, v in log.params().items():
+                setattr(p, k, v)
+    with telemetry.span("kv_shuttle.launch"):
+        build.launch(load_kernel(probe, stats is not None), p, x.device,
+                     grid)
     if probe:   # not a launch of the counted paths
         return ko, vo, (log, grid, unit_rows)
     CONTEXTS_LAUNCHED[int(contexts)] += 1
@@ -237,8 +276,10 @@ def _entry(x, wk, wv, *, chained, fused, counter, kv_chunk, contexts, pure):
                                 contexts=contexts, pure=pure)
     if x.device.type != "cuda":
         raise ValueError(f"kv_shuttle runs on cuda or cpu, not {x.device}")
-    return _launch(x, wk, wv, chained=chained, fused=fused, counter=counter,
-                   kv_chunk=kv_chunk, contexts=contexts, pure=pure)
+    with telemetry.span("kv_shuttle.call"):
+        return _launch(x, wk, wv, chained=chained, fused=fused,
+                       counter=counter, kv_chunk=kv_chunk, contexts=contexts,
+                       pure=pure)
 
 
 def kv_shuttle(x, wk, wv, *, chained=True, fused=False, counter=False,

@@ -31,6 +31,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import telemetry
 from repro_torch.kernels import build, window
 from repro_torch.kernels.split import cta_split
 
@@ -132,23 +133,42 @@ class _Params(ctypes.Structure):
         + [(k, ctypes.c_void_p) for k in (
             "x", "w1", "w2", "xs", "s1", "s2", "y", "ys", "recv", "recv_s",
             "ffn_out", "comb", "h", "hs", "disp_flag", "comb_flag",
-            "h_ready", "o_ready", "hs_ready", "log", "log_n")])
+            "h_ready", "o_ready", "hs_ready")]
+        + [("slot", window.LogOrStats), ("log_n", ctypes.c_void_p)])
+    _anonymous_ = ("slot",)
+
+# the kernel's CTA roles, in the order of its ``stats`` accumulator's rows
+STAT_ROLES = ("routed", "second")
 
 
-def load_kernel(probe=False):
+def load_kernel(probe=False, stats=False):
     """Build (if needed) and load the kernel without running it — the
     fast path's stage A and the cascade's l1. ``probe``: the build with
-    ``-DCUCO_PROBE``, which logs its window (:func:`check_log`)."""
+    ``-DCUCO_PROBE``, which logs its window (:func:`check_log`);
+    ``stats``: the counting build (``build.STATS_DEFINES``), which one
+    traced launch in 17 takes (``telemetry.kernel_counters``), built
+    together with the production build so that a traced launch never
+    waits for ``nvcc``; its failure does not fail the production build."""
+    if probe:
+        return build.load_typed("moe_dispatch", _Params, grid_args=3,
+                                defines=window.PROBE_DEFINES)
     return build.load_typed("moe_dispatch", _Params, grid_args=3,
-                            defines=window.PROBE_DEFINES if probe else ())
+                            defines=build.STATS_DEFINES if stats else (),
+                            together=((), build.STATS_DEFINES))
 
 
-def grid_for(device, n, shared, wire_i8, probe=False):
+def grid_for(device, n, shared, wire_i8, probe=False, stats=False):
     """The co-resident grid the launch uses: CTAs per SM x SMs. Raises
     when it cannot give every rank one routed CTA (and one second-stream
-    CTA with ``shared``)."""
-    return build.grid(load_kernel(probe), device, int(n), int(shared),
-                      int(wire_i8))
+    CTA with ``shared``). The production grid preloads the counting
+    build's (:func:`build.preload`), so that a traced launch waits for no
+    module load."""
+    args = (int(n), int(shared), int(wire_i8))
+    got = build.grid(load_kernel(probe, stats), device, *args)
+    if not probe and not stats:
+        build.preload("moe_dispatch", lambda: load_kernel(stats=True),
+                      device, *args)
+    return got
 
 
 def rank_ctas(grid, sched, f, shared=None):
@@ -208,86 +228,118 @@ def variant_name(*, barrier, pipelined, tile_fused, wire_i8, shared,
     return name
 
 
-def _launch(x, w1, w2, sched, *, barrier, pipelined, tile_fused, wire_i8,
-            combine_tile, shared, contexts, probe=False):
-    window.check_contexts(contexts)
-    n, T, d = x.shape
-    f = w2.shape[1]
-    B = sched.block_tokens
-    tensors = [x, w1, w2] + (list(shared) if shared is not None else [])
-    for t in tensors:
-        if t.device != x.device or t.dtype != torch.float32 \
-                or not t.is_contiguous():
-            raise ValueError("moe_dispatch wants contiguous float32 tensors "
-                             f"on {x.device}; got {t.dtype} on {t.device}")
-    if not 1 <= n <= MAX_RANKS:
-        raise ValueError(f"moe_dispatch runs 1..{MAX_RANKS} ranks, got {n}")
-    if w1.shape != (n, d, 2 * f) or w2.shape != (n, f, d):
-        raise ValueError(f"expert weights {tuple(w1.shape)}, "
-                         f"{tuple(w2.shape)} do not match x {tuple(x.shape)}")
-    if shared is not None:
-        xs, s1, s2 = shared
-        Ts, fs = xs.shape[1], s2.shape[0]
-        if xs.shape != (n, Ts, d) or s1.shape != (d, 2 * fs) \
-                or s2.shape != (fs, d):
-            raise ValueError("shared-expert operands do not match x")
-    else:
-        Ts, fs = 0, TILE
-    if d % TILE or f % TILE or fs % TILE:
-        raise ValueError(f"d={d}, f={f}, fs={fs} must be multiples of {TILE}")
-    if 4 * d > MAX_ROW_BYTES:
-        raise ValueError(f"a row of d={d} floats does not fit the kernel's "
-                         f"{MAX_ROW_BYTES}-byte send slot")
-    grid, _ = grid_for(x.device, n, shared is not None, wire_i8, probe)
-    ctas = rank_ctas(grid, sched, f, None if shared is None else (Ts, fs))
-    dev = x.device
-    stride = sched.b_max * B
-    slab = n * stride
-    wire_dt = torch.int8 if wire_i8 else torch.float32
-    recv = torch.empty((n, slab, d), dtype=wire_dt, device=dev)
-    recv_s = torch.empty((n, slab), dtype=torch.float32, device=dev)
-    ffn_out = torch.empty((n, slab, d), dtype=torch.float32, device=dev)
-    comb = torch.empty((n, slab, d), dtype=torch.float32, device=dev)
-    h = torch.empty((n, slab, f), dtype=torch.float32, device=dev)
-    y = torch.empty_like(x)
-    if shared is not None:
-        hs = torch.empty((n, Ts, fs), dtype=torch.float32, device=dev)
-        ys = torch.empty((n, Ts, d), dtype=torch.float32, device=dev)
-    # flags and the "H ready" / "out ready" counters, zeroed on the launch
-    # stream: dispatch (n, n, b_max), combine (n, n), H ready (n, n,
-    # b_max), out ready (n, n), second-stream H ready (n)
-    n_disp = n * n * sched.b_max
-    flags = torch.zeros(2 * n_disp + 2 * n * n + n, dtype=torch.int32,
-                        device=dev)
-    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
-    p = _Params(n=n, T=T, Ts=Ts, d=d, f=f, fs=fs, B=B, b_max=sched.b_max,
-                stride=stride, ct=sanitize_combine_tile(combine_tile, B),
-                barrier=int(barrier), pipelined=int(pipelined),
-                tile_fused=int(tile_fused), shared=int(shared is not None),
-                wire_i8=int(wire_i8), timeout_ms=TIMEOUT_MS,
-                contexts=int(contexts))
-    for k in ("counts", "blocks"):
-        getattr(p, k)[:n] = getattr(sched, k)
-    p.offsets[:n] = _offsets(sched.counts)
-    p.cta0[:2 * n + 1] = stream_starts(ctas)
-    p.x, p.w1, p.w2, p.y = ptr(x), ptr(w1), ptr(w2), ptr(y)
-    if shared is not None:
-        p.xs, p.s1, p.s2, p.ys, p.hs = (ptr(xs), ptr(s1), ptr(s2), ptr(ys),
-                                        ptr(hs))
-    p.recv, p.recv_s, p.ffn_out, p.comb, p.h = (ptr(recv), ptr(recv_s),
-                                                ptr(ffn_out), ptr(comb), ptr(h))
-    base = flags.data_ptr()
-    p.disp_flag = base
-    p.comb_flag = base + 4 * n_disp
-    p.h_ready = base + 4 * (n_disp + n * n)
-    p.o_ready = base + 4 * (2 * n_disp + n * n)
-    p.hs_ready = base + 4 * (2 * n_disp + 2 * n * n)
-    log = window.DeviceLog.alloc(grid if probe else 1,
-                                 log_cap(sched, d) if probe else 1, dev)
-    for k, v in log.params().items():
-        setattr(p, k, v)
-    build.launch(load_kernel(probe), p, dev, grid)
+def _launch(x, w1, w2, counts, block_tokens, tight, *, barrier, pipelined,
+            tile_fused, wire_i8, combine_tile, shared, contexts, pad=True,
+            probe=False):
+    """One launch on ``x``'s card, in three spans: ``moe_dispatch.prepare``
+    (the schedule, the padding to tiles, the checks, the grid and its CTA
+    split, the ``_Params`` pack), ``moe_dispatch.alloc`` (the scratch, the
+    flags' zero fill) and ``moe_dispatch.launch``. ``pad``: pad d, f and
+    fs to the tile (:func:`pad_to_tiles`); otherwise raise on widths that
+    are not multiples of it. Returns the output, or with ``probe`` (the
+    ``-DCUCO_PROBE`` build, uncounted) ``(out, log, stream starts)``."""
+    with telemetry.span("moe_dispatch.prepare"):
+        window.check_contexts(contexts)
+        sched = make_schedule(counts, block_tokens, tight)
+        if sched.n != x.shape[0] or sum(sched.counts) != x.shape[1]:
+            raise ValueError(f"counts {counts} do not route x "
+                             f"{tuple(x.shape)}")
+        d0 = x.shape[2]
+        if pad:
+            x, w1, w2, shared = pad_to_tiles(x, w1, w2, shared)
+        n, T, d = x.shape
+        f = w2.shape[1]
+        B = sched.block_tokens
+        tensors = [x, w1, w2] + (list(shared) if shared is not None else [])
+        for t in tensors:
+            if t.device != x.device or t.dtype != torch.float32 \
+                    or not t.is_contiguous():
+                raise ValueError("moe_dispatch wants contiguous float32 "
+                                 f"tensors on {x.device}; got {t.dtype} on "
+                                 f"{t.device}")
+        if not 1 <= n <= MAX_RANKS:
+            raise ValueError(f"moe_dispatch runs 1..{MAX_RANKS} ranks, "
+                             f"got {n}")
+        if w1.shape != (n, d, 2 * f) or w2.shape != (n, f, d):
+            raise ValueError(f"expert weights {tuple(w1.shape)}, "
+                             f"{tuple(w2.shape)} do not match x "
+                             f"{tuple(x.shape)}")
+        if shared is not None:
+            xs, s1, s2 = shared
+            Ts, fs = xs.shape[1], s2.shape[0]
+            if xs.shape != (n, Ts, d) or s1.shape != (d, 2 * fs) \
+                    or s2.shape != (fs, d):
+                raise ValueError("shared-expert operands do not match x")
+        else:
+            Ts, fs = 0, TILE
+        if d % TILE or f % TILE or fs % TILE:
+            raise ValueError(f"d={d}, f={f}, fs={fs} must be multiples of "
+                             f"{TILE}")
+        if 4 * d > MAX_ROW_BYTES:
+            raise ValueError(f"a row of d={d} floats does not fit the "
+                             f"kernel's {MAX_ROW_BYTES}-byte send slot")
+        dev = x.device
+        # while a profiler records: the counting build and its counters
+        stats = None if probe else telemetry.kernel_counters(
+            "moe_kernel", STAT_ROLES, dev)
+        grid, _ = grid_for(dev, n, shared is not None, wire_i8, probe,
+                           stats is not None)
+        ctas = rank_ctas(grid, sched, f, None if shared is None else (Ts, fs))
+        stride = sched.b_max * B
+        slab = n * stride
+        p = _Params(n=n, T=T, Ts=Ts, d=d, f=f, fs=fs, B=B, b_max=sched.b_max,
+                    stride=stride, ct=sanitize_combine_tile(combine_tile, B),
+                    barrier=int(barrier), pipelined=int(pipelined),
+                    tile_fused=int(tile_fused), shared=int(shared is not None),
+                    wire_i8=int(wire_i8), timeout_ms=TIMEOUT_MS,
+                    contexts=int(contexts),
+                    stats=None if stats is None else stats.data_ptr())
+        for k in ("counts", "blocks"):
+            getattr(p, k)[:n] = getattr(sched, k)
+        p.offsets[:n] = _offsets(sched.counts)
+        p.cta0[:2 * n + 1] = stream_starts(ctas)
+    with telemetry.span("moe_dispatch.alloc"):
+        wire_dt = torch.int8 if wire_i8 else torch.float32
+        ptr = lambda t: t.data_ptr()  # noqa: E731
+        # held until the launch is enqueued: a freed block would be handed
+        # to the next allocation here
+        recv = torch.empty((n, slab, d), dtype=wire_dt, device=dev)
+        scratch = [torch.empty((n, slab), dtype=torch.float32, device=dev)]
+        scratch += [torch.empty((n, slab, w), dtype=torch.float32, device=dev)
+                    for w in (d, d, f)]
+        p.recv = ptr(recv)
+        p.recv_s, p.ffn_out, p.comb, p.h = map(ptr, scratch)
+        y = torch.empty_like(x)
+        p.x, p.w1, p.w2, p.y = ptr(x), ptr(w1), ptr(w2), ptr(y)
+        if shared is not None:
+            ys = torch.empty((n, Ts, d), dtype=torch.float32, device=dev)
+            hs = torch.empty((n, Ts, fs), dtype=torch.float32, device=dev)
+            p.xs, p.s1, p.s2, p.ys, p.hs = (ptr(xs), ptr(s1), ptr(s2),
+                                            ptr(ys), ptr(hs))
+        # flags and the "H ready" / "out ready" counters, zeroed on the
+        # launch stream: dispatch (n, n, b_max), combine (n, n), H ready
+        # (n, n, b_max), out ready (n, n), second-stream H ready (n)
+        n_disp = n * n * sched.b_max
+        flags = torch.zeros(2 * n_disp + 2 * n * n + n, dtype=torch.int32,
+                            device=dev)
+        base = flags.data_ptr()
+        p.disp_flag = base
+        p.comb_flag = base + 4 * n_disp
+        p.h_ready = base + 4 * (n_disp + n * n)
+        p.o_ready = base + 4 * (2 * n_disp + n * n)
+        p.hs_ready = base + 4 * (2 * n_disp + 2 * n * n)
+        # the probe build logs its window; the production build writes no
+        # log and keeps null log pointers
+        if probe:
+            log = window.DeviceLog.alloc(grid, log_cap(sched, d), dev)
+            for k, v in log.params().items():
+                setattr(p, k, v)
+    with telemetry.span("moe_dispatch.launch"):
+        build.launch(load_kernel(probe, stats is not None), p, dev, grid)
     out = (y, ys) if shared is not None else y
+    if d != d0:
+        out = tuple(o[..., :d0] for o in out) if shared is not None \
+            else out[..., :d0]
     if probe:   # not a launch of the counted paths
         return out, log, stream_starts(ctas)
     CONTEXTS_LAUNCHED[int(contexts)] += 1
@@ -332,24 +384,16 @@ def moe_dispatch_combine(x, w1, w2, *, counts, block_tokens=64, tight=True,
         return out
     if x.device.type != "cuda":
         raise ValueError(f"moe_dispatch runs on cuda or cpu, not {x.device}")
-    sched = make_schedule(counts, block_tokens, tight)
-    if sched.n != x.shape[0] or sum(sched.counts) != x.shape[1]:
-        raise ValueError(f"counts {counts} do not route x {tuple(x.shape)}")
-    d = x.shape[2]
-    x, w1, w2, shared = pad_to_tiles(x, w1, w2, shared)
     knobs = dict(barrier=barrier, pipelined=pipelined, tile_fused=tile_fused,
                  wire_i8=wire_i8, combine_tile=combine_tile, shared=shared,
                  contexts=contexts)
-    if probe is not None:
-        out, log, starts = _launch(x, w1, w2, sched, probe=True, **knobs)
+    with telemetry.span("moe_dispatch.call"):
+        if probe is None:
+            return _launch(x, w1, w2, counts, block_tokens, tight, **knobs)
+        out, log, starts = _launch(x, w1, w2, counts, block_tokens, tight,
+                                   probe=True, **knobs)
         record_card(probe, window.decode(log.events, log.counts), starts)
-    else:
-        out = _launch(x, w1, w2, sched, **knobs)
-    if x.shape[2] == d:
         return out
-    if shared is not None:
-        return out[0][..., :d], out[1][..., :d]
-    return out[..., :d]
 
 
 def _pad_last(t, n):
@@ -477,9 +521,9 @@ def moe_dispatch_logged(x, w1, w2, *, counts, block_tokens=64, tight=True,
                          "has none")
     knobs = dict(dict(barrier=False, pipelined=True, tile_fused=False,
                       wire_i8=False, combine_tile=None, shared=None), **knobs)
-    sched = make_schedule(counts, block_tokens, tight)
-    out, log, starts = _launch(x, w1, w2, sched, contexts=contexts,
-                               probe=True, **knobs)
+    out, log, starts = _launch(x, w1, w2, counts, block_tokens, tight,
+                               contexts=contexts, pad=False, probe=True,
+                               **knobs)
     return out, window.decode(log.events, log.counts), starts
 
 

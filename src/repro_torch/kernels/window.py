@@ -22,6 +22,7 @@ reference's.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import torch
@@ -44,6 +45,15 @@ def check_contexts(contexts):
         raise ValueError(f"contexts must be one of {CONTEXTS}, got "
                          f"{contexts!r}")
     return int(contexts)
+
+
+class LogOrStats(ctypes.Union):
+    """One slot of a kernel's parameter struct: ``log`` (the probe build's
+    window log, :class:`DeviceLog`) or ``stats`` (the counting build's
+    cycle counters, ``core/telemetry.py::kernel_counters``); null in the
+    production build. A ``_Params`` takes it as anonymous field ``slot``,
+    so both names set it."""
+    _fields_ = [("log", ctypes.c_void_p), ("stats", ctypes.c_void_p)]
 
 
 class WindowLogError(AssertionError):

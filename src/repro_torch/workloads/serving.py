@@ -35,6 +35,7 @@ import math
 
 import torch
 
+from repro_torch.core import telemetry
 from repro_torch.core.cost_model import (CostBreakdown, CostSegment,
                                          per_tile_exposed_s,
                                          window_stall_factor)
@@ -115,7 +116,8 @@ class ServingStep(MoEDispatch):
                 tile_fused=k["tile_fused"], combine_tile=k["combine_tile"],
                 wire_i8=bool(k["wire_i8"]), shared=(x, s1, s2),
                 contexts=k["contexts"])
-            return y + ys
+            with telemetry.span("serving.shared_add"):
+                return y + ys
 
         return run
 
