@@ -14,13 +14,15 @@ sizes; every run runs all of them, and any failure exits non-zero):
    and print ptxas's register / shared-memory / spill lines and each
    launch's grid (moe: each rank's routed and second-stream CTAs; the
    ring: each rank's CTAs from ``ring_ctas`` at the defaults and at
-   fig3's largest row; gemm_allgather: its registers, spills, dynamic
-   shared memory and CTAs per SM).
+   fig3's largest row; kv_shuttle: each core's; gemm_allgather: its
+   registers, spills, dynamic shared memory and CTAs per SM).
 3. ``gemm_core`` — the tile GEMM of ``csrc/tc_gemm.cuh`` alone at the
    main path's GEMM shapes (serving's expert GEMM1 with SwiGLU and its
    GEMM2, the same for the skewed cell's busiest expert, kv_transfer's
-   projection), within 1e-4 of its plain version, timed beside
-   ``torch.matmul`` and the 3xTF32 bound.
+   projection, the KV cell's), within 1e-4 of its plain version, timed
+   beside ``torch.matmul`` and the 3xTF32 bound; at the KV cell's shape
+   (8192 rows, d 4096 into 2 x 1024 columns) kv_shuttle.cu's ``wgmma``
+   core alone (``csrc/wg_tile.cuh``) beside them.
 4. ``ga_core`` — gemm_allgather taken apart at ``GemmAllGather``'s
    defaults: its split phase alone (``gemm_allgather_split``, bit for bit
    against the plain split), the kernel at n = 1 with M_l = 4096 (the
@@ -354,10 +356,10 @@ def phase_build(device="cuda"):
             log(f"grid: moe_dispatch {w.name} counts={counts} int8={i8}: "
                 f"{grid} CTAs ({per_sm} per SM); per rank (routed, second "
                 f"stream) {ctas}")
-    for pure in (False, True):
-        grid, per_sm = kv_shuttle.grid_for(device, pure)
-        log(f"grid: kv_shuttle {'pure' if pure else 'projections'}: {grid} "
-            f"CTAs ({per_sm} per SM), {grid - 1} prefill + 1 decode")
+    for core in kv_shuttle.CORE_IDS:
+        grid, per_sm = kv_shuttle.grid_for(device, core)
+        log(f"grid: kv_shuttle {core} core: {grid} CTAs ({per_sm} per SM), "
+            f"{grid - 1} prefill + 1 decode")
     grid, per_sm = gemm_allgather.grid_for(device, 4)
     regs, stores, loads = ptxas_resources(build.ptxas_log("gemm_allgather"),
                                           "gemm_allgather_kernel")
@@ -533,19 +535,28 @@ def gemm_core_shapes(small=False):
     """(name, M, K, N, swiglu) of the ``gemm_core`` line: the serving
     cell's expert GEMM1 (256 routed rows, d=7168, 2f=4096, with SwiGLU)
     and GEMM2 (f=2048 -> d), the skewed cell's busiest expert (12
-    microblocks of 64 rows, d=512, f=1024) and kv_transfer's projection
-    (T = d = 4096, dk = 512); ``small``: test size."""
+    microblocks of 64 rows, d=512, f=1024), kv_transfer's projection
+    (T = d = 4096, dk = 512) and the KV cell's (``KV_CORE``: 8192 rows, d
+    4096 into 2 x 1024 columns, on both cores); ``small``: test size."""
     if small:
         return [("moe_gemm1_swiglu", 70, 64, 256, True),
                 ("moe_gemm2", 70, 128, 64, False),
                 ("skewed_gemm1_swiglu", 64, 32, 128, True),
                 ("skewed_gemm2", 64, 64, 32, False),
-                ("kv_projection", 130, 96, 40, False)]
+                ("kv_projection", 130, 96, 40, False),
+                (KV_CORE, 130, 96, 80, False)]
     return [("moe_gemm1_swiglu", 256, 7168, 2 * 2048, True),
             ("moe_gemm2", 256, 2048, 7168, False),
             ("skewed_gemm1_swiglu", 768, 512, 2 * 1024, True),
             ("skewed_gemm2", 768, 1024, 512, False),
-            ("kv_projection", 4096, 4096, 512, False)]
+            ("kv_projection", 4096, 4096, 512, False),
+            (KV_CORE, 8192, 4096, 2 * 1024, False)]
+
+
+# the gemm_core line's row that also runs kv_shuttle.cu's wgmma core alone
+# (csrc/wg_tile.cuh, kernels.kv_shuttle.gemm_core) over the N columns as
+# its two halves, K and V
+KV_CORE = "kv_wgmma_core"
 
 
 def phase_gemm_core(device="cuda", shapes=None, iters=5):
@@ -553,7 +564,10 @@ def phase_gemm_core(device="cuda", shapes=None, iters=5):
     flags) at the main path's GEMM shapes: held to its plain version
     within 1e-4 and timed beside one ``torch.matmul`` of the same product
     and the 3xTF32 bound, so a moe or kv variant's time splits into GEMM
-    and the rest (dispatch, combine, waiting). Returns one dict a shape."""
+    and the rest (dispatch, combine, waiting). The ``KV_CORE`` row also
+    holds and times kv_shuttle.cu's ``wgmma`` core alone on the same
+    product (``wgmma_ms``). Returns one dict a shape."""
+    from repro_torch.kernels import kv_shuttle
     from repro_torch.kernels.moe_dispatch import gemm_core, gemm_core_plain
     bench = Bench(device, iters)
     out = []
@@ -570,14 +584,27 @@ def phase_gemm_core(device="cuda", shapes=None, iters=5):
         mm_ms = bench.ms(lambda: torch.matmul(a, b))
         flops = 2 * M * K * N
         bound_ms = flops / TF32X3_FLOPS * 1e3
+        rec = {"name": name, "ms": core_ms, "matmul_ms": mm_ms,
+               "bound_ms": bound_ms}
+        wg_txt = ""
+        if name == KV_CORE:
+            wk, wv = b[:, :N // 2].contiguous(), b[:, N // 2:].contiguous()
+            wg_reading, _ = _close(f"gemm_core {name} (wgmma)",
+                                   kv_shuttle.gemm_core(a, wk, wv),
+                                   (a @ wk, a @ wv), 1e-4)
+            rec["wgmma_ms"] = bench.ms(lambda: kv_shuttle.gemm_core(a, wk,
+                                                                    wv))
+            wg_txt = (f"; wgmma core {_reading(wg_reading, 1e-4)}, "
+                      f"{rec['wgmma_ms']:.3f} ms "
+                      f"({flops / rec['wgmma_ms'] / 1e9:.1f} TFLOP/s)")
+            del wk, wv
         log(f"gemm_core {name} M={M} K={K} N={N}"
             f"{' +swiglu' if swiglu else ''}: {_reading(reading, 1e-4)}, "
             f"max abs err {abs_err:.3e}; core {core_ms:.3f} ms "
-            f"({flops / core_ms / 1e9:.1f} TFLOP/s), matmul {mm_ms:.3f} ms "
-            f"({flops / mm_ms / 1e9:.1f} TFLOP/s), 3xTF32 bound "
-            f"{bound_ms:.3f} ms")
-        out.append({"name": name, "ms": core_ms, "matmul_ms": mm_ms,
-                    "bound_ms": bound_ms})
+            f"({flops / core_ms / 1e9:.1f} TFLOP/s){wg_txt}, matmul "
+            f"{mm_ms:.3f} ms ({flops / mm_ms / 1e9:.1f} TFLOP/s), 3xTF32 "
+            f"bound {bound_ms:.3f} ms")
+        out.append(rec)
         del a, b
     return out
 

@@ -23,8 +23,8 @@
 //   whole tensor     K once, then V once.
 // Work units (whole tiles, or row copies in `pure` mode) go round robin
 // over the prefill CTAs in the round order. Fused is chunk-major: a row
-// group (kv_chunk rows when that is a multiple of 64, else one 64-row
-// m-tile) issues its K tiles, then its V tiles, so chunk c is complete no
+// group (kv_chunk rows when that is a multiple of the tile height, else
+// one m-tile) issues its K tiles, then its V tiles, so chunk c is complete no
 // later than chunk c + 1; otherwise every K tile precedes every V tile.
 // Chained and sequential differ only in when V may start: sequential
 // CTAs wait until all of K has landed (the drain before the V GEMM),
@@ -33,17 +33,17 @@
 // The send window (window.cuh, mechanism (a): TMA bulk stores). A round is
 // one work unit of one prefill CTA: a GEMM tile, or a row copy in `pure`
 // mode. The GEMM tile already sits in shared memory after its products
-// (tc_gemm.cuh's C[BM][LDC]), so thread 0 sends it row by row with bulk
-// stores and the CTA starts the next tile's loads at once (the stores
-// have only to have read the tile, not landed); a row copy goes through a
-// 32 KB slot (loads through registers, then bulk stores). At most
+// (wg_tile.cuh's dedicated result tile), so thread 0 sends it row by row
+// with bulk stores and the CTA starts the next tile's loads at once (the
+// stores have only to have read the tile, not landed); a row copy goes
+// through a 32 KB slot (loads through registers, then bulk stores). At most
 // `contexts` units a CTA are unretired; retiring one waits for its bulk
 // groups, fences, then ticks the flags of the chunks it covers. The window
 // drains before a sequential CTA's K drain (its own K units must be
 // released before it waits for all of K) and at the end. The decode rank
-// waits on nothing the prefill CTAs hold, so no wait cycle forms. Rows
-// that are not 16-byte multiples (dk or the cache width, f32, not a
-// multiple of 4) keep plain stores and only defer the flag.
+// waits on nothing the prefill CTAs hold, so no wait cycle forms.
+// Unaligned projections (tc_gemm.cuh's core) and cache rows that are not
+// 16-byte multiples keep plain stores and only defer the flag.
 //
 // Counters (cta_stats.cuh): in the counting build (-DCUCO_STATS, one traced
 // launch in 17 takes it) each CTA counts its cycles, those its thread 0
@@ -54,18 +54,25 @@
 //
 // The decode rank computes nothing, so it gets one CTA (one warp of it
 // waits, 32 chunks at a time) and the prefill partition every other
-// co-resident CTA. The wrapper zeroes the flags on
-// the launch stream before every launch, so a stale flag never satisfies
-// a wait. Every spin gives up after timeout_ms with a trap.
+// co-resident CTA (131 and 1 on an H100 under the wgmma core). The
+// wrapper zeroes the flags on the launch stream before every launch, so a
+// stale flag never satisfies a wait. Every spin gives up after timeout_ms
+// with a trap.
 //
-// GEMM variants: the projections run through tc_gemm.cuh's 64 x 128
-// tensor-core tile (3xTF32 mma.sync, f32 accurate, cp.async ring). A unit
-// is one whole tile (half, m-tile, column tile) whatever kv_chunk is; its
-// epilogue ticks the (half, chunk) flag of every chunk it overlaps by the
-// elements it wrote there, so kv_chunk sets only the flag granularity.
-// The units walk the column tiles inside an m-tile: x (T x d, 64 MB at the
-// workload's width) is the operand beyond L2, so CTAs that run together
-// share its rows while both weights (8 MB each) stay in L2.
+// GEMM variants, on one of two tile cores, chosen by what the inputs
+// allow. Aligned inputs (d and dk multiples of 4, 16-byte bases: what TMA
+// needs) take wg_tile.cuh's 128 x 128 Hopper core (3xTF32 `wgmma`, the
+// weight from registers, x by TMA; one CTA an SM of a warp-specialised
+// kernel, its own overload of kv_shuttle_kernel); the others keep
+// tc_gemm.cuh's 64 x 128 tile (3xTF32 mma.sync, cp.async ring, two CTAs an
+// SM: kv_shuttle_kernel<false>). A unit is one whole tile (half, m-tile,
+// column tile) whatever kv_chunk is; its epilogue ticks the (half, chunk)
+// flag of every chunk it overlaps by the elements it wrote there, so
+// kv_chunk sets only the flag granularity, and a fused row group follows
+// the core's tile height. The units walk the column tiles inside an
+// m-tile: x (T x d, 64 MB at the workload's width) is the operand beyond
+// L2, so CTAs that run together share its rows while both weights (8 MB
+// each) stay in L2.
 //
 // Bound: at the workload's width (T = d = 4096, dk = 512, f32) the two
 // projections are 34.4 GFLOP against 117 MB of traffic. 3xTF32 is three
@@ -80,6 +87,7 @@
 #include "cta_stats.cuh"
 #include "flags.cuh"
 #include "tc_gemm.cuh"
+#include "wg_tile.cuh"
 #include "window.cuh"
 
 using tc::BM;
@@ -93,7 +101,7 @@ struct ShuttleParams {
   int chunk_rows;   // rows per flag chunk: kv_chunk when fused, else rows
   int nchunks;      // flag chunks per half: rows / chunk_rows
   int fused, chained, counter, pure;
-  int vec;          // 16-byte aligned rows and bases: vector loads/stores
+  int vec;          // 16-byte aligned rows and bases: the wgmma core, bulk stores
   int esize;        // pure mode: bytes per element
   int unit_rows;    // pure mode: rows per copy unit
   int timeout_ms;
@@ -180,38 +188,45 @@ __device__ void copy_unit(const ShuttleParams& P, KvWindow& w, char* slot, int h
   }
 }
 
-// one GEMM unit: the whole tile (m-tile mt, column tile ct) of one half,
-// round (half, unit u) of the window: sent into the decode slab by thread
-// 0's bulk stores, a row each, from the tile in shared memory
-template <bool VEC>
+// The GEMM units' round order over tiles of bm rows and BN = 128 columns
+// (both cores): a row group of tpg m-tiles issues its K tiles, then its V
+// tiles; unfused, the group is the whole tensor
+struct Units {
+  int ctn, tpg, total;
+  __device__ __forceinline__ Units(const ShuttleParams& P, int bm) {
+    const int rt = (P.rows + bm - 1) / bm;
+    ctn = (P.dk + BN - 1) / BN;
+    tpg = !P.fused ? rt : (P.chunk_rows % bm == 0 ? P.chunk_rows / bm : 1);
+    total = 2 * rt * ctn;
+  }
+  __device__ __forceinline__ void at(int u, int& half, int& mt, int& ct) const {
+    const int per_group = 2 * tpg * ctn;
+    const int group = u / per_group, rem = u % per_group;
+    half = rem / (tpg * ctn);
+    const int sub = rem % (tpg * ctn);
+    mt = group * tpg + sub / ctn;
+    ct = sub % ctn;
+  }
+};
+
+// one GEMM unit on tc_gemm.cuh's core (unaligned inputs): the whole tile
+// (m-tile mt, column tile ct) of one half, round (half, unit u) of the
+// window, in plain stores; the flag waits for the round's retirement
 __device__ void gemm_unit(const ShuttleParams& P, KvWindow& w, int half, int mt, int ct, int u,
                           char* smem) {
   const int row0 = mt * BM, col0 = ct * BN;
   const int nrows = min(BM, P.rows - row0), ncols = min(BN, P.dk - col0);
-  // the last tile's bulk stores read smem
-  if (threadIdx.x == 0) win::wait_read_all(stats::wait());
   stats::gemm([&] {
-    tc::tile<float, VEC>(tc::TileA{P.x, nullptr, P.d, (size_t)row0, nrows},
-                         tc::TileB{half ? P.wv : P.wk, P.dk, col0, col0 + 64, ncols}, P.d, smem);
+    tc::tile<float, false>(tc::TileA{P.x, nullptr, P.d, (size_t)row0, nrows},
+                           tc::TileB{half ? P.wv : P.wk, P.dk, col0, col0 + 64, ncols}, P.d,
+                           smem);
   });
   float* out = reinterpret_cast<float*>(half ? P.vo : P.ko) + (size_t)row0 * P.dk + col0;
-  auto release = [&](const KvRound& r) { release_round(P, r); };
-  const KvRound round{P.flag + (size_t)half * P.nchunks, row0, nrows, ncols};
-  if (VEC) {
-    win::fence_to_async();  // the tile's rows, written by every thread
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      win::push(w, round, half, u, release);
-      const float* C = reinterpret_cast<const float*>(smem);
-      for (int r = 0; r < nrows; ++r)
-        win::bulk_store(out + (size_t)r * P.dk, C + r * tc::LDC, ncols * 4);
-      win::commit_piece(w);
-    }
-  } else {  // plain stores; the flag waits for the round's retirement
-    if (threadIdx.x == 0) win::push(w, round, half, u, release);
-    tc::store_tile<false>(smem, out, P.dk, nrows, ncols, nrows);
-    __syncthreads();
-  }
+  if (threadIdx.x == 0)
+    win::push(w, KvRound{P.flag + (size_t)half * P.nchunks, row0, nrows, ncols}, half, u,
+              [&](const KvRound& r) { release_round(P, r); });
+  tc::store_tile<false>(smem, out, P.dk, nrows, ncols, nrows);
+  __syncthreads();
 }
 
 // sequential: K's send drains before the V GEMM starts (this CTA's own
@@ -245,25 +260,17 @@ __device__ void prefill_copy(const ShuttleParams& P, KvWindow& w, char* slot, in
   }
 }
 
-template <bool VEC>
-__device__ void prefill_gemm(const ShuttleParams& P, KvWindow& w, int pid, int npre,
-                             char* smem) {
-  const int rt = (P.rows + BM - 1) / BM, ctn = (P.dk + BN - 1) / BN;
-  // a row group of tpg m-tiles issues its K tiles, then its V tiles;
-  // unfused, the group is the whole tensor
-  const int tpg = !P.fused ? rt : (P.chunk_rows % BM == 0 ? P.chunk_rows / BM : 1);
-  const int per_group = 2 * tpg * ctn;
-  const int total = 2 * rt * ctn;
+__device__ void prefill_gemm(const ShuttleParams& P, KvWindow& w, int pid, int npre, char* smem) {
+  const Units un(P, BM);
   bool drained = false;
-  for (int u = pid; u < total; u += npre) {
-    const int group = u / per_group, rem = u % per_group;
-    const int half = rem / (tpg * ctn), sub = rem % (tpg * ctn);
-    const int mt = group * tpg + sub / ctn, ct = sub % ctn;
+  for (int u = pid; u < un.total; u += npre) {
+    int half, mt, ct;
+    un.at(u, half, mt, ct);
     if (half == 1 && !P.fused && !P.chained && !drained) {
       drain_k(P, w);
       drained = true;
     }
-    gemm_unit<VEC>(P, w, half, mt, ct, u, smem);
+    gemm_unit(P, w, half, mt, ct, u, smem);
   }
 }
 
@@ -272,8 +279,10 @@ __device__ void prefill_gemm(const ShuttleParams& P, KvWindow& w, int pid, int n
 // the flags would pay an L2 round trip per chunk after the last arrival
 // Each chunk's K / V pair is one receive in the probe log. The warp's
 // waits (cta_stats.cuh) are lane 0's cycles from a 32-chunk window's first
-// load to the warp's join after its last arrival.
-__device__ void decode(const ShuttleParams& P) {
+// load to the warp's join after its last arrival. INLINE: flags.cuh's
+// inline spins, for the kernel that runs wgmma (it must call no function).
+template <bool INLINE>
+__device__ __forceinline__ void decode_body(const ShuttleParams& P) {
   if (threadIdx.x >= 32) return;
   const win::Log lg = win::cta_log(P.log, P.log_n, P.log_cap);
   const int lane = threadIdx.x;
@@ -286,12 +295,20 @@ __device__ void decode(const ShuttleParams& P) {
       const int c = c0 + lane;
       if (c < P.nchunks) {
         if (P.fused && P.counter) {  // COUNTER: per chunk, K then V
-          spin_geq(kf + c, per, P.timeout_ms, "kv_shuttle", "K chunk", 0, c);
-          spin_geq(vf + c, per, P.timeout_ms, "kv_shuttle", "V chunk", 1, c);
+          if constexpr (INLINE) {
+            spin_geq_inline(kf + c, per, P.timeout_ms);
+            spin_geq_inline(vf + c, per, P.timeout_ms);
+          } else {
+            spin_geq(kf + c, per, P.timeout_ms, "kv_shuttle", "K chunk", 0, c);
+            spin_geq(vf + c, per, P.timeout_ms, "kv_shuttle", "V chunk", 1, c);
+          }
           win::note(lg, win::EV_RECV, 0, c);
         } else {  // every K chunk, then every V chunk (one chunk unfused)
-          spin_geq((pass ? vf : kf) + c, per, P.timeout_ms, "kv_shuttle", pass ? "V" : "K",
-                   pass, c);
+          if constexpr (INLINE)
+            spin_geq_inline((pass ? vf : kf) + c, per, P.timeout_ms);
+          else
+            spin_geq((pass ? vf : kf) + c, per, P.timeout_ms, "kv_shuttle", pass ? "V" : "K",
+                     pass, c);
           if (pass) win::note(lg, win::EV_RECV, 0, c);
         }
       }
@@ -302,10 +319,12 @@ __device__ void decode(const ShuttleParams& P) {
   __threadfence();
 }
 
+__device__ void decode(const ShuttleParams& P) { decode_body<false>(P); }
+
 // PURE: the row copies (the engine's cache handoff), four CTAs per SM
-// (64 registers). Otherwise the projections, two CTAs per SM: the 3-stage
-// ring takes 80 KB of shared memory a CTA, and the launch bound holds
-// ptxas at 128 registers.
+// (64 registers). Otherwise the projections of unaligned inputs on
+// tc_gemm.cuh's core, two CTAs per SM: the 3-stage ring takes 80 KB of
+// shared memory a CTA, and the launch bound holds ptxas at 128 registers.
 template <bool PURE>
 __host__ __device__ constexpr int smem_of() {
   return (PURE ? KV_SLOT : tc::SMEM) + (int)sizeof(KvWindow);
@@ -324,68 +343,274 @@ __global__ void __launch_bounds__(NT, PURE ? 4 : 2) kv_shuttle_kernel(ShuttlePar
   KvWindow& w = *reinterpret_cast<KvWindow*>(smem + smem_of<PURE>() - sizeof(KvWindow));
   if (threadIdx.x == 0)
     win::open(w, P.contexts, win::cta_log(P.log, P.log_n, P.log_cap), stats::wait());
-  if constexpr (PURE) {
+  if constexpr (PURE)
     prefill_copy(P, w, smem, blockIdx.x, npre);
-  } else {
-    if (P.vec)
-      prefill_gemm<true>(P, w, blockIdx.x, npre, smem);
-    else
-      prefill_gemm<false>(P, w, blockIdx.x, npre, smem);
-  }
+  else
+    prefill_gemm(P, w, blockIdx.x, npre, smem);
   if (threadIdx.x == 0) win::drain(w, [&](const KvRound& r) { release_round(P, r); }, 1);
   if (threadIdx.x == 0) stats::close(P.stats);
 }
 
-// ------------------------------------------------------------ C interface
+// ------------------------------------------------------------ the wgmma core
 
-static const void* kernel_for(int pure) {
-  return pure ? (const void*)kv_shuttle_kernel<true> : (const void*)kv_shuttle_kernel<false>;
+// wg_tile.cuh's ring, its result tile, then the window
+constexpr int WG_SMEM = wt::SMEM + (int)sizeof(KvWindow);
+
+// sequential, on the wgmma core: drain_k for the consumers, inline
+__device__ __forceinline__ void drain_k_wg(const ShuttleParams& P, KvWindow& w) {
+  if (threadIdx.x == 0) {
+    win::drain(w, [&](const KvRound& r) { release_round(P, r); }, 0);
+    const unsigned want = (unsigned)P.chunk_rows * P.dk;
+    if (ld_acquire(P.flag) < want) {
+      stats::mark();
+      spin_geq_inline(P.flag, want, P.timeout_ms);
+      stats::add_wait();
+    }
+    __threadfence();
+  }
+  group_sync(wt::CONS_BAR, wt::NCONS);
 }
 
-static int smem_for(int pure) { return pure ? smem_of<true>() : smem_of<false>(); }
+// One GEMM unit on the wgmma core (the consumers): the tile's products,
+// then its result tile, sent as round (half, unit u) of the window by
+// thread 0's bulk stores, a row each. ALONE (the core alone): plain
+// stores, no window.
+template <bool ALONE>
+__device__ __forceinline__ void wg_unit(const ShuttleParams& P, KvWindow& w, wt::Ring& r,
+                                        float* C, int half, int mt, int ct, int u, int nk) {
+  const int row0 = mt * wt::BM, col0 = ct * wt::BN;
+  const int nrows = min(wt::BM, P.rows - row0), ncols = min(wt::BN, P.dk - col0);
+  float* out = reinterpret_cast<float*>(half ? P.vo : P.ko) + (size_t)row0 * P.dk + col0;
+  float acc[64];
+  stats::gemm([&] { wt::consume_tile(r, nk, acc, P.timeout_ms); });
+  // the last tile's stores have read C
+  if (!ALONE && threadIdx.x == 0) win::wait_read_all(stats::wait());
+  group_sync(wt::CONS_BAR, wt::NCONS);
+  stats::gemm([&] { wt::store_result(C, acc); });
+  if (!ALONE) win::fence_to_async();  // the tile's rows, written by every consumer
+  group_sync(wt::CONS_BAR, wt::NCONS);
+  if (ALONE) {
+    for (int i = threadIdx.x; i < nrows * (wt::BN / 4); i += wt::NCONS) {
+      const int rr = i / (wt::BN / 4), c = (i % (wt::BN / 4)) * 4;
+      if (c < ncols)
+        *reinterpret_cast<float4*>(out + (size_t)rr * P.dk + c) =
+            *reinterpret_cast<const float4*>(C + rr * wt::LDC + c);
+    }
+  } else if (threadIdx.x == 0) {
+    win::push(w, KvRound{P.flag + (size_t)half * P.nchunks, row0, nrows, ncols}, half, u,
+              [&](const KvRound& rd) { release_round(P, rd); });
+    for (int rr = 0; rr < nrows; ++rr)
+      win::bulk_store(out + (size_t)rr * P.dk, C + rr * wt::LDC, ncols * 4);
+    win::commit_piece(w);
+  }
+}
 
-// the GEMM ring's shared memory is above the 48 KB default: opt in before
+// The prefill CTAs on the wgmma core: the loader warpgroup streams every
+// unit's stages (warp 8's lane 0 by TMA, warps 9-11 split them); the
+// consumers run each unit's products and epilogue, in the round order.
+template <bool ALONE>
+__device__ __forceinline__ void prefill_wg(const ShuttleParams& P, const CUtensorMap* tx,
+                                           const CUtensorMap* twk, const CUtensorMap* twv,
+                                           int pid, int npre, char* smem) {
+  wt::Ring ring = wt::make_ring(smem);
+  KvWindow& w = *reinterpret_cast<KvWindow*>(wt::tail(ring));
+  if (!ALONE && threadIdx.x == 0)
+    win::open(w, P.contexts, win::cta_log(P.log, P.log_n, P.log_cap), stats::wait());
+  __syncthreads();  // the barriers are initialised
+  const Units un(P, wt::BM);
+  const int nk = (P.d + wt::BK - 1) / wt::BK;
+  if (threadIdx.x >= wt::NCONS) {  // the loader warpgroup
+    wt::reg_dealloc<wt::REG_LOAD>();
+    if (threadIdx.x == wt::NCONS) {
+      for (int u = pid; u < un.total; u += npre) {
+        int half, mt, ct;
+        un.at(u, half, mt, ct);
+        wt::produce_tile(ring, tx, half ? twv : twk, mt * wt::BM, ct * wt::BN,
+                         min(wt::BN, P.dk - ct * wt::BN), nk, P.timeout_ms);
+      }
+    } else if (threadIdx.x >= wt::NTHREADS - wt::NCONV) {
+      const int mine = pid < un.total ? (un.total - pid + npre - 1) / npre : 0;
+      wt::convert(ring, mine * nk, P.timeout_ms);
+    }
+    return;
+  }
+  wt::reg_alloc<wt::REG_CONS>();
+  float* C = wt::result_tile(ring);
+  bool drained = false;
+  for (int u = pid; u < un.total; u += npre) {
+    int half, mt, ct;
+    un.at(u, half, mt, ct);
+    if (!ALONE && half == 1 && !P.fused && !P.chained && !drained) {
+      drain_k_wg(P, w);
+      drained = true;
+    }
+    wg_unit<ALONE>(P, w, ring, C, half, mt, ct, u, nk);
+  }
+  if (!ALONE && threadIdx.x == 0)
+    win::drain(w, [&](const KvRound& r) { release_round(P, r); }, 1);
+}
+
+// The projections of aligned inputs (d and dk multiples of 4, 16-byte
+// bases) on the wgmma core: one CTA an SM (wg_tile.cuh), the last the
+// decode rank. tx maps x[0] (d, rows), twk / twv the weights (dk, d).
+__global__ void __launch_bounds__(wt::NTHREADS, 1)
+    kv_shuttle_kernel(const ShuttleParams P, const __grid_constant__ CUtensorMap tx,
+                      const __grid_constant__ CUtensorMap twk,
+                      const __grid_constant__ CUtensorMap twv) {
+  extern __shared__ __align__(16) char wsmem[];
+  const int npre = gridDim.x - 1;  // the last CTA is the decode rank
+  if (threadIdx.x == 0) stats::open((int)blockIdx.x >= npre);
+  if ((int)blockIdx.x >= npre) {
+    decode_body<true>(P);
+    if (threadIdx.x == 0) stats::close(P.stats);
+    return;
+  }
+  prefill_wg<false>(P, &tx, &twk, &twv, blockIdx.x, npre, wsmem);
+  if (threadIdx.x == 0) stats::close(P.stats);
+}
+
+// The wgmma core alone (kv_shuttle_gemm): K and V of the chained units,
+// every CTA a prefill CTA, no flags
+__global__ void __launch_bounds__(wt::NTHREADS, 1)
+    kv_gemm_kernel(const ShuttleParams P, const __grid_constant__ CUtensorMap tx,
+                   const __grid_constant__ CUtensorMap twk,
+                   const __grid_constant__ CUtensorMap twv) {
+  extern __shared__ __align__(16) char wsmem[];
+  prefill_wg<true>(P, &tx, &twk, &twv, blockIdx.x, gridDim.x, wsmem);
+}
+
+// ------------------------------------------------------------ C interface
+
+// the three kernels, by core (kernels/kv_shuttle.py::CORE_IDS)
+enum : int { CORE_WGMMA = 0, CORE_COPY = 1, CORE_MMA = 2 };
+using WgKernel = void (*)(ShuttleParams, CUtensorMap, CUtensorMap, CUtensorMap);
+
+static const void* kernel_for(int core) {
+  if (core == CORE_WGMMA) return (const void*)static_cast<WgKernel>(kv_shuttle_kernel);
+  return core == CORE_COPY ? (const void*)kv_shuttle_kernel<true>
+                           : (const void*)kv_shuttle_kernel<false>;
+}
+
+static int smem_for(int core) {
+  return core == CORE_WGMMA ? WG_SMEM : core == CORE_COPY ? smem_of<true>() : smem_of<false>();
+}
+
+static int threads_for(int core) { return core == CORE_WGMMA ? wt::NTHREADS : NT; }
+
+static int core_of(const ShuttleParams* p) {
+  return p->pure ? CORE_COPY : p->vec ? CORE_WGMMA : CORE_MMA;
+}
+
+// every kernel's shared memory is above the 48 KB default: opt in before
 // the occupancy query and the launch
-static cudaError_t allow_smem(int pure) {
-  return cudaFuncSetAttribute(kernel_for(pure), cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              smem_for(pure));
+static cudaError_t allow_smem(const void* kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver (the build links no libcuda)
+static EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
+            cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a row-major (outer, inner) f32 tensor as box_outer x box_inner boxes of
+// 128-byte rows in the 128-byte swizzle, zeros past its edges
+static int encode(CUtensorMap* map, const void* base, int inner, int outer, int box_outer) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return -3;
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)inner * sizeof(float)};
+  const cuuint32_t box[2] = {32u, (cuuint32_t)box_outer};
+  const cuuint32_t step[2] = {1u, 1u};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base), dims,
+                        strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -4;
+}
+
+// the wgmma core's maps: x[0] (rows, d) in 128 x 32 boxes, each weight
+// (d, dk) in 32 x 32 boxes
+static int encode_maps(const ShuttleParams* p, CUtensorMap (&m)[3]) {
+  int rc = encode(&m[0], p->x, p->d, p->rows, wt::BM);
+  if (rc == 0) rc = encode(&m[1], p->wk, p->dk, p->d, wt::BK);
+  if (rc == 0) rc = encode(&m[2], p->wv, p->dk, p->d, wt::BK);
+  return rc;
+}
+
+static int launch(const void* kernel, int core, int smem, bool coop, const ShuttleParams* p,
+                  int grid, void* stream) {
+  CUtensorMap maps[3];
+  if (core == CORE_WGMMA) {
+    const int rc = encode_maps(p, maps);
+    if (rc != 0) return rc;
+  }
+  // the kernels with fewer parameters read only the first
+  void* args[] = {const_cast<ShuttleParams*>(p), &maps[0], &maps[1], &maps[2]};
+  const dim3 threads(threads_for(core));
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e == cudaSuccess)
+    e = coop ? cudaLaunchCooperativeKernel(kernel, dim3(grid), threads, args, smem,
+                                           (cudaStream_t)stream)
+             : cudaLaunchKernel(kernel, dim3(grid), threads, args, smem, (cudaStream_t)stream);
+  if (e == cudaSuccess) e = cudaGetLastError();
+  return (int)e;
 }
 
 extern "C" {
 
-// Largest co-resident grid of the pure or the GEMM kernel: (CTAs per SM)
-// x SMs. Returns a cudaError_t, or -1 without cooperative launch, or -2
-// when fewer than two CTAs fit.
-int kv_shuttle_grid(int pure, int* grid, int* per_sm) {
+// Largest co-resident grid of a core's kernel (CORE_WGMMA: the aligned
+// projections; CORE_COPY: pure mode; CORE_MMA: unaligned projections):
+// (CTAs per SM) x SMs. Returns a cudaError_t, or -1 without cooperative
+// launch, or -2 when fewer than two CTAs fit.
+int kv_shuttle_grid(int core, int* grid, int* per_sm) {
   int dev = 0, sms = 0, coop = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (e == cudaSuccess) e = allow_smem(pure);
+  if (e == cudaSuccess) e = allow_smem(kernel_for(core), smem_for(core));
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel_for(pure), NT,
-                                                      smem_for(pure));
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel_for(core), threads_for(core),
+                                                      smem_for(core));
   if (e != cudaSuccess) return (int)e;
   if (!coop) return -1;
   *grid = (*per_sm) * sms;
   return *grid < 2 ? -2 : 0;
 }
 
-// Cooperative launch: the runtime refuses a grid whose CTAs cannot all be
-// resident at once, which the spin-waits require.
+// Cooperative launch of the kernel of p's core (pure; else vec: wgmma):
+// the runtime refuses a grid whose CTAs cannot all be resident at once,
+// which the spin-waits require.
 int kv_shuttle_launch(const ShuttleParams* p, int grid, void* stream) {
-  void* args[] = {const_cast<ShuttleParams*>(p)};
-  cudaError_t e = allow_smem(p->pure);
-  if (e == cudaSuccess)
-    e = cudaLaunchCooperativeKernel(kernel_for(p->pure), dim3(grid), dim3(NT), args,
-                                    smem_for(p->pure), (cudaStream_t)stream);
-  if (e == cudaSuccess) e = cudaGetLastError();
-  return (int)e;
+  const int core = core_of(p);
+  return launch(kernel_for(core), core, smem_for(core), true, p, grid, stream);
+}
+
+// The wgmma core alone, for the tests and chip_smoke.py's gemm_core line:
+// p->ko = x wk and p->vo = x wv (x (rows, d); aligned as the core needs),
+// `grid` CTAs of one an SM; no flag, no window, no decode CTA.
+int kv_shuttle_gemm(const ShuttleParams* p, int grid, void* stream) {
+  return launch((const void*)kv_gemm_kernel, CORE_WGMMA, WG_SMEM, false, p, grid, stream);
 }
 
 const char* kv_shuttle_error(int code) {
   if (code == -1) return "device does not support cooperative launch";
   if (code == -2) return "fewer than two co-resident CTAs";
+  if (code == -3) return "the driver has no cuTensorMapEncodeTiled";
+  if (code == -4) return "cuTensorMapEncodeTiled refused an operand's layout";
   return cudaGetErrorString((cudaError_t)code);
 }
 

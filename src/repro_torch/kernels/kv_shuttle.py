@@ -23,8 +23,10 @@ GEMM tile or a row copy) of bulk stores in flight (``csrc/window.cuh``);
 :func:`kv_shuttle_logged` runs the probe build and :func:`check_log`
 holds its log to the unit order and ``RingSchedule``'s ticks.
 ``LAUNCHES`` counts launches keyed by variant and shape
-(``CONTEXTS_LAUNCHED`` by ``contexts``); ``VARIANTS`` / ``PURE_VARIANTS``
-name the knob sets the main path launches.
+(``CONTEXTS_LAUNCHED`` by ``contexts``, ``CORE_LAUNCHES`` by the tile
+core: :func:`core_for`); ``VARIANTS`` / ``PURE_VARIANTS`` name the knob
+sets the main path launches. :func:`gemm_core` runs the ``wgmma`` core
+alone.
 """
 from __future__ import annotations
 
@@ -51,6 +53,15 @@ DEFAULT_CHUNK = 64            # fused kv_chunk when none is given
 # (variant, rows, width, dtype) -> kernel launches; read by chip_smoke.py
 LAUNCHES = collections.Counter()
 
+# The kernels of csrc/kv_shuttle.cu by the core they run (its CORE_*
+# ids): aligned projections on the Hopper ``wgmma`` core
+# (csrc/wg_tile.cuh), unaligned ones on tc_gemm.cuh's ``mma_sync`` tile,
+# pure mode's row ``copy``; a GEMM unit's rows on each core
+CORE_IDS = {"wgmma": 0, "copy": 1, "mma_sync": 2}
+TILE_ROWS = {"wgmma": 128, "mma_sync": 64}
+# core -> kernel launches
+CORE_LAUNCHES = collections.Counter()
+
 # Knobs of each variant the main path launches: the KVTransfer search's
 # directives (GEMM variants) and the engine's two cache handoffs (pure).
 VARIANTS = {
@@ -70,6 +81,7 @@ PURE_VARIANTS = {
 def reset_launches():
     LAUNCHES.clear()
     CONTEXTS_LAUNCHED.clear()
+    CORE_LAUNCHES.clear()
 
 
 def launches():
@@ -172,16 +184,28 @@ def load_kernel(probe=False, stats=False):
                             together=((), build.STATS_DEFINES))
 
 
-def grid_for(device, pure=False, probe=False, stats=False):
-    """The co-resident grid of the projection (or, with ``pure``, the row
-    copy) kernel: CTAs per SM x SMs, one of them the decode rank's. Raises
-    when fewer than two CTAs fit. The production grid preloads the
-    counting build's (:func:`build.preload`), so that a traced launch
-    waits for no module load."""
-    got = build.grid(load_kernel(probe, stats), device, int(pure))
+def core_for(x, wk=None, wv=None, *, pure=False):
+    """The core a launch on these operands runs (:data:`CORE_IDS`): pure
+    mode's ``copy``; ``wgmma`` where d and dk are multiples of 4 and x,
+    wk and wv start on 16 bytes (what TMA takes; the outputs, allocated
+    here, then do too); else ``mma_sync``. Decided by the operands alone."""
+    if pure:
+        return "copy"
+    aligned = x.shape[2] % 4 == 0 and wk.shape[1] % 4 == 0 \
+        and _aligned(x, wk, wv)
+    return "wgmma" if aligned else "mma_sync"
+
+
+def grid_for(device, core="wgmma", probe=False, stats=False):
+    """The co-resident grid of a core's kernel (:data:`CORE_IDS`): CTAs
+    per SM x SMs, one of them the decode rank's. Raises when fewer than
+    two CTAs fit. The production grid preloads the counting build's
+    (:func:`build.preload`), so that a traced launch waits for no module
+    load."""
+    got = build.grid(load_kernel(probe, stats), device, CORE_IDS[core])
     if not probe and not stats:
         build.preload("kv_shuttle", lambda: load_kernel(stats=True), device,
-                      int(pure))
+                      CORE_IDS[core])
     return got
 
 
@@ -195,8 +219,8 @@ def _launch(x, wk, wv, *, chained, fused, counter, kv_chunk, contexts, pure,
     (the checks, the grid, the ``_Params`` pack), ``kv_shuttle.alloc``
     (K / V, the prefill rows' zero fill, the flags) and
     ``kv_shuttle.launch``. Returns ``(ko, vo)``, or with ``probe`` (the
-    ``-DCUCO_PROBE`` build, uncounted) ``(ko, vo, (log, grid,
-    unit_rows))``."""
+    ``-DCUCO_PROBE`` build, uncounted) ``(ko, vo, (log, grid, unit_rows,
+    core))``."""
     with telemetry.span("kv_shuttle.prepare"):
         rows, width, sched = _shape(x, wk, pure=pure, fused=fused,
                                     kv_chunk=kv_chunk, contexts=contexts)
@@ -221,15 +245,21 @@ def _launch(x, wk, wv, *, chained, fused, counter, kv_chunk, contexts, pure,
         # while a profiler records: the counting build and its counters
         stats = None if probe else telemetry.kernel_counters(
             "kv_shuttle_kernel", STAT_ROLES, x.device)
-        grid, _ = grid_for(x.device, pure, probe, stats is not None)
+        core = core_for(x, wk, wv, pure=pure)
+        grid, _ = grid_for(x.device, core, probe, stats is not None)
         nchunks = rows // chunk_rows
         esize = x.element_size()
+        if pure:
+            vec = (width * esize) % 16 == 0 and _aligned(x)
+        else:
+            vec = core == "wgmma"
         unit_rows = max(1, COPY_UNIT_BYTES // (width * esize))
         p = _Params(rows=rows, d=0 if pure else x.shape[2], dk=width,
                     chunk_rows=chunk_rows, nchunks=nchunks, fused=int(fused),
                     chained=int(chained), counter=int(counter),
-                    pure=int(pure), esize=esize, unit_rows=unit_rows,
-                    timeout_ms=TIMEOUT_MS, contexts=int(contexts),
+                    pure=int(pure), vec=int(vec), esize=esize,
+                    unit_rows=unit_rows, timeout_ms=TIMEOUT_MS,
+                    contexts=int(contexts),
                     x=x.data_ptr(), wk=None if pure else wk.data_ptr(),
                     wv=None if pure else wv.data_ptr(),
                     stats=None if stats is None else stats.data_ptr())
@@ -239,18 +269,13 @@ def _launch(x, wk, wv, *, chained, fused, counter, kv_chunk, contexts, pure,
         ko[0].zero_()             # the prefill rank's rows: never written
         vo[0].zero_()
         flags = torch.zeros(2 * nchunks, dtype=torch.int32, device=x.device)
-        if pure:
-            vec = (width * esize) % 16 == 0 and _aligned(x, ko[1], vo[1])
-        else:
-            vec = x.shape[2] % 4 == 0 and width % 4 == 0 \
-                and _aligned(x, wk, wv, ko[1], vo[1])
-        p.vec, p.ko, p.vo = int(vec), ko[1].data_ptr(), vo[1].data_ptr()
+        p.ko, p.vo = ko[1].data_ptr(), vo[1].data_ptr()
         p.flag = flags.data_ptr()
         # the probe build logs its window; the production build writes no
         # log and keeps null log pointers
         if probe:
             total = len(_units(rows, width, chunk_rows, fused, pure,
-                               unit_rows))
+                               unit_rows, core))
             log = window.DeviceLog.alloc(
                 grid, 2 * -(-total // (grid - 1)) + nchunks + 8, x.device)
             for k, v in log.params().items():
@@ -259,8 +284,9 @@ def _launch(x, wk, wv, *, chained, fused, counter, kv_chunk, contexts, pure,
         build.launch(load_kernel(probe, stats is not None), p, x.device,
                      grid)
     if probe:   # not a launch of the counted paths
-        return ko, vo, (log, grid, unit_rows)
+        return ko, vo, (log, grid, unit_rows, core)
     CONTEXTS_LAUNCHED[int(contexts)] += 1
+    CORE_LAUNCHES[core] += 1
     LAUNCHES[(variant_name(chained=chained, fused=fused, counter=counter,
                            kv_chunk=kv_chunk, pure=pure, rows=rows),
               rows, width, str(x.dtype).replace("torch.", ""))] += 1
@@ -302,22 +328,62 @@ def kv_cache_shuttle(kv, *, chained=True, fused=False, counter=False,
                   pure=True)
 
 
+def gemm_core(x, wk, wv):
+    """The ``wgmma`` core alone (``kv_shuttle_gemm`` of the library):
+    ``(x @ wk, x @ wv)`` for x (rows, d) and the weights (d, dk), float32
+    and aligned as the core takes them (:func:`core_for`), in the chained
+    shuttle's units over one CTA an SM, with no flag, window or decode
+    CTA: for the tests and ``chip_smoke.py``'s ``gemm_core`` line. CPU
+    tensors compute the plain product."""
+    if x.device.type == "cpu":
+        return x @ wk, x @ wv
+    if x.dim() != 2 or wk.shape != (x.shape[1], wk.shape[1]) \
+            or wv.shape != wk.shape:
+        raise ValueError(f"gemm_core wants x (rows, d) and two (d, dk) "
+                         f"weights, got {tuple(x.shape)}, "
+                         f"{tuple(wk.shape)}, {tuple(wv.shape)}")
+    for t in (x, wk, wv):
+        if t.device != x.device or t.dtype != torch.float32 \
+                or not t.is_contiguous():
+            raise ValueError("gemm_core wants contiguous float32 tensors on "
+                             f"{x.device}; got {t.dtype} on {t.device}")
+    if core_for(x[None], wk, wv) != "wgmma":
+        raise ValueError("gemm_core wants d and dk multiples of 4 and "
+                         "16-byte aligned operands")
+    (rows, d), dk = x.shape, wk.shape[1]
+    ko = torch.empty((rows, dk), device=x.device)
+    vo = torch.empty_like(ko)
+    grid, _ = grid_for(x.device)
+    p = _Params(rows=rows, d=d, dk=dk, chunk_rows=rows, nchunks=1,
+                chained=1, vec=1, timeout_ms=TIMEOUT_MS, contexts=1,
+                x=x.data_ptr(), wk=wk.data_ptr(), wv=wv.data_ptr(),
+                ko=ko.data_ptr(), vo=vo.data_ptr())
+    lib = load_kernel()
+    fn = lib.kv_shuttle_gemm
+    fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_int, ctypes.c_void_p]
+    with torch.cuda.device(x.device):
+        build._check(lib, fn(ctypes.byref(p), grid, torch.cuda.current_stream(
+            x.device).cuda_stream), "gemm_core launch")
+    return ko, vo
+
+
 # ------------------------------------------------------------ the op recorder
 
 
-def _units(rows, width, chunk_rows, fused, pure, unit_rows):
+def _units(rows, width, chunk_rows, fused, pure, unit_rows, core="wgmma"):
     """The half of each work unit, in the kernel's round order (its CTAs
-    take them round robin): GEMM tiles of 64 x 128 (a row group's K tiles,
-    then its V tiles; unfused all of K first) or, ``pure``, row copies of
-    ``unit_rows`` rows (chunk-major when fused)."""
+    take them round robin): GEMM tiles of ``TILE_ROWS[core]`` x 128 (a
+    row group's K tiles, then its V tiles; unfused all of K first) or,
+    ``pure``, row copies of ``unit_rows`` rows (chunk-major when fused)."""
     if pure:
         upc = -(-chunk_rows // unit_rows)
         nchunks = rows // chunk_rows
         if fused:
             return [(u % (2 * upc)) // upc for u in range(2 * nchunks * upc)]
         return [u // upc for u in range(2 * upc)]
-    rt, ctn = -(-rows // 64), -(-width // 128)
-    tpg = rt if not fused else (chunk_rows // 64 if chunk_rows % 64 == 0
+    bm = TILE_ROWS[core]
+    rt, ctn = -(-rows // bm), -(-width // 128)
+    tpg = rt if not fused else (chunk_rows // bm if chunk_rows % bm == 0
                                 else 1)
     per_group = 2 * tpg * ctn
     return [(u % per_group) // (tpg * ctn) for u in range(2 * rt * ctn)]
@@ -334,17 +400,18 @@ def kv_shuttle_logged(x, wk=None, wv=None, *, pure=False, contexts=2,
                          "has none")
     knobs = dict(dict(chained=True, fused=False, counter=False,
                       kv_chunk=None), **knobs)
-    ko, vo, (log, grid, unit_rows) = _launch(
+    ko, vo, (log, grid, unit_rows, core) = _launch(
         x, wk, wv, contexts=contexts, pure=pure, probe=True, **knobs)
     rows, width, sched = _shape(x, wk, pure=pure, fused=knobs["fused"],
                                 kv_chunk=knobs["kv_chunk"], contexts=contexts)
     meta = dict(rows=rows, width=width, pure=pure, unit_rows=unit_rows,
-                grid=grid, contexts=contexts, **knobs)
+                grid=grid, contexts=contexts, core=core, **knobs)
     return ko, vo, window.decode(log.events, log.counts), meta
 
 
 def check_log(events, *, rows, width, pure, unit_rows, grid, contexts,
-              chained=True, fused=False, counter=False, kv_chunk=None):
+              chained=True, fused=False, counter=False, kv_chunk=None,
+              core="wgmma"):
     """Hold a probe launch's log to the window contract. The card's round
     is a work unit, a piece of the schedule's ``(0, chunk)`` round (a
     chunk's tiles go to several CTAs): each prefill CTA pushes its units
@@ -352,11 +419,11 @@ def check_log(events, *, rows, width, pure, unit_rows, grid, contexts,
     and at the end; together they push every unit; the decode CTA's
     receive waits (one a K / V chunk pair) are the n = 2 ring's
     ``completion_ticks``. Returns the window summary of the prefill
-    CTAs."""
+    CTAs. ``core`` (:data:`CORE_IDS`) sets a GEMM unit's rows."""
     del counter
     sched = _schedule(rows, fused, kv_chunk)
     chunk_rows = sched.kv_chunk if fused else rows
-    halves = _units(rows, width, chunk_rows, fused, pure, unit_rows)
+    halves = _units(rows, width, chunk_rows, fused, pure, unit_rows, core)
     order = [(h, u) for u, h in enumerate(halves)]
     npre = grid - 1
     stats = []

@@ -247,21 +247,24 @@ def test_chip_smoke_phases_on_the_cpu():
 
 def test_chip_smoke_gemm_core_on_the_cpu():
     """The smoke's gemm_core line at test size on the CPU, where the
-    wrapper computes the plain version; the full shapes are the serving
-    cell's expert GEMMs and kv_transfer's projection."""
+    wrappers compute the plain version; the full shapes are the serving
+    cell's expert GEMMs, kv_transfer's projection and the KV cell's, which
+    also times kv_shuttle.cu's wgmma core alone."""
     recs = chip_smoke.phase_gemm_core(
         "cpu", chip_smoke.gemm_core_shapes(small=True), iters=1)
     assert [r["name"] for r in recs] == [
         "moe_gemm1_swiglu", "moe_gemm2", "skewed_gemm1_swiglu",
-        "skewed_gemm2", "kv_projection"]
+        "skewed_gemm2", "kv_projection", chip_smoke.KV_CORE]
     for rec in recs:
         assert rec["ms"] > 0 and rec["matmul_ms"] > 0 and rec["bound_ms"] > 0
+    assert recs[-1]["wgmma_ms"] > 0
     shapes = chip_smoke.gemm_core_shapes()
     assert [s[1:] for s in shapes] == [(256, 7168, 4096, True),
                                        (256, 2048, 7168, False),
                                        (768, 512, 2048, True),
                                        (768, 1024, 512, False),
-                                       (4096, 4096, 512, False)]
+                                       (4096, 4096, 512, False),
+                                       (8192, 4096, 2048, False)]
 
 
 def test_chip_smoke_bound_counts_routed_tokens():

@@ -120,3 +120,115 @@ def test_kernel_rejects_what_it_cannot_take(cuda_device):
         kern.kv_shuttle(x, w, w, contexts=0)
     with pytest.raises(ValueError, match=r"\[K; V\]"):
         kern.kv_cache_shuttle(torch.zeros((2, 63, 8), device=cuda_device))
+
+
+# ------------------------------------------------------------ the wgmma core
+
+# ragged against the wgmma core's tile: rows not a multiple of its 128 rows,
+# dk not a multiple of 128 columns, d not a multiple of the 32-deep stage;
+# then the KV cell's widths (d 4096 into 8 heads of 128)
+WGMMA_SHAPES = [(300, 100, 200), (1000, 4096, 1024)]
+
+
+def _core_delta(before):
+    return {k: v - before.get(k, 0) for k, v in kern.CORE_LAUNCHES.items()
+            if v != before.get(k, 0)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", WGMMA_SHAPES)
+@pytest.mark.parametrize("contexts", [1, 2, 4])
+@pytest.mark.parametrize("variant", list(kern.VARIANTS))
+def test_wgmma_core_matches_plain_version_at_every_contexts(
+        cuda_device, variant, contexts, shape):
+    T, d, dk = shape
+    x, wk, wv = _projection_inputs(T, d, dk, cuda_device, seed=T + dk)
+    knobs = kern.VARIANTS[variant]
+    before = dict(kern.CORE_LAUNCHES)
+    got = kern.kv_shuttle(x, wk, wv, contexts=contexts, **knobs)
+    want = kern.kv_shuttle_plain(x, wk, wv, **knobs)
+    torch.cuda.synchronize()
+    assert _core_delta(before) == {"wgmma": 1}
+    for g, w in zip(got, want):
+        assert bool((g[0] == 0).all())
+        assert rel_err(g.cpu(), w.cpu()) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(130, 67, 65), (200, 98, 50),
+                                   (256, 128, 64)])
+def test_unaligned_inputs_run_the_mma_sync_core(cuda_device, shape):
+    """d or dk not a multiple of 4, or (the last shape) an x that starts
+    4 bytes past a 16-byte boundary: tc_gemm.cuh's core, as before."""
+    T, d, dk = shape
+    x, wk, wv = _projection_inputs(T, d, dk, cuda_device, seed=T)
+    if d % 4 == 0 and dk % 4 == 0:
+        flat = torch.zeros(x.numel() + 1, device=cuda_device)
+        flat[1:] = x.reshape(-1)
+        x = flat[1:].view(x.shape)
+    assert kern.core_for(x, wk, wv) == "mma_sync"
+    before = dict(kern.CORE_LAUNCHES)
+    for knobs in kern.VARIANTS.values():
+        got = kern.kv_shuttle(x, wk, wv, **knobs)
+        want = kern.kv_shuttle_plain(x, wk, wv, **knobs)
+        for g, w in zip(got, want):
+            assert rel_err(g.cpu(), w.cpu()) <= 1e-4
+    assert _core_delta(before) == {"mma_sync": len(kern.VARIANTS)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(300, 100, 200), (130, 67, 65)])
+@pytest.mark.parametrize("knobs", [
+    dict(chained=False), dict(chained=True),
+    dict(fused=True, counter=True, kv_chunk=32),
+    dict(fused=True, counter=False, kv_chunk=64),
+    dict(fused=True, counter=True, kv_chunk=128)])
+def test_probe_log_keeps_each_cores_round_order(cuda_device, knobs, shape):
+    """The probe build's window log against ``check_log``'s model of the
+    round order at each core's tile height (128 rows on the wgmma core,
+    64 on mma_sync)."""
+    T, d, dk = shape
+    x, wk, wv = _projection_inputs(T, d, dk, cuda_device, seed=d)
+    ko, vo, events, meta = kern.kv_shuttle_logged(x, wk, wv, contexts=2,
+                                                  **knobs)
+    assert meta["core"] == kern.core_for(x, wk, wv)
+    want = kern.kv_shuttle_plain(x, wk, wv)
+    assert rel_err(ko.cpu(), want[0].cpu()) <= 1e-4
+    got = kern.check_log(events, **meta)
+    assert got["rounds"] == len(kern._units(
+        T, dk, knobs.get("kv_chunk", 64) if knobs.get("fused") else T,
+        knobs.get("fused", False), False, 1, meta["core"]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(130, 96, 40), (1000, 4096, 1024)])
+def test_wgmma_core_alone_matches_plain_product(cuda_device, shape):
+    T, d, dk = shape
+    x, wk, wv = _projection_inputs(T, d, dk, cuda_device, seed=dk)
+    k, v = kern.gemm_core(x[0], wk, wv)
+    torch.cuda.synchronize()
+    assert rel_err(k.cpu(), (x[0] @ wk).cpu()) <= 1e-4
+    assert rel_err(v.cpu(), (x[0] @ wv).cpu()) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_the_kv_cells_shape_takes_the_wgmma_core_once_a_step(cuda_device):
+    """KVTransfer's run at the KV cell's widths and directive (the chained
+    shuttle): one launch a step, every one on the wgmma core."""
+    from repro_torch.core.design_space import Directive
+    from repro_torch.dist.mesh import VirtualMesh
+    from repro_torch.workloads import get_workload
+    T, d, dk = 757, 4096, 1024
+    run = get_workload("kv_transfer", T=T, d=d, dk=dk).build(
+        Directive(backend="PALLAS_RDMA", completion="SIGNAL",
+                  placement="STREAM_SPLIT", tunables=()),
+        VirtualMesh(2, device=cuda_device))
+    x, wk, wv = _projection_inputs(T, d, dk, cuda_device, seed=3)
+    before, launched = dict(kern.CORE_LAUNCHES), kern.launches()
+    for _ in range(3):
+        got = run(x, wk, wv)
+    torch.cuda.synchronize()
+    assert kern.launches() == launched + 3
+    assert _core_delta(before) == {"wgmma": 3}
+    for g, w in zip(got, kern.kv_shuttle_plain(x, wk, wv)):
+        assert rel_err(g.cpu(), w.cpu()) <= 1e-4

@@ -271,14 +271,16 @@ def test_ring_and_kv_checks_hold_their_schedules():
     with pytest.raises(window.WindowLogError):
         ra.check_log(window.decode(*short), [0, 2, 4], n=n, Sl=Sl,
                      contexts=c, fused=True, kv_chunk=kc)
-    # the shuttle: 4 units (2 m-tiles, K and V) over 2 prefill CTAs, the
-    # decode CTA's ticks, one a K / V chunk pair
-    halves = kv._units(128, 128, 32, True, False, 1)
+    # the shuttle on its mma_sync core: 4 units (2 m-tiles of 64 rows, K
+    # and V) over 2 prefill CTAs, the decode CTA's ticks, one a K / V
+    # chunk pair
+    halves = kv._units(128, 128, 32, True, False, 1, "mma_sync")
     order = [(h, u) for u, h in enumerate(halves)]
     events, counts = _synth_log([order[0::2], order[1::2], []], c,
                                 [[], [], [(0, ch) for ch in range(4)]])
     meta = dict(rows=128, width=128, pure=False, unit_rows=1, grid=3,
-                contexts=c, fused=True, counter=True, kv_chunk=32)
+                contexts=c, fused=True, counter=True, kv_chunk=32,
+                core="mma_sync")
     assert kv.check_log(window.decode(events, counts), **meta)["rounds"] == 4
     with pytest.raises(window.WindowLogError, match="completion_ticks"):
         kv.check_log(window.decode(*_drop(events, counts, 2,
