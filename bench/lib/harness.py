@@ -37,16 +37,25 @@ class Context:
     def flops_peak(self):
         return peaks.FLOPS[self.layer.dtype]
 
+    def launches(self):
+        """Launches of the layer's kernel over the window's steps: the
+        layer's ``launches(j)`` for a step on pool entry j, where it states
+        one, else one a step."""
+        per = getattr(self.layer, "launches", None)
+        if per is None:
+            return len(self.window.entries)
+        return sum(per(j) for j in self.window.entries)
+
     def roofline(self, kernel):
         """The share (%) of its roofline that the device time of
         ``kernel`` reaches over the window: every step's least time
         (:meth:`bound_s`) over the kernel's summed time in the trace;
-        None without a trace or unless the trace holds one launch a
-        step."""
+        None without a trace or unless the trace holds as many launches
+        as the steps make (:meth:`launches`)."""
         if self.trace is None:
             return None
         ns, launches = self.trace.kernel_ns(kernel)
-        if not ns or launches != len(self.window.entries):
+        if not ns or launches != self.launches():
             return None
         bound = sum(self.bound_s(j) for j in self.window.entries)
         return 100.0 * bound / (ns / 1e9)
@@ -96,10 +105,12 @@ def run_cell(root, name, seed, seconds, trace, device, t_start,
     clock.sync()
     phases.append(("data and builds", time.perf_counter()))
     # every shape twice, the first pass's outputs held while the second
-    # runs, as the window holds one output of each entry while it runs the
-    # next: the caching allocator then has every block the window asks for
+    # runs and drops each of its own, as the window holds one output of
+    # each entry while it runs the next: the caching allocator then has
+    # every block the window asks for, and no more
     held = [step() for step in layer.steps]
-    held += [step() for step in layer.steps]
+    for step in layer.steps:
+        step()
     clock.sync()
     del held
     phases.append(("warm-up (first launch loads or builds)",

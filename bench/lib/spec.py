@@ -13,10 +13,11 @@ its own under ``bench/``, found here by that name:
 - ``metrics/<metric>.py``: the reader of one metric;
 - ``layers/<layer>.py``: how a layer kind makes its operands, calls the
   program and holds its outputs to ``reference/<layer>.py``, with its
-  FLOPs and bytes from ``counts/<layer>.py``.
+  FLOPs and bytes from ``counts/<layer>.py`` (and its test hooks in
+  ``tests/kinds/<layer>.py``).
 
-Adding a cell, a mix, a configuration or a metric adds files and entries
-only; nothing here names one of them.
+Adding a cell, a mix, a configuration, a metric or a layer kind adds
+files and entries only; nothing here names one of them.
 """
 from __future__ import annotations
 

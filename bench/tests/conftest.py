@@ -16,30 +16,33 @@ for p in (ROOT / "src", ROOT, Path(__file__).resolve().parent):
     if str(p) not in sys.path:
         sys.path.insert(0, str(p))
 
-# each layer kind's widths cut to a size the CPU runs in a blink
-TINY_CONFIG = {"moe": dict(hidden_size=64, moe_intermediate_size=64),
-               "kv": dict(hidden_size=64, num_attention_heads=4,
-                          num_key_value_heads=2)}
-TINY_PARAMS = {"tokens_per_rank": {"fixed": 32},
-               "prompt_tokens": {"lognormal_quantiles": {
-                   "median": 40, "sigma": 0.6, "min": 8, "max": 160}}}
+import plant  # noqa: E402
 
 
-def shrunk_copy(dest, config, params):
-    """``BENCHMARK.json`` and ``bench/`` copied to ``dest``, every
-    configuration's widths and every mix's sizes cut as given."""
-    shutil.copy(ROOT / "BENCHMARK.json", dest)
-    shutil.copytree(ROOT / "bench", dest / "bench",
-                    ignore=shutil.ignore_patterns("__pycache__", "tests"))
-    for path in (dest / "bench" / "configs").glob("*.json"):
+def shrunk_copy(dest, root=ROOT):
+    """``BENCHMARK.json`` and ``bench/`` of the checkout at ``root`` copied
+    to ``dest`` (the tests' hooks too, under ``bench/tests/kinds/``), each
+    configuration's widths and each mix's sizes cut to a size the CPU
+    runs in a blink by the hooks of its cells' layer kind
+    (``plant.hooks``)."""
+    shutil.copy(root / "BENCHMARK.json", dest)
+    shutil.copytree(root / "bench", dest / "bench",
+                    ignore=shutil.ignore_patterns("__pycache__", "test_*",
+                                                  "conftest.py", "plant.py"))
+    bench = json.loads((dest / "BENCHMARK.json").read_text())
+    layers = {}
+    for entry in bench["configs"]:
+        path = dest / entry["file"]
         cfg = json.loads(path.read_text())
-        cfg.update(config[cfg["layer"]])
+        cfg.update(plant.hooks(cfg["layer"], dest).CONFIG)
         path.write_text(json.dumps(cfg))
-    for path in (dest / "bench" / "traffic").glob("*.json"):
+        layers[entry["name"]] = cfg["layer"]
+    for cell in bench["workloads"]:
+        path = dest / "bench" / "traffic" / f"{cell['traffic']}.json"
         mix = json.loads(path.read_text())
-        for k in mix["params"]:
-            if k in params:
-                mix["params"][k] = params[k]
+        params = plant.hooks(layers[cell["config"]], dest).PARAMS
+        mix["params"].update({k: v for k, v in params.items()
+                              if k in mix["params"]})
         path.write_text(json.dumps(mix))
     return dest
 
@@ -47,7 +50,7 @@ def shrunk_copy(dest, config, params):
 @pytest.fixture
 def tiny_root(tmp_path):
     """A copy of ``BENCHMARK.json`` and ``bench/`` at the tiny size."""
-    return shrunk_copy(tmp_path, TINY_CONFIG, TINY_PARAMS)
+    return shrunk_copy(tmp_path)
 
 
 @pytest.fixture

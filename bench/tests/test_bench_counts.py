@@ -1,7 +1,7 @@
 """The counts against numbers worked out by hand for each cell's shapes."""
 import pytest
 
-from bench.counts import kv, moe, peaks
+from bench.counts import kv, kv_cache, moe, peaks
 
 
 def test_moe_prefill_skew():
@@ -29,6 +29,17 @@ def test_kv_handoff():
     assert kv.flops(4096, 4096, 1024) == 68_719_476_736
     assert kv.nbytes(4096, 4096, 1024) == 4 * (4096 * 4096
                                                + 2 * 4096 * 1024 * 2)
+
+
+def test_kv_cache_handoff():
+    # the pool's longest prompt: 16 layers x 31395 positions x 8 heads x
+    # 128 of K and of V in bfloat16, read once and written once
+    cache = 2 * 16 * 31395 * 8 * 128 * 2
+    assert cache == 2_057_502_720
+    assert kv_cache.nbytes(16, 31395, 8, 128, 2) == 2 * cache
+    assert kv_cache.flops(16, 31395, 8, 128) == 0
+    assert peaks.bound_s(0, 2 * cache, "bfloat16") == pytest.approx(
+        4_115_005_440 / 3.35e12)
 
 
 def test_bounds_take_the_larger_term():

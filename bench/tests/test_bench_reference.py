@@ -5,7 +5,9 @@ import numpy as np
 import pytest
 import torch
 
-from bench.reference import common, kv as kv_ref, moe as moe_ref
+from bench.layers import kv_cache as cache_layer
+from bench.reference import common, kv as kv_ref, kv_cache as cache_ref
+from bench.reference import moe as moe_ref
 
 
 def _moe_inputs(n, T, d, f, seed):
@@ -84,3 +86,51 @@ def test_control_reads_far_above_the_float32_reference():
     assert common.row_rel_err(again, want) == 0.0
     assert common.row_rel_err(ctrl, want) > 1e-4
     assert np.isinf(common.row_rel_err(torch.full_like(want, np.nan), want))
+
+
+TINY_MISTRAL = {"model_type": "mistral", "hidden_size": 64,
+                "num_attention_heads": 4, "num_key_value_heads": 2,
+                "num_hidden_layers": 3, "intermediate_size": 128,
+                "vocab_size": 256, "rope_theta": 1e6,
+                "torch_dtype": "bfloat16"}
+
+
+def test_kv_cache_layout_is_engine_prefills():
+    """The layer makes each request's cache in the blocks, leaves, shapes
+    and types that ``Engine.prefill`` of the same backbone returns for a
+    prompt of T tokens prefilled into T slots."""
+    from repro_torch.models import init_params
+    from repro_torch.serve import Engine, ServeConfig
+    T = 11
+    cfg = cache_layer.model_config(TINY_MISTRAL)
+    params = init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    eng = Engine(cfg, params, ServeConfig(max_seq=T))
+    _, cache, _ = eng.prefill({"tokens": torch.zeros((1, T),
+                                                     dtype=torch.long)})
+    layer = cache_layer.Layer(TINY_MISTRAL, {}, [{"prompt_tokens": T}], 5,
+                              "cpu")
+    made = layer._cache(0)
+
+    def form(c):
+        return {n: {k: (tuple(t.shape), t.dtype) for k, t in b.items()}
+                for n, b in c.items()}
+    assert form(made) == form(cache)
+    assert torch.equal(made["s0"]["kpos"], cache["s0"]["kpos"])
+
+
+def test_kv_cache_reference_matches_the_engines_plain_handoff():
+    layer = cache_layer.Layer(TINY_MISTRAL, {}, [{"prompt_tokens": 9},
+                                                 {"prompt_tokens": 30}],
+                              2**31 + 1, "cpu")
+    for j, step in enumerate(layer.steps):
+        got = step()
+        want = cache_ref.handoff(layer._cache(j))
+        assert set(got) == set(want) == {"s0"}
+        for leaf, w in want["s0"].items():
+            assert torch.equal(got["s0"][leaf], w), leaf
+        assert layer.check(j, got) == {"row_rel_err": 0.0}
+    # the control: a bfloat16 cache rounded through float8 e4m3
+    ctrl = cache_ref.handoff(layer._cache(1), torch.float8_e4m3fn)
+    err = common.row_rel_err(ctrl["s0"]["k"], layer._cache(1)["s0"]["k"])
+    assert 1e-2 < err < 0.2
+    assert torch.equal(ctrl["s0"]["kpos"], layer._cache(1)["s0"]["kpos"])

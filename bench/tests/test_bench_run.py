@@ -20,16 +20,15 @@ CELLS = sorted(SPEC.cells)
 
 
 def _cases():
-    """(cell, what) for every cell: a sound run, the control in the
-    program's place, and each fault the cell can have (the shared
-    expert's output dropped only where the cell's mix has one)."""
+    """(cell, layer, what) for every cell: a sound run, the control in
+    the program's place, and each fault the cell can have (its kind's
+    hooks, ``kinds/<layer>.py``, say which)."""
     for cell in CELLS:
         c = SPEC.cell(cell)
         layer = SPEC.config(c)["layer"]
-        shared = SPEC.traffic(c).get("shared_expert", False)
-        for what in ("sound", "control") + plant.FAULTS[layer]:
-            if what != "no_shared" or shared:
-                yield cell, layer, what
+        for what in ("sound", "control") \
+                + tuple(plant.faults(layer, SPEC.traffic(c))):
+            yield cell, layer, what
 
 
 def _run(root, cell, trace=False):

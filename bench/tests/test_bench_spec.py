@@ -7,6 +7,7 @@ import time
 
 import pytest
 
+import plant
 from bench.lib import harness, spec as speclib
 from conftest import ROOT
 
@@ -70,9 +71,13 @@ def test_each_cell_finds_its_files_by_name(cell):
     config, mix, checks = SPEC.config(c), SPEC.traffic(c), SPEC.checks(c)
     speclib.module("layers", config["layer"]).Layer  # noqa: B018
     speclib.module("reference", config["layer"])
-    assert {"entry", "directive", "pool", "params", "why"} <= set(mix)
+    kind = plant.hooks(config["layer"])      # the kind's test hooks
+    assert {"entry", "pool", "params", "why"} | set(kind.MIX_KEYS) \
+        <= set(mix)
     for k, lim in checks.items():
-        assert lim["lower"] < lim["limit"] < lim["upper"], k
+        # an exact comparison has the limit 0 and a lower reading of 0
+        assert lim["lower"] < lim["limit"] < lim["upper"] \
+            or lim["lower"] == lim["limit"] == 0 < lim["upper"], k
     for m in SPEC.end_to_end(c) + SPEC.per_layer(c):
         assert callable(SPEC.metric(m["name"]).read)
     names = {m["name"] for m in SPEC.end_to_end(c)}
@@ -90,7 +95,11 @@ def test_configuration_files(name):
     for k in entry["reduced"]:
         assert cfg["published"][k] != cfg[k], k
         assert not k.endswith(("_dim", "_rank", "_size")), k
-    assert cfg["torch_dtype"] == "float32"
+    # the published precision, or float32 where that is the cut
+    if "torch_dtype" in entry["reduced"]:
+        assert cfg["torch_dtype"] == "float32"
+    else:
+        assert cfg["torch_dtype"] == cfg["published"]["torch_dtype"]
 
 
 @pytest.mark.parametrize("cell", sorted(SPEC.cells))
