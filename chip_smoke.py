@@ -536,21 +536,30 @@ def gemm_core_shapes(small=False):
     cell's expert GEMM1 (256 routed rows, d=7168, 2f=4096, with SwiGLU)
     and GEMM2 (f=2048 -> d), the skewed cell's busiest expert (12
     microblocks of 64 rows, d=512, f=1024), kv_transfer's projection
-    (T = d = 4096, dk = 512) and the KV cell's (``KV_CORE``: 8192 rows, d
-    4096 into 2 x 1024 columns, on both cores); ``small``: test size."""
+    (T = d = 4096, dk = 512), the KV cell's (``KV_CORE``: 8192 rows, d
+    4096 into 2 x 1024 columns, on both cores) and the LongCat cell's
+    products on the core (1024 tokens a step: the router, d 6144 into 512
+    + 256 experts, and FFN2's two GEMMs, d into 2 x 12288 with SwiGLU and
+    12288 back to d); ``small``: test size."""
     if small:
         return [("moe_gemm1_swiglu", 70, 64, 256, True),
                 ("moe_gemm2", 70, 128, 64, False),
                 ("skewed_gemm1_swiglu", 64, 32, 128, True),
                 ("skewed_gemm2", 64, 64, 32, False),
                 ("kv_projection", 130, 96, 40, False),
-                (KV_CORE, 130, 96, 80, False)]
+                (KV_CORE, 130, 96, 80, False),
+                ("scmoe_router", 128, 64, 24, False),
+                ("scmoe_ffn2_gemm1_swiglu", 128, 64, 256, True),
+                ("scmoe_ffn2_gemm2", 128, 128, 64, False)]
     return [("moe_gemm1_swiglu", 256, 7168, 2 * 2048, True),
             ("moe_gemm2", 256, 2048, 7168, False),
             ("skewed_gemm1_swiglu", 768, 512, 2 * 1024, True),
             ("skewed_gemm2", 768, 1024, 512, False),
             ("kv_projection", 4096, 4096, 512, False),
-            (KV_CORE, 8192, 4096, 2 * 1024, False)]
+            (KV_CORE, 8192, 4096, 2 * 1024, False),
+            ("scmoe_router", 1024, 6144, 512 + 256, False),
+            ("scmoe_ffn2_gemm1_swiglu", 1024, 6144, 2 * 12288, True),
+            ("scmoe_ffn2_gemm2", 1024, 12288, 6144, False)]
 
 
 # the gemm_core line's row that also runs kv_shuttle.cu's wgmma core alone
@@ -706,6 +715,100 @@ def phase_kernels(device="cuda", workloads=None, iters=5):
                                   "main"))
         del x, w1, w2, shared, ins
     return out
+
+# ----------------------------------------------------------------- ScMoE
+
+
+def scmoe_workload(small=False):
+    """LongCat-Flash's ScMoE double-layer (``workloads/scmoe.py``) at the
+    benchmark cell's shapes: 8 ranks of 128 tokens, d 6144, expert f 2048,
+    dense FFNs 12288, 512 FFN + 256 zero experts, top-12; ``small``: the
+    CPU tests' size."""
+    from repro_torch.workloads.scmoe import ScMoEStep
+    if small:
+        return ScMoEStep(n_dev=8, tokens_per_rank=16, d=64, f=64,
+                         f_dense=128, n_experts=16, n_zero=8, topk=6)
+    return ScMoEStep()
+
+
+def scmoe_directive():
+    """The cell's point: tile-fused COUNTER, contexts 2, tight."""
+    from repro_torch.core.design_space import Directive
+    return Directive("PALLAS_RDMA", "COUNTER", "TILE_FUSED", "LOCAL",
+                     "GRID_STEP", "PER_TILE", "ACQREL", 2).with_tunable(
+                         "tight", 1)
+
+
+def scmoe_bound(pairs, T, d, f, fs):
+    """:func:`moe_bound` of a launch on a table of rows per (source,
+    expert) pair: every routed row in and out once, the held experts, and
+    the second stream (width ``fs``) over T rows a rank of an input of
+    its own. Returns (ms, bound by, flops, bytes)."""
+    n = len(pairs)
+    per_expert = [sum(r[e] for r in pairs) / n for e in range(n)]
+    return moe_bound(n, per_expert, d, f, fs, T, xs_is_x=False)
+
+
+def phase_scmoe(device="cuda", workload=None, iters=5):
+    """The ScMoE path, counted: one double-layer through the cell's build
+    (the router and FFN2 on ``gemm_core``, one ``moe_kernel`` launch on a
+    table of rows per (source, destination) pair with FFN1 as the second
+    stream), launch counts reset just before it, held to
+    ``models/longcat_ref.py`` with the layer's own picks. Then the kernel
+    alone on that layer's rows, table and FFN1 operands, held to
+    ``moe_dispatch_combine_ref`` and timed (:func:`moe_record`). Returns
+    (launch counter, [record])."""
+    from repro_torch.dist.mesh import VirtualMesh
+    from repro_torch.kernels import moe_dispatch as kern
+    from repro_torch.models import longcat_ref
+    from repro_torch.workloads.scmoe import record_routes, rms_norm
+    w = workload or scmoe_workload()
+    mesh = VirtualMesh(w.n_dev, device=device)
+    ins = w.example_inputs(0, mesh, T=w.T)
+    h, wr, b, w1, w2, s1, s2, t1, t2, g0, g1 = ins
+    run = w.build(scmoe_directive(), mesh)
+    kern.reset_launches()
+    with torch.no_grad(), record_routes() as routes:
+        got = run(*ins)
+    counted = dict(kern.LAUNCHES)
+    with torch.no_grad():
+        want, _, gap = longcat_ref.double_layer(
+            h, dict(zip(longcat_ref.LAYER_KEYS, ins[1:])), routes[0],
+            n_experts=w.n_experts, topk=w.topk, scale=w.scale, eps=w.eps)
+    reading, _ = _close("scmoe step", got, want, 1e-4)
+    if gap > 1e-6:
+        raise SystemExit(f"scmoe step: a pick lies {gap:.3e} below the "
+                         "reference's top k")
+    launched = sum(counted.values())
+    if torch.device(device).type == "cuda" and launched != 1:
+        raise SystemExit(f"scmoe step launched {launched} moe kernels, "
+                         "want 1")
+    log(f"scmoe step n={w.n_dev} T={w.T} d={w.d} f={w.f} fd={w.f_dense} "
+        f"E={w.n_experts}+{w.n_zero} k={w.topk}: {_reading(reading, 1e-4)}, "
+        f"route gap {gap:.3e}; launches {counted}")
+    del got, want
+    with torch.no_grad():
+        u = rms_norm(h, g0, w.eps)
+        picks, _ = w._route(u, wr, b, kern.gemm_core)
+        rows, pairs, _, _ = w._layout(u, picks)
+        pairs = pairs.tolist()
+    knobs = {k: v for k, v in w.kernel_knobs(scmoe_directive()).items()
+             if k in ("barrier", "pipelined", "tile_fused", "combine_tile")}
+    shared = (u, s1, s2)
+    bench = Bench(device, iters)
+
+    def library():
+        for e in range(w.n_dev):
+            xe = torch.cat([rows[s, sum(pairs[s][:e]):sum(pairs[s][:e + 1])]
+                            for s in range(w.n_dev)])
+            torch.matmul(torch.matmul(xe, w1[e])[:, :w.f], w2[e])
+        torch.matmul(torch.matmul(u, s1)[..., :w.f_dense], s2)
+
+    rec = moe_record(bench, "scmoe_step", rows, w1, w2, pairs, shared, knobs,
+                     64, scmoe_bound(pairs, w.T, w.d, w.f, w.f_dense),
+                     ("matmul", bench.ms(library)), "scmoe")
+    return counted, [rec]
+
 
 def main_path_workloads(small=False):
     """The slice's two workloads at their defaults (``small``: test size)."""
@@ -4703,6 +4806,8 @@ def main(argv=None):
     records += phase_tp_kernels("cuda", iters=args.iters)
     phase_window("cuda", iters=args.iters)
     counted = {"main": phase_main("cuda")}
+    counted["scmoe"], scmoed = phase_scmoe("cuda", iters=args.iters)
+    records += scmoed
     counted["kv_main"] = phase_kv_main("cuda")
     counted["serve"] = phase_serve("cuda")
     counted["ga_main"] = phase_ga_main("cuda")

@@ -13,9 +13,10 @@
   records (wall-clock fields stay out).
 * :class:`MetricsRegistry` — counters / gauges / histograms with a JSON
   snapshot.
-* :func:`span`, :data:`TRACE`, :func:`kernel_counters`, :func:`collect`,
-  :func:`spans` — the program's own trace: host spans in the kernel
-  wrappers and cycle counters inside the kernels, on exactly while a
+* :func:`span`, :data:`TRACE`, :func:`kernel_counters`, :func:`note`,
+  :func:`collect`, :func:`spans`, :func:`notes` — the program's own
+  trace: host spans in the kernel wrappers, cycle counters inside the
+  kernels and the host's counts of each launch, on exactly while a
   ``torch.profiler`` records (``src/repro_torch/OBSERVABILITY.md``).
 """
 from __future__ import annotations
@@ -33,7 +34,7 @@ from torch._C._profiler import _RecordFunctionFast
 
 __all__ = ["wallclock_us", "EvalRecord", "SearchTelemetry",
            "MetricsRegistry", "TRACE", "span", "spans", "kernel_counters",
-           "collect", "cycle_share", "reset"]
+           "note", "notes", "collect", "cycle_share", "reset"]
 
 
 def wallclock_us(fn, inputs, iters=3):
@@ -433,6 +434,8 @@ TRACE = MetricsRegistry()
 _LOG = collections.deque(maxlen=SPAN_LOG_CAP)
 _OPEN = []               # (name, call id) of the open spans, innermost last
 _CALLS = itertools.count(1)
+# (name, value, t ns): the host's counts of each launch (``note``)
+_NOTES = collections.deque(maxlen=SPAN_LOG_CAP)
 _KERNELS = {}            # (kernel, device) -> (roles, int64 (roles, buckets))
 _TRACED = collections.Counter()   # (kernel, device) -> traced launches
 _NULL = contextlib.nullcontext()
@@ -479,6 +482,20 @@ def spans():
     return list(_LOG)
 
 
+def note(name, value):
+    """A count the host knows of one launch (rows routed, say) under
+    ``name``: kept with its time on the profiler's clock while a
+    ``torch.profiler`` records (:func:`notes`); nothing otherwise."""
+    if torch.autograd._profiler_enabled():
+        _NOTES.append((name, float(value), time.time_ns()))
+
+
+def notes():
+    """The counts :func:`note` kept (the newest ``SPAN_LOG_CAP``), in the
+    order they came: ``(name, value, t ns)``."""
+    return list(_NOTES)
+
+
 def kernel_counters(kernel, roles, device):
     """The accumulator a launch of ``kernel`` on ``device`` passes as its
     ``stats`` pointer, to the counting build (``kernels.build.
@@ -518,12 +535,15 @@ def _counts():
 
 def collect():
     """TRACE made anew from the program's trace: a histogram of each
-    span's durations (ms) from the log, and the kernels' counters
-    (``<kernel>.<role>.<bucket>``, summed over devices) with one
-    synchronizing read a device; returns the counters as a dict."""
+    span's durations (ms) from the log and of each :func:`note`'s values,
+    one a launch, and the kernels' counters (``<kernel>.<role>.<bucket>``,
+    summed over devices) with one synchronizing read a device; returns
+    the kernels' counters as a dict."""
     TRACE.clear()
     for name, _, _, t0, t1 in _LOG:
         TRACE.histogram(name, SPAN_LOG_CAP).observe((t1 - t0) / 1e6)
+    for name, value, _ in _NOTES:
+        TRACE.histogram(name, SPAN_LOG_CAP).observe(value)
     got = _counts()
     for name, v in got.items():
         TRACE.counter(name).value = v
@@ -543,9 +563,10 @@ def cycle_share(kernel, bucket):
 
 
 def reset():
-    """Forget the log, TRACE's instruments and the kernels' counters and
-    traced launches."""
+    """Forget the log, the notes, TRACE's instruments and the kernels'
+    counters and traced launches."""
     _LOG.clear()
+    _NOTES.clear()
     TRACE.clear()
     _KERNELS.clear()
     _TRACED.clear()

@@ -15,7 +15,20 @@
 // chunk it covers: combine_tile sets the flag granularity, never the GEMM
 // tile). Options: an int8 wire with per-row f32 scales (max|x|/127 +
 // 1e-12, round half to even), and a second stream that runs the
-// shared-expert FFN.
+// shared-expert FFN (or any SwiGLU FFN over the rank's own Ts rows).
+//
+// Routing is a table of (source, expert) pairs: source s sends
+// counts[s][e] rows to expert e, sorted into runs from offsets[s][e] of
+// its T rows, in blocks[s][e] microblocks (a router's sizes differ by
+// pair; the skew law gives every source the same row). Rows past a
+// source's last run are routed nowhere and come back zero.
+//
+// Packed (tile-fused only): expert e's arrivals are one run, every
+// source's rows back to back in arrival order (e, e + 1, ... mod n), cut
+// into microblocks of B rows that may span sources; only the last is
+// short, and its flag counts the padding, which no source sends. A pair
+// table's tiles then cover ceil(rows / B) microblocks an expert, not one
+// short microblock a source.
 //
 // Layout: the n ranks are partitions of ONE cooperative launch over one
 // allocation (a symmetric heap on one card). A "remote copy" is a store
@@ -104,12 +117,14 @@ using tc::NT;
 
 struct MoeParams {
   int n, T, Ts, d, f, fs, B, b_max, stride, ct;
-  int counts[MOE_MAXN], blocks[MOE_MAXN], offsets[MOE_MAXN];
+  // [source][expert]: rows, microblocks and the first row of each run
+  int counts[MOE_MAXN][MOE_MAXN], blocks[MOE_MAXN][MOE_MAXN], offsets[MOE_MAXN][MOE_MAXN];
   int cta0[2 * MOE_MAXN + 1];  // stream 2r (rank r routed) / 2r+1 (its second stream):
                                // CTAs [cta0[s], cta0[s + 1])
   int barrier, pipelined, tile_fused, shared, wire_i8, timeout_ms;
   int contexts;        // the send window's depth: 1, 2 or 4
   int log_cap;         // events a CTA's probe log holds (-DCUCO_PROBE builds)
+  int packed;          // expert e's arrivals packed into one run (tile-fused)
   const float *x, *w1, *w2, *xs, *s1, *s2;
   float *y, *ys;
   void* recv;          // (n, n*stride, d) float or int8: receive slabs
@@ -146,6 +161,20 @@ constexpr unsigned MOE_SLOT = 64 * 1024;  // the send slot: the ring's first 64 
 
 __device__ __forceinline__ void release_round(const MoeRound& r) {
   for (unsigned a = 0; a < r.amount; a += r.step) atomicAdd(r.flag, min(r.step, r.amount - a));
+}
+
+// packed: the first row of source s's run in expert e's arrivals
+__device__ __forceinline__ int packed_start(const MoeParams& P, int s, int e) {
+  int r = 0;
+  for (int q = e; q != s; q = (q + 1) % P.n) r += P.counts[q][e];
+  return r;
+}
+
+// packed: the rows of expert e's arrivals
+__device__ __forceinline__ int packed_rows(const MoeParams& P, int e) {
+  int r = 0;
+  for (int s = 0; s < P.n; ++s) r += P.counts[s][e];
+  return r;
 }
 
 // ------------------------------------------------------------ row staging
@@ -257,6 +286,7 @@ __device__ void gemm1(const MoeParams& P, const AT* A, const float* S, const Seg
 
 // GEMM2 units: ceil(N/128) output column slabs x the m-tiles, m-tiles
 // inside a column slab; each waits for its segment's H.
+template <bool PACKED = false>
 __device__ void gemm2(const MoeParams& P, const float* H, const Seg* segs, int nseg, int K,
                       const float* W, int N, Stream& st, char* smem, MoeWindow* w = nullptr) {
   for (int c0 = 0; c0 < N; c0 += BN)
@@ -273,6 +303,32 @@ __device__ void gemm2(const MoeParams& P, const float* H, const Seg* segs, int n
           tc::tile<float, true>(tc::TileA{H, nullptr, K, sg.a_row0 + m0, valid},
                                 tc::TileB{W, N, c0, c0 + 64, ncols}, K, smem);
         });
+        if (PACKED) {
+          // the packed combine: the tile's token rows, a round for each
+          // source they came from, sent into that source's slab
+          float* C = reinterpret_cast<float*>(smem);
+          win::fence_to_async();
+          __syncthreads();
+          if (threadIdx.x == 0) {
+            const int p0 = sg.j0 * P.B + m0;  // the tile's first arrival row
+            const int tile = (sg.j0 * ((N + BN - 1) / BN) + c0 / BN) * mtiles(sg.rows) + m0 / BM;
+            for (int off = 0, a = 0; off < P.n && a < p0 + valid; ++off) {
+              const int s = (st.me + off) % P.n, c = P.counts[s][st.me];
+              const int lo = max(a, p0), hi = min(a + c, p0 + valid);
+              if (lo < hi) {
+                win::push(*w, MoeRound{&P.comb_flag[s * P.n + st.me], (unsigned)((hi - lo) * ncols),
+                                       (unsigned)(P.ct * ncols)},
+                          (s - st.me + P.n) % P.n, tile, release_round);
+                float* out = P.comb + ((size_t)s * P.n * P.stride + (size_t)st.me * P.stride) * N;
+                for (int r = lo; r < hi; ++r)
+                  win::bulk_store(out + (size_t)(r - a) * N + c0, C + (r - p0) * tc::LDC, ncols * 4);
+                win::commit_piece(*w);
+              }
+              a += c;
+            }
+          }
+          continue;
+        }
         if (sg.comb_flag) {
           // the tile-fused combine: round (off, tile) of the window, sent
           // from the tile in shared memory (padding rows zeroed first);
@@ -336,7 +392,9 @@ __device__ void copy_row(const float* src, float* dst, int d) {
 }
 
 // dispatch -> expert FFN -> combine -> assemble, for rank `me`
-template <typename WT>
+// PACKED: the tile-fused path on packed arrivals (its own instance, so
+// the other paths compile as they did without it)
+template <typename WT, bool PACKED>
 __device__ void routed(const MoeParams& P, Stream& st, char* smem, MoeWindow& w) {
   const int n = P.n, B = P.B, d = P.d, f = P.f, stride = P.stride, bmax = P.b_max;
   const int me = st.me;
@@ -350,7 +408,38 @@ __device__ void routed(const MoeParams& P, Stream& st, char* smem, MoeWindow& w)
     const int e = (me - off + n) % n;
     WT* dst = reinterpret_cast<WT*>(P.recv) + (size_t)e * slab * d;
     float* dsc = P.recv_s + (size_t)e * slab;
-    for (int j = 0; j < P.blocks[e]; ++j) {
+    if (PACKED) {
+      // my run into e's arrivals from row p0, in chunks that end at e's
+      // microblock edges: a round each; the chunk that ends e's rows also
+      // lands the padding of its microblock
+      const int c = P.counts[me][e], p0 = packed_start(P, me, e), R = packed_rows(P, e);
+      for (int k0 = 0; k0 < c;) {
+        const int J = (p0 + k0) / B, k1 = min(c, (J + 1) * B - p0), L = k1 - k0;
+        const unsigned mine = rows_of(st, L);
+        const unsigned pad = p0 + k1 == R && first_row(st) == 0 ? (unsigned)((J + 1) * B - R) : 0u;
+        if (mine && threadIdx.x == 0)
+          win::push(w, MoeRound{&P.disp_flag[(size_t)e * n * bmax + J], mine + pad, mine + pad},
+                    off, J, release_round);
+        for (int i = first_row(st); i < L; i += st.size) {
+          const int k = k0 + i;
+          const float* src = P.x + ((size_t)me * P.T + P.offsets[me][e] + k) * d;
+          const size_t row = (size_t)p0 + k;
+          if (threadIdx.x == 0) win::wait_read_all(stats::wait());  // the slot's last row was read
+          __syncthreads();
+          stage_row(src, reinterpret_cast<WT*>(smem), dsc + row, d);
+          win::fence_to_async();
+          __syncthreads();
+          if (threadIdx.x == 0) {
+            win::bulk_store(dst + row * d, smem, (unsigned)(d * sizeof(WT)));
+            win::commit_piece(w);
+          }
+        }
+        st.next += L;
+        k0 = k1;
+      }
+      continue;
+    }
+    for (int j = 0; j < P.blocks[me][e]; ++j) {
       const unsigned mine = rows_of(st, B);
       if (mine && threadIdx.x == 0)
         win::push(w, MoeRound{&P.disp_flag[((size_t)e * n + me) * bmax + j], mine, mine}, off,
@@ -358,7 +447,7 @@ __device__ void routed(const MoeParams& P, Stream& st, char* smem, MoeWindow& w)
       for (int i = first_row(st); i < B; i += st.size) {
         const int k = j * B + i;
         const float* src =
-            k < P.counts[e] ? P.x + ((size_t)me * P.T + P.offsets[e] + k) * d : nullptr;
+            k < P.counts[me][e] ? P.x + ((size_t)me * P.T + P.offsets[me][e] + k) * d : nullptr;
         const size_t row = (size_t)me * stride + k;
         if (threadIdx.x == 0) win::wait_read_all(stats::wait());  // the slot's last row was read
         __syncthreads();
@@ -379,8 +468,8 @@ __device__ void routed(const MoeParams& P, Stream& st, char* smem, MoeWindow& w)
     win::note(w.log, win::EV_MARK, win::MARK_DISPATCH_DRAINED, 0);
   }
 
-  // ---- expert FFN over the arrivals
-  const int mb = P.blocks[me], cme = P.counts[me];
+  // ---- expert FFN over the arrivals: source src's rows are its
+  // blocks[src][me] microblocks, the first counts[src][me] of them tokens
   const WT* recv = reinterpret_cast<const WT*>(P.recv) + (size_t)me * slab * d;
   const float* rs = P.recv_s + (size_t)me * slab;
   const float* w1 = P.w1 + (size_t)me * d * 2 * f;
@@ -391,11 +480,22 @@ __device__ void routed(const MoeParams& P, Stream& st, char* smem, MoeWindow& w)
   unsigned* o_ready = P.o_ready + (size_t)me * n;
   const unsigned g1 = (unsigned)(f / 64);  // GEMM1 units per m-tile
 
-  if (P.tile_fused) {
+  if (PACKED) {
+    // COUNTER over the packed arrivals: microblock J of every source's
+    // rows, GEMM1 then GEMM2; GEMM2's epilogue sends each source its rows
+    const int R = packed_rows(P, me);
+    for (int J = 0; J * B < R; ++J) {
+      const Seg sg{(size_t)J * B, B, min(R - J * B, B), nullptr, &h_ready[J], g1 * mtiles(B),
+                   nullptr, P.comb_flag, 0, J};
+      gemm1<WT>(P, recv, rs, &sg, 1, d, w1, f, h, st, smem);
+      gemm2<true>(P, h, &sg, 1, f, w2, d, st, smem, &w);
+    }
+  } else if (P.tile_fused) {
     // COUNTER: per microblock arrival, GEMM1 then GEMM2 of its 64-row
     // tiles; GEMM2's epilogue is the combine store into the source's slab
     for (int off = 0; off < n; ++off) {
       const int src = (me + off) % n;
+      const int mb = P.blocks[src][me], cme = P.counts[src][me];
       for (int j = 0; j < mb; ++j) {
         const int rel = j * B;
         const Seg sg{(size_t)src * stride + rel, B, clampi(cme - rel, 0, B),
@@ -408,15 +508,21 @@ __device__ void routed(const MoeParams& P, Stream& st, char* smem, MoeWindow& w)
     }
   } else {
     const bool pipelined = !P.barrier && P.pipelined;
-    const unsigned all_units = g1 * n * mtiles(mb * B);
+    const int cols = (d + BN - 1) / BN;  // GEMM2 units per m-tile
+    unsigned all_units = 0, all_out = 0;  // GEMM1 / GEMM2 units of every source's rows
+    for (int s = 0; s < n; ++s) {
+      const int mt = mtiles(P.blocks[s][me] * B);
+      all_units += g1 * mt;
+      all_out += cols * mt;
+    }
     Seg segs[MOE_MAXN];
     for (int s = 0; s < n; ++s) {
-      const int src = (me + s) % n;
+      const int src = (me + s) % n, rows = P.blocks[src][me] * B;
       // pipelined: a counter per source; otherwise one for the whole GEMM
-      segs[s] = Seg{(size_t)src * stride, mb * B, min(cme, mb * B),
+      segs[s] = Seg{(size_t)src * stride, rows, min(P.counts[src][me], rows),
                     ffo + (size_t)src * stride * d,
                     pipelined ? &h_ready[src * bmax] : h_ready,
-                    pipelined ? g1 * mtiles(mb * B) : all_units,
+                    pipelined ? g1 * mtiles(rows) : all_units,
                     pipelined ? &o_ready[s] : o_ready, nullptr, pipelined ? src : -1, 0};
     }
     if (pipelined) {
@@ -428,7 +534,7 @@ __device__ void routed(const MoeParams& P, Stream& st, char* smem, MoeWindow& w)
     } else {
       // BARRIER / DEFERRED: every edge lands before any expert compute
       for (int s = 0; s < n; ++s)
-        for (int j = 0; j < mb; ++j)
+        for (int j = 0; j < P.blocks[(me + s) % n][me]; ++j)
           stats::cta_wait(&P.disp_flag[((size_t)me * n + (me + s) % n) * bmax + j], (unsigned)B,
                           P.timeout_ms, KNAME, "dispatch", (me + s) % n, j);
       gemm1<WT>(P, recv, rs, segs, n, d, w1, f, h, st, smem);
@@ -436,9 +542,9 @@ __device__ void routed(const MoeParams& P, Stream& st, char* smem, MoeWindow& w)
     }
     // ---- combine: reverse shift, expert me -> source (me + off) % n, once
     // that source's expert rows are in ffn_out
-    const unsigned o_units = (unsigned)((d + BN - 1) / BN * mtiles(mb * B) * (pipelined ? 1 : n));
     for (int off = 0; off < n; ++off) {
-      const int q = (me + off) % n;
+      const int q = (me + off) % n, mb = P.blocks[q][me];
+      const unsigned o_units = pipelined ? (unsigned)(cols * mtiles(mb * B)) : all_out;
       for (int j = 0; j < mb; ++j) {
         const unsigned mine = rows_of(st, B);
         if (mine) {
@@ -459,17 +565,24 @@ __device__ void routed(const MoeParams& P, Stream& st, char* smem, MoeWindow& w)
   }
   if (threadIdx.x == 0) win::drain(w, release_round, 1);
 
-  // ---- assemble: region e of my combine slab holds my tokens for expert e
+  // ---- assemble: region e of my combine slab holds my tokens for expert
+  // e; rows past my last run were routed nowhere and come back zero
   for (int e = 0; e < n; ++e)
-    stats::cta_wait(&P.comb_flag[me * n + e], (unsigned)P.blocks[e] * B * d, P.timeout_ms, KNAME,
-                    "combine", me, e);
+    stats::cta_wait(&P.comb_flag[me * n + e],
+                    (unsigned)(PACKED ? P.counts[me][e] : P.blocks[me][e] * B) * d,
+                    P.timeout_ms, KNAME, "combine", me, e);
   const float* comb = P.comb + (size_t)me * slab * d;
+  const int routed_rows = P.offsets[me][n - 1] + P.counts[me][n - 1];
   for (int k = 0; k < P.T; ++k) {
     if (!st.take()) continue;
+    float* dst = P.y + ((size_t)me * P.T + k) * d;
+    if (k >= routed_rows) {
+      stage_row(static_cast<const float*>(nullptr), dst, nullptr, d);
+      continue;
+    }
     int e = 0;
-    while (e + 1 < n && k >= P.offsets[e + 1]) ++e;
-    copy_row(comb + ((size_t)e * stride + k - P.offsets[e]) * d,
-             P.y + ((size_t)me * P.T + k) * d, d);
+    while (e + 1 < n && k >= P.offsets[me][e + 1]) ++e;
+    copy_row(comb + ((size_t)e * stride + k - P.offsets[me][e]) * d, dst, d);
   }
 }
 
@@ -491,7 +604,10 @@ __global__ void __launch_bounds__(NT, 2) moe_kernel(MoeParams P) {
     MoeWindow& w = *reinterpret_cast<MoeWindow*>(smem + tc::SMEM);
     if (threadIdx.x == 0)
       win::open(w, P.contexts, win::cta_log(P.log, P.log_n, P.log_cap), stats::wait());
-    routed<WT>(P, st, smem, w);
+    if (P.packed)
+      routed<WT, true>(P, st, smem, w);
+    else
+      routed<WT, false>(P, st, smem, w);
   }
   if (threadIdx.x == 0) stats::close(P.stats);
 }

@@ -10,6 +10,9 @@ elided), runs the expert SwiGLU FFN over the arrivals and stores the rows
 back (combine). BARRIER, SIGNAL (pipelined) and COUNTER (tile-fused)
 completions, the int8 wire and the shared-expert second stream are flags
 of the one kernel; the source's header says how each is realized.
+``counts`` is the routing: rows per expert, the same for every source
+(the skew law's), or a table of rows per (source, expert) pair (a
+router's), which :func:`pair_table` turns into the kernel's microblocks.
 
 :func:`moe_dispatch_combine` launches the kernel for CUDA tensors and
 raises when it cannot; for CPU tensors it computes
@@ -27,6 +30,9 @@ from __future__ import annotations
 
 import collections
 import ctypes
+from dataclasses import dataclass
+
+import numpy as np
 
 import torch
 import torch.nn.functional as F
@@ -87,29 +93,111 @@ def _offsets(counts):
     return offs
 
 
+@dataclass(frozen=True)
+class PairTable:
+    """The kernel's routing: source s sends ``counts[s][e]`` rows to
+    expert e, the run of its rows from ``offsets(s)[e]``, in
+    ``blocks[s][e]`` microblocks of ``block_tokens`` rows (padding rows
+    included). ``packed``: the tile-fused kernel packs expert e's
+    arrivals into one run (every source's rows back to back, sources in
+    arrival order e, e + 1, ... mod n), so its GEMMs cover
+    ceil(rows / block_tokens) microblocks, not the pairs' own."""
+    n: int
+    block_tokens: int
+    counts: tuple          # (n, n) rows of each (source, expert) pair
+    blocks: tuple          # (n, n) microblocks of each pair
+    packed: bool = False
+
+    @property
+    def b_max(self):
+        return max(max(r) for r in self.blocks)
+
+    def offsets(self, s):
+        return _offsets(self.counts[s])
+
+    def rows(self, s):
+        """Rows source s routes (the rest of its rows go nowhere)."""
+        return sum(self.counts[s])
+
+    def expert_rows(self, e):
+        """Rows expert e's GEMMs cover: every source's microblocks, or
+        packed, the microblocks of all its arrivals."""
+        B = self.block_tokens
+        if self.packed:
+            return B * -(-sum(r[e] for r in self.counts) // B)
+        return B * sum(r[e] for r in self.blocks)
+
+    def packed_start(self, s, e):
+        """Packed: the row of expert e's arrivals where source s's run
+        starts."""
+        return sum(self.counts[(e + i) % self.n][e]
+                   for i in range((s - e) % self.n))
+
+
+def pair_table(counts, block_tokens=64, tight=True, packed=False):
+    """The :class:`PairTable` of ``counts``: rows per expert, every source
+    alike (each row is :func:`make_schedule`'s counts and blocks), or an
+    n x n table of rows per (source, expert) pair, each pair in
+    ceil(rows / block_tokens) microblocks, or (not ``tight``) every pair
+    in the largest pair's. ``packed`` (the tile-fused kernel's choice)
+    packs a tight n x n table's arrivals; rows per expert keep the
+    schedule's layout."""
+    c = np.asarray(counts)
+    if c.ndim == 1:
+        sched = make_schedule(c, block_tokens, tight)
+        return PairTable(sched.n, sched.block_tokens,
+                         (sched.counts,) * sched.n,
+                         (tuple(sched.blocks),) * sched.n)
+    if c.ndim != 2 or c.shape[0] != c.shape[1] or (c < 0).any():
+        raise ValueError(f"counts {c.tolist()} are neither rows per expert "
+                         "nor an n x n table of rows per pair")
+    rows = tuple(tuple(int(v) for v in r) for r in c)
+    blocks = [[-(-v // block_tokens) for v in r] for r in rows]
+    if not tight:
+        most = max(max(r) for r in blocks)
+        blocks = [[most] * len(r) for r in blocks]
+    return PairTable(len(rows), block_tokens, rows,
+                     tuple(tuple(r) for r in blocks), bool(packed and tight))
+
+
+def _check_routes(table, x, counts):
+    """Raise unless ``table`` routes the ranks of ``x`` (n, T, d): rows per
+    expert route all T rows of each rank; a pair table at most T."""
+    n, T = x.shape[0], x.shape[1]
+    rows = [table.rows(s) for s in range(table.n)]
+    if table.n != n or max(rows) > T or (np.ndim(counts) == 1
+                                         and rows[0] != T):
+        raise ValueError(f"counts {np.asarray(counts).tolist()} do not "
+                         f"route x {tuple(x.shape)}")
+
+
 def moe_dispatch_combine_ref(x, w1, w2, *, counts, block_tokens=64, tight=True,
                              wire_i8=False, shared=None, contexts=2):
     """Plain-torch version of the kernel on the stacked layout: x (n, T, d),
     w1 (n, d, 2f), w2 (n, f, d); rank r's rows ``[off_e, off_e+counts[e])``
-    go to expert e. Each row crosses the wire alone (per-row int8 scales),
-    so the microblock layout (``block_tokens``, ``tight``) changes where
-    rows travel, never what comes back, and the send window (``contexts``,
+    go to expert e (with a pair table, ``counts[r][e]`` rows from
+    ``offsets(r)[e]``; the rows past a rank's last run come back zero).
+    Each row crosses the wire alone (per-row int8 scales), so the
+    microblock layout (``block_tokens``, ``tight``) changes where rows
+    travel, never what comes back, and the send window (``contexts``,
     only checked) when. ``shared=(xs, s1, s2)`` adds the second stream and
     returns ``(y, ys)``."""
     window.check_contexts(contexts)
-    n, T, _ = x.shape
-    sched = make_schedule(counts, block_tokens, tight)
-    if sched.n != n or sum(sched.counts) != T:
-        raise ValueError(f"counts {counts} do not route {n} ranks x {T} tokens")
+    table = pair_table(counts, block_tokens, tight)
+    _check_routes(table, x, counts)
+
+    def wire(rows):
+        if not wire_i8:
+            return rows
+        q, s = quant_i8(rows)
+        return q.to(torch.float32) * s
+
     y = torch.zeros_like(x)
-    for e, (off, c) in enumerate(zip(_offsets(counts), sched.counts)):
-        if c == 0:
-            continue
-        rows = x[:, off:off + c]
-        if wire_i8:
-            q, s = quant_i8(rows)
-            rows = q.to(torch.float32) * s
-        y[:, off:off + c] = swiglu_ffn(rows, w1[e], w2[e])
+    for r in range(table.n):
+        for e, (off, c) in enumerate(zip(table.offsets(r), table.counts[r])):
+            if c:
+                y[r, off:off + c] = swiglu_ffn(wire(x[r, off:off + c]),
+                                               w1[e], w2[e])
     if shared is None:
         return y
     xs, s1, s2 = shared
@@ -124,12 +212,12 @@ class _Params(ctypes.Structure):
     _fields_ = (
         [(k, ctypes.c_int) for k in ("n", "T", "Ts", "d", "f", "fs", "B",
                                      "b_max", "stride", "ct")]
-        + [(k, ctypes.c_int * MAX_RANKS)
+        + [(k, ctypes.c_int * MAX_RANKS * MAX_RANKS)
            for k in ("counts", "blocks", "offsets")]
         + [("cta0", ctypes.c_int * (2 * MAX_RANKS + 1))]
         + [(k, ctypes.c_int) for k in ("barrier", "pipelined", "tile_fused",
                                        "shared", "wire_i8", "timeout_ms",
-                                       "contexts", "log_cap")]
+                                       "contexts", "log_cap", "packed")]
         + [(k, ctypes.c_void_p) for k in (
             "x", "w1", "w2", "xs", "s1", "s2", "y", "ys", "recv", "recv_s",
             "ffn_out", "comb", "h", "hs", "disp_flag", "comb_flag",
@@ -175,18 +263,29 @@ def rank_ctas(grid, sched, f, shared=None):
     """Each rank's ``(routed, second-stream)`` CTAs of a launch of
     ``grid`` CTAs: :func:`cta_split` by work. Rank e's routed stream runs
     the FFN (width ``f``) over the rows routed to its expert as the
-    kernel computes them: ``n * blocks[e] * block_tokens`` under the
-    schedule ``sched`` (each source's microblocks, padding rows included:
-    a GEMM tile costs the same however many of its rows are tokens). With
+    kernel computes them: every source's microblocks into e under the
+    schedule or :class:`PairTable` ``sched`` (``n * blocks[e] *
+    block_tokens`` under a schedule, :meth:`PairTable.expert_rows` under
+    a table; padding rows included: a GEMM tile costs the same however
+    many of its rows are tokens). With
     ``shared=(Ts, fs)`` its second stream runs the shared expert (width
-    ``fs``) over its ``Ts`` rows (0 CTAs without)."""
-    n, B = sched.n, sched.block_tokens
-    routed = [n * b * B * f for b in sched.blocks]
+    ``fs``) over its ``Ts`` rows (0 CTAs without). Every rank's second
+    stream does the same work, so each takes the same CTAs: the whole
+    CTAs of its share of the work (rounded down, at least one, and at
+    least one left for each routed stream); the routed streams split the
+    rest by their work. A second stream's time then depends on no rank's
+    routing, and the routed streams, whose work does, take the spare
+    CTAs."""
+    n = sched.n
+    if not isinstance(sched, PairTable):
+        sched = pair_table(sched.counts, sched.block_tokens, sched.tight)
+    routed = [sched.expert_rows(e) * f for e in range(n)]
     if shared is None:
         return [(c, 0) for c in cta_split(grid, routed)]
-    Ts, fs = shared
-    split = cta_split(grid, [w for r in routed for w in (r, Ts * fs)])
-    return [(split[2 * r], split[2 * r + 1]) for r in range(n)]
+    second = shared[0] * shared[1]
+    each = max(1, min((grid - n) // n,
+                      grid * second // (sum(routed) + n * second)))
+    return [(c, each) for c in cta_split(grid - n * each, routed)]
 
 
 def stream_starts(ctas):
@@ -240,10 +339,8 @@ def _launch(x, w1, w2, counts, block_tokens, tight, *, barrier, pipelined,
     ``-DCUCO_PROBE`` build, uncounted) ``(out, log, stream starts)``."""
     with telemetry.span("moe_dispatch.prepare"):
         window.check_contexts(contexts)
-        sched = make_schedule(counts, block_tokens, tight)
-        if sched.n != x.shape[0] or sum(sched.counts) != x.shape[1]:
-            raise ValueError(f"counts {counts} do not route x "
-                             f"{tuple(x.shape)}")
+        sched = pair_table(counts, block_tokens, tight, packed=tile_fused)
+        _check_routes(sched, x, counts)
         d0 = x.shape[2]
         if pad:
             x, w1, w2, shared = pad_to_tiles(x, w1, w2, shared)
@@ -292,11 +389,12 @@ def _launch(x, w1, w2, counts, block_tokens, tight, *, barrier, pipelined,
                     barrier=int(barrier), pipelined=int(pipelined),
                     tile_fused=int(tile_fused), shared=int(shared is not None),
                     wire_i8=int(wire_i8), timeout_ms=TIMEOUT_MS,
-                    contexts=int(contexts),
+                    contexts=int(contexts), packed=int(sched.packed),
                     stats=None if stats is None else stats.data_ptr())
-        for k in ("counts", "blocks"):
-            getattr(p, k)[:n] = getattr(sched, k)
-        p.offsets[:n] = _offsets(sched.counts)
+        for s in range(n):
+            p.counts[s][:n] = sched.counts[s]
+            p.blocks[s][:n] = sched.blocks[s]
+            p.offsets[s][:n] = sched.offsets(s)
         p.cta0[:2 * n + 1] = stream_starts(ctas)
     with telemetry.span("moe_dispatch.alloc"):
         wire_dt = torch.int8 if wire_i8 else torch.float32
@@ -358,7 +456,9 @@ def moe_dispatch_combine(x, w1, w2, *, counts, block_tokens=64, tight=True,
                          tile_fused=False, combine_tile=None, shared=None,
                          contexts=2, probe=None):
     """Global entry, the JAX package's layout: x (n, T, d) with each rank's
-    rows sorted into contiguous per-expert blocks by ``counts``; w1
+    rows sorted into contiguous per-expert blocks by ``counts`` (rows per
+    expert, or an n x n table of rows per (source, expert) pair:
+    :func:`pair_table`); w1
     (n, d, 2f), w2 (n, f, d) — expert e's weights on rank e. Returns
     (n, T, d), or ``(y, ys)`` with ``shared=(xs, s1, s2)`` — xs (n, Ts, d),
     s1 (d, 2fs), s2 (fs, d) replicated.
@@ -439,8 +539,9 @@ def log_cap(sched, d):
     """Events one routed CTA logs at most: a push and a retire a
     dispatch round (every round of its rank at worst) and a combine round
     (every GEMM2 tile of its rank's, at worst), two drains, two marks, and
-    room to spare."""
-    rounds = sched.n * sched.b_max
+    room to spare. Packed, a pair's run may take one round more than its
+    microblocks, and a tile one round a source it holds."""
+    rounds = sched.n * (sched.b_max + int(sched.packed))
     tiles = -(-d // 128) * -(-sched.block_tokens // 64)
     return 2 * rounds * (1 + tiles) + 16
 
@@ -599,9 +700,10 @@ def gemm_core_plain(a, b, *, swiglu=False):
 
 def gemm_core(a, b, *, swiglu=False):
     """The tensor-core tile GEMM of ``csrc/tc_gemm.cuh`` alone, one CTA a
-    64 x 128 tile (``moe_dispatch_gemm`` of the moe_dispatch library), for
-    the tests and ``chip_smoke.py``'s ``gemm_core`` line; the kernels run
-    the same tile inside their cooperative launch. a (M, K) @ b (K, N)
+    64 x 128 tile (``moe_dispatch_gemm`` of the moe_dispatch library):
+    ``workloads/scmoe.py``'s router and FFN2 on the main path, and
+    ``chip_smoke.py``'s ``gemm_core`` line; the kernels run the same tile
+    inside their cooperative launch. a (M, K) @ b (K, N)
     float32; ``swiglu``: silu(a b[:, :N/2]) * (a b[:, N/2:]), N/2 a
     multiple of 64. CUDA tensors launch the kernel (or raise); CPU tensors
     compute :func:`gemm_core_plain`."""

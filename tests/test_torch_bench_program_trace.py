@@ -28,8 +28,8 @@ SHARES = [("moe_kernel_wait_share", "moe_kernel", "wait"),
           ("moe_kernel_gemm_share", "moe_kernel", "gemm"),
           ("kv_shuttle_kernel_wait_share", "kv_shuttle_kernel", "wait"),
           ("kv_shuttle_kernel_gemm_share", "kv_shuttle_kernel", "gemm")]
-NEW = ["wrapper_host_ms_per_step", "device_idle_in_wrapper"] \
-    + [m for m, _, _ in SHARES]
+NEW = ["wrapper_host_ms_per_step", "device_idle_in_wrapper",
+       "scmoe_route_idle"] + [m for m, _, _ in SHARES]
 MS = 1_000_000
 
 
@@ -111,6 +111,27 @@ def test_device_idle_in_wrapper(monkeypatch):
         ops=ops, log=log[:3], monkeypatch=monkeypatch)) is None
 
 
+def test_scmoe_route_idle_runs_to_the_layers_kernel(monkeypatch):
+    # each step: route 1-5 ms (its table read returns at 5), the call
+    # 5-8; device busy 0-3 (router), idle 3-9, moe_kernel from 9 to 19,
+    # idle 19-21, a fill 21-22: the route's idle is 3-9, 6 ms a step,
+    # though the gap's midpoint (6) lies past the route span's end
+    log, ops = [], []
+    for i in range(3):
+        base = 30 * i * MS
+        log.append(("scmoe.route", 10 + i, None, base + MS, base + 5 * MS))
+        log += _call(i, 5, 8)
+        ops += [("gemm", base, 3 * MS), ("moe_kernel(MoeParams)",
+                                         base + 9 * MS, 10 * MS),
+                ("fill", base + 21 * MS, MS)]
+    ctx = _ctx(ops=ops, log=log, monkeypatch=monkeypatch)
+    assert _read("scmoe_route_idle", ctx) == pytest.approx(18.0)
+    # a route with no kernel after it: only the gaps inside its span
+    ctx = _ctx(ops=ops[:3], log=log[:1], monkeypatch=monkeypatch)
+    ctx.trace.ops = [("gemm", 0, 2 * MS), ("fill", 4 * MS, MS)]
+    assert _read("scmoe_route_idle", ctx) == pytest.approx(2.0)
+
+
 @pytest.mark.parametrize("name,kernel,bucket", SHARES)
 def test_cycle_share_readers(name, kernel, bucket):
     with profile(activities=[ProfilerActivity.CPU]):
@@ -124,25 +145,34 @@ def test_cycle_share_readers(name, kernel, bucket):
     assert all(_read(m, _ctx()) is None for m in other)
 
 
+def _hooks(layer):
+    """The test hooks of a layer kind (``bench/tests/kinds/<layer>.py``,
+    found by ``bench/tests/plant.py::hooks``): its tiny widths and sizes."""
+    plant = speclib.load_module(ROOT / "bench" / "tests" / "plant.py",
+                                "bench_tests_plant")
+    return plant.hooks(layer, ROOT)
+
+
 def _tiny_copy(dest):
     """``BENCHMARK.json`` and ``bench/`` copied to ``dest`` at a size the
-    CPU runs in a blink (the benchmark's own tests cut it the same way)."""
+    CPU runs in a blink: each configuration and each cell's mix cut by its
+    layer kind's hooks (``CONFIG``, ``PARAMS``), as the benchmark's own
+    tests cut them."""
     shutil.copy(ROOT / "BENCHMARK.json", dest)
     shutil.copytree(ROOT / "bench", dest / "bench",
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
-    widths = {"moe": dict(hidden_size=64, moe_intermediate_size=64),
-              "kv": dict(hidden_size=64, num_attention_heads=4,
-                         num_key_value_heads=2)}
-    sizes = {"tokens_per_rank": {"fixed": 32},
-             "prompt_tokens": {"lognormal_quantiles": {
-                 "median": 40, "sigma": 0.6, "min": 8, "max": 160}}}
-    for path in (dest / "bench" / "configs").glob("*.json"):
+    layers = {}
+    for entry in SPEC.data["configs"]:
+        path = dest / entry["file"]
         cfg = json.loads(path.read_text())
-        cfg.update(widths[cfg["layer"]])
+        cfg.update(_hooks(cfg["layer"]).CONFIG)
         path.write_text(json.dumps(cfg))
-    for path in (dest / "bench" / "traffic").glob("*.json"):
+        layers[entry["name"]] = cfg["layer"]
+    for cell in SPEC.data["workloads"]:
+        path = dest / "bench" / "traffic" / f"{cell['traffic']}.json"
         mix = json.loads(path.read_text())
-        mix["params"].update({k: v for k, v in sizes.items()
+        params = _hooks(layers[cell["config"]]).PARAMS
+        mix["params"].update({k: v for k, v in params.items()
                               if k in mix["params"]})
         path.write_text(json.dumps(mix))
     return dest

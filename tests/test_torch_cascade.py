@@ -248,23 +248,53 @@ def test_chip_smoke_phases_on_the_cpu():
 def test_chip_smoke_gemm_core_on_the_cpu():
     """The smoke's gemm_core line at test size on the CPU, where the
     wrappers compute the plain version; the full shapes are the serving
-    cell's expert GEMMs, kv_transfer's projection and the KV cell's, which
-    also times kv_shuttle.cu's wgmma core alone."""
+    cell's expert GEMMs, kv_transfer's projection, the KV cell's, which
+    also times kv_shuttle.cu's wgmma core alone, and the LongCat cell's
+    router and FFN2."""
     recs = chip_smoke.phase_gemm_core(
         "cpu", chip_smoke.gemm_core_shapes(small=True), iters=1)
     assert [r["name"] for r in recs] == [
         "moe_gemm1_swiglu", "moe_gemm2", "skewed_gemm1_swiglu",
-        "skewed_gemm2", "kv_projection", chip_smoke.KV_CORE]
+        "skewed_gemm2", "kv_projection", chip_smoke.KV_CORE,
+        "scmoe_router", "scmoe_ffn2_gemm1_swiglu", "scmoe_ffn2_gemm2"]
     for rec in recs:
         assert rec["ms"] > 0 and rec["matmul_ms"] > 0 and rec["bound_ms"] > 0
-    assert recs[-1]["wgmma_ms"] > 0
+    assert recs[5]["wgmma_ms"] > 0
     shapes = chip_smoke.gemm_core_shapes()
     assert [s[1:] for s in shapes] == [(256, 7168, 4096, True),
                                        (256, 2048, 7168, False),
                                        (768, 512, 2048, True),
                                        (768, 1024, 512, False),
                                        (4096, 4096, 512, False),
-                                       (8192, 4096, 2048, False)]
+                                       (8192, 4096, 2048, False),
+                                       (1024, 6144, 768, False),
+                                       (1024, 6144, 24576, True),
+                                       (1024, 12288, 6144, False)]
+
+
+def test_chip_smoke_scmoe_phase_on_the_cpu():
+    """The smoke's ScMoE phase at the CPU tests' size: the cell's build
+    held to LongCat's reference, then the kernel's record on the layer's
+    own table of rows per pair (every pair's rows, not one row per
+    expert), its launches taken from the counted ``scmoe`` path under the
+    key the wrapper counts (x holds T k rows a rank)."""
+    w = chip_smoke.scmoe_workload(small=True)
+    counts, recs = chip_smoke.phase_scmoe("cpu", w, iters=1)
+    assert counts == {}                          # no kernel on the CPU
+    (rec,) = recs
+    assert rec["name"] == "moe_dispatch/tile_fused+shared@scmoe_step"
+    assert rec["max_abs_err"] == 0.0 and rec["_path"] == "scmoe"
+    assert rec["_key"] == ("tile_fused+shared", 8, w.T * w.topk, w.d, w.f)
+    full = chip_smoke.scmoe_workload()
+    assert (full.n_dev, full.T, full.d, full.f, full.f_dense, full.n_experts,
+            full.n_zero, full.topk) == (8, 128, 6144, 2048, 12288, 512, 256,
+                                        12)
+    # the bound of a table: its routed rows and the second stream's T rows
+    pairs = [[1, 2], [3, 0]]
+    ms, by, flops, nbytes = chip_smoke.scmoe_bound(pairs, 4, 64, 32, 128)
+    assert flops == 6 * 6 * 64 * 32 + 6 * 2 * 4 * 64 * 128
+    assert (ms, by, flops, nbytes) == chip_smoke.moe_bound(
+        2, [2.0, 1.0], 64, 32, 128, 4, xs_is_x=False)
 
 
 def test_chip_smoke_bound_counts_routed_tokens():

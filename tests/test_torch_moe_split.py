@@ -75,6 +75,25 @@ def test_rank_ctas_weighs_routed_and_second_stream_work():
     assert second > routed >= 1
 
 
+def test_rank_ctas_gives_every_second_stream_the_same_ctas():
+    """Second streams of equal work take equal CTAs, the whole CTAs of
+    their share: LongCat's cell (8 ranks, about 20 microblocks of 64 rows
+    into each at f = 2048, 128 rows of FFN1 at 12288) gives each 12 of its
+    12.45; the routed streams split the other 168 by their work."""
+    counts = [[126, 130, 120, 129, 131, 128, 125, 135]] * 8
+    table = kern.pair_table(counts)
+    ctas = kern.rank_ctas(264, table, 2048, shared=(128, 12288))
+    assert [s for _, s in ctas] == [12] * 8
+    routed = [r for r, _ in ctas]
+    assert sum(routed) == 168
+    assert routed == kern.cta_split(168, [table.expert_rows(e) * 2048
+                                          for e in range(8)])
+    # no routed row at all: every routed stream keeps one CTA
+    empty = kern.rank_ctas(264, kern.pair_table([[0] * 4] * 4), 2048,
+                           shared=(48, 256))
+    assert empty == [(1, 65)] * 4
+
+
 def test_rank_ctas_counts_the_rows_the_kernel_computes():
     """The skewed cell: (174, 57, 19, 6) rows a source to experts 0..3 are
     3, 1, 1 and 1 microblocks of 64 rows, and every microblock costs a
