@@ -16,10 +16,12 @@ sizes; every run runs all of them, and any failure exits non-zero):
    ring: each rank's CTAs from ``ring_ctas`` at the defaults and at
    fig3's largest row; kv_shuttle: each core's; gemm_allgather: its
    registers, spills, dynamic shared memory and CTAs per SM).
-3. ``gemm_core`` — the tile GEMM of ``csrc/tc_gemm.cuh`` alone at the
-   main path's GEMM shapes (serving's expert GEMM1 with SwiGLU and its
-   GEMM2, the same for the skewed cell's busiest expert, kv_transfer's
-   projection, the KV cell's), within 1e-4 of its plain version, timed
+3. ``gemm_core`` — the moe kernel's tile core (``csrc/wg_tile.cuh``'s
+   ``wgmma`` core) alone at the main path's GEMM shapes (serving's expert
+   GEMM1 with SwiGLU and its GEMM2, the same for the skewed cell's busiest
+   expert, kv_transfer's projection, the KV cell's, the LongCat cell's,
+   prefill_skew's busiest expert at skew 5, a packed 64-row unit), within
+   1e-4 of its plain version, timed
    beside ``torch.matmul`` and the 3xTF32 bound; at the KV cell's shape
    (8192 rows, d 4096 into 2 x 1024 columns) kv_shuttle.cu's ``wgmma``
    core alone (``csrc/wg_tile.cuh``) beside them.
@@ -533,14 +535,17 @@ class Bench:
 
 def gemm_core_shapes(small=False):
     """(name, M, K, N, swiglu) of the ``gemm_core`` line: the serving
-    cell's expert GEMM1 (256 routed rows, d=7168, 2f=4096, with SwiGLU)
-    and GEMM2 (f=2048 -> d), the skewed cell's busiest expert (12
-    microblocks of 64 rows, d=512, f=1024), kv_transfer's projection
-    (T = d = 4096, dk = 512), the KV cell's (``KV_CORE``: 8192 rows, d
-    4096 into 2 x 1024 columns, on both cores) and the LongCat cell's
-    products on the core (1024 tokens a step: the router, d 6144 into 512
-    + 256 experts, and FFN2's two GEMMs, d into 2 x 12288 with SwiGLU and
-    12288 back to d); ``small``: test size."""
+    cell's expert GEMM1 (256 routed rows, d=7168, 2f=4096, with SwiGLU;
+    decode_shared's rows into an expert) and GEMM2 (f=2048 -> d), the
+    skewed cell's busiest expert (12 microblocks of 64 rows, d=512,
+    f=1024), kv_transfer's projection (T = d = 4096, dk = 512), the KV
+    cell's (``KV_CORE``: 8192 rows, d 4096 into 2 x 1024 columns, on both
+    cores), the LongCat cell's products on the core (1024 tokens a step:
+    the router, d 6144 into 512 + 256 experts, and FFN2's two GEMMs, d
+    into 2 x 12288 with SwiGLU and 12288 back to d), prefill_skew's
+    busiest expert at skew 5 (4 sources x 52 microblocks of 64 rows, d
+    7168, f 2048) and one packed 64-row unit of the LongCat cell's routed
+    stream (d 6144, f 2048); ``small``: test size."""
     if small:
         return [("moe_gemm1_swiglu", 70, 64, 256, True),
                 ("moe_gemm2", 70, 128, 64, False),
@@ -550,7 +555,11 @@ def gemm_core_shapes(small=False):
                 (KV_CORE, 130, 96, 80, False),
                 ("scmoe_router", 128, 64, 24, False),
                 ("scmoe_ffn2_gemm1_swiglu", 128, 64, 256, True),
-                ("scmoe_ffn2_gemm2", 128, 128, 64, False)]
+                ("scmoe_ffn2_gemm2", 128, 128, 64, False),
+                ("prefill_skew5_gemm1_swiglu", 200, 64, 256, True),
+                ("prefill_skew5_gemm2", 200, 128, 64, False),
+                ("scmoe_packed_gemm1_swiglu", 64, 64, 256, True),
+                ("scmoe_packed_gemm2", 64, 128, 64, False)]
     return [("moe_gemm1_swiglu", 256, 7168, 2 * 2048, True),
             ("moe_gemm2", 256, 2048, 7168, False),
             ("skewed_gemm1_swiglu", 768, 512, 2 * 1024, True),
@@ -559,7 +568,11 @@ def gemm_core_shapes(small=False):
             (KV_CORE, 8192, 4096, 2 * 1024, False),
             ("scmoe_router", 1024, 6144, 512 + 256, False),
             ("scmoe_ffn2_gemm1_swiglu", 1024, 6144, 2 * 12288, True),
-            ("scmoe_ffn2_gemm2", 1024, 12288, 6144, False)]
+            ("scmoe_ffn2_gemm2", 1024, 12288, 6144, False),
+            ("prefill_skew5_gemm1_swiglu", 4 * 52 * 64, 7168, 2 * 2048, True),
+            ("prefill_skew5_gemm2", 4 * 52 * 64, 2048, 7168, False),
+            ("scmoe_packed_gemm1_swiglu", 64, 6144, 2 * 2048, True),
+            ("scmoe_packed_gemm2", 64, 2048, 6144, False)]
 
 
 # the gemm_core line's row that also runs kv_shuttle.cu's wgmma core alone
@@ -569,8 +582,9 @@ KV_CORE = "kv_wgmma_core"
 
 
 def phase_gemm_core(device="cuda", shapes=None, iters=5):
-    """The tile GEMM of ``csrc/tc_gemm.cuh`` alone (one CTA a tile, no
-    flags) at the main path's GEMM shapes: held to its plain version
+    """The moe kernel's tile core alone (``csrc/wg_tile.cuh``'s ``wgmma``
+    core, one CTA an SM over the tiles, no flags) at the main path's GEMM
+    shapes: held to its plain version
     within 1e-4 and timed beside one ``torch.matmul`` of the same product
     and the 3xTF32 bound, so a moe or kv variant's time splits into GEMM
     and the rest (dispatch, combine, waiting). The ``KV_CORE`` row also
@@ -626,7 +640,7 @@ def moe_bound(n, counts, d, f, fs=0, Ts=0, xs_is_x=True):
     stream runs the shared expert (width ``fs``) over ``Ts`` rows a rank,
     which are x itself (``xs_is_x``, read once) or an input of their own.
     The kernel runs its f32 GEMMs on the tensor cores as 3xTF32
-    (``csrc/tc_gemm.cuh``), so three TF32 products per multiply-add are
+    (``csrc/wg_tile.cuh``), so three TF32 products per multiply-add are
     the least the card can do for this accuracy; against the f32 SIMT rate
     a right kernel could read over 100% of its bound. Returns (ms, bound
     by, flops, bytes)."""

@@ -1,10 +1,10 @@
 // Cycle counters of a CTA, for moe_dispatch.cu and kv_shuttle.cu, in the
 // counting build (-DCUCO_STATS, kernels/build.py::STATS_DEFINES): its whole
 // run, the cycles it spends waiting (the slow path of a flag spin,
-// window.cuh's bulk-group waits) and the cycles in tc_gemm.cuh's tile
-// products (gemm). Thread 0 counts them with clock64 in shared memory
-// (`cta`) and, at its exit, adds them and a CTA count to its role's row of
-// the launch's accumulator, u64 (roles, BUCKETS). The wrapper launches this
+// window.cuh's bulk-group waits) and the cycles in tile products (gemm).
+// Thread 0 counts them with clock64 in shared memory (`cta`) and, at its
+// exit, adds them and a CTA count to its role's row of the launch's
+// accumulator, u64 (roles, BUCKETS). The wrapper launches this
 // build, with an accumulator, only on one launch in 17 while a profiler
 // records (core/telemetry.py::kernel_counters).
 //
@@ -76,8 +76,20 @@ __device__ __forceinline__ void cta_wait(const unsigned* p, unsigned target, int
   __syncthreads();
 }
 
+// thread 0's cycles in `ready()` counted as waiting; no other thread, and
+// no production build, calls it (a unit's first stage on the wgmma core)
+template <class F>
+__device__ __forceinline__ void wait_for(F&& ready) {
+  if (threadIdx.x == 0) {
+    mark();
+    ready();
+    add_wait();
+  }
+}
+
 // `products()` (every thread: tc_gemm.cuh's tile, which opens and closes on
-// __syncthreads), thread 0's cycles in it counted as gemm
+// __syncthreads; a consumer of the wgmma core: its product loop), thread
+// 0's cycles in it counted as gemm
 template <class F>
 __device__ __forceinline__ void gemm(F&& products) {
   if (threadIdx.x == 0) cta.mark = clock64();
@@ -97,6 +109,9 @@ __device__ __forceinline__ void cta_wait(const unsigned* p, unsigned target, int
                                          const char* kernel, const char* what, int a, int b) {
   ::cta_wait(p, target, timeout_ms, kernel, what, a, b);
 }
+
+template <class F>
+__device__ __forceinline__ void wait_for(F&&) {}
 
 template <class F>
 __device__ __forceinline__ void gemm(F&& products) {

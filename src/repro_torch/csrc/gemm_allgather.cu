@@ -83,6 +83,7 @@
 #include <stdint.h>
 
 #include "flags.cuh"
+#include "tma_map.cuh"
 #include "wgmma_gemm.cuh"
 #include "window.cuh"
 
@@ -423,39 +424,6 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 
 // ------------------------------------------------------------ C interface
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver (the build links no libcuda)
-static EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
-            cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// (rows, K_p) f32 scratch as 128 x 32 boxes in the 128-byte swizzle wgmma reads
-static int encode(CUtensorMap* map, float* base, int rows, int K_p) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return -3;
-  const cuuint64_t dims[2] = {(cuuint64_t)K_p, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)K_p * sizeof(float)};
-  const cuuint32_t box[2] = {(cuuint32_t)BK, 128u};
-  const cuuint32_t step[2] = {1u, 1u};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, base, dims, strides, box, step,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : -4;
-}
-
 // the dynamic shared memory is above the 48 KB default: opt in before the
 // occupancy query and the launch
 static cudaError_t allow_smem() {
@@ -465,8 +433,9 @@ static cudaError_t allow_smem() {
 
 static int launch(const GaParams* p, int grid, int split_only, void* stream) {
   CUtensorMap ta, tb;
-  int rc = encode(&ta, p->sa, 2 * p->n * p->M_p, p->K_p);
-  if (rc == 0) rc = encode(&tb, p->sb, 2 * p->n * p->N_p, p->K_p);
+  // (rows, K_p) f32 scratch as 128 x 32 boxes in the 128-byte swizzle wgmma reads
+  int rc = tma::encode(&ta, p->sa, p->K_p, 2 * p->n * p->M_p, 128);
+  if (rc == 0) rc = tma::encode(&tb, p->sb, p->K_p, 2 * p->n * p->N_p, 128);
   if (rc != 0) return rc;
   void* args[] = {const_cast<GaParams*>(p), &split_only, &ta, &tb};
   cudaError_t e = allow_smem();

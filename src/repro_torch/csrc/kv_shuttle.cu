@@ -87,6 +87,7 @@
 #include "cta_stats.cuh"
 #include "flags.cuh"
 #include "tc_gemm.cuh"
+#include "tma_map.cuh"
 #include "wg_tile.cuh"
 #include "window.cuh"
 
@@ -430,7 +431,7 @@ __device__ __forceinline__ void prefill_wg(const ShuttleParams& P, const CUtenso
       }
     } else if (threadIdx.x >= wt::NTHREADS - wt::NCONV) {
       const int mine = pid < un.total ? (un.total - pid + npre - 1) / npre : 0;
-      wt::convert(ring, mine * nk, P.timeout_ms);
+      wt::convert_unit<false>(ring, mine * nk, wt::BM, nullptr, 0, P.timeout_ms);
     }
     return;
   }
@@ -507,47 +508,12 @@ static cudaError_t allow_smem(const void* kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver (the build links no libcuda)
-static EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
-            cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a row-major (outer, inner) f32 tensor as box_outer x box_inner boxes of
-// 128-byte rows in the 128-byte swizzle, zeros past its edges
-static int encode(CUtensorMap* map, const void* base, int inner, int outer, int box_outer) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return -3;
-  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
-  const cuuint64_t strides[1] = {(cuuint64_t)inner * sizeof(float)};
-  const cuuint32_t box[2] = {32u, (cuuint32_t)box_outer};
-  const cuuint32_t step[2] = {1u, 1u};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base), dims,
-                        strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : -4;
-}
-
 // the wgmma core's maps: x[0] (rows, d) in 128 x 32 boxes, each weight
 // (d, dk) in 32 x 32 boxes
 static int encode_maps(const ShuttleParams* p, CUtensorMap (&m)[3]) {
-  int rc = encode(&m[0], p->x, p->d, p->rows, wt::BM);
-  if (rc == 0) rc = encode(&m[1], p->wk, p->dk, p->d, wt::BK);
-  if (rc == 0) rc = encode(&m[2], p->wv, p->dk, p->d, wt::BK);
+  int rc = tma::encode(&m[0], p->x, p->d, p->rows, wt::BM);
+  if (rc == 0) rc = tma::encode(&m[1], p->wk, p->dk, p->d, wt::BK);
+  if (rc == 0) rc = tma::encode(&m[2], p->wv, p->dk, p->d, wt::BK);
   return rc;
 }
 

@@ -1,6 +1,9 @@
-// The tensor-core tile GEMM the port's moe_dispatch.cu and kv_shuttle.cu
-// share: a CTA of NT = 256 threads computes one BM x BN = 64 x 128 output
-// tile of A (rows x K) times B (K x N), both row-major, at f32 accuracy.
+// The tensor-core tile GEMM of the port's unaligned operands (kv_shuttle.cu's
+// projections and moe_dispatch.cu's gemm_core_kernel<false>, where K or N
+// is off 4 or a base off 16 bytes: what TMA cannot map; the aligned ones
+// run wg_tile.cuh's wgmma core): a CTA of NT = 256 threads computes one BM
+// x BN = 64 x 128 output tile of A (rows x K) times B (K x N), both
+// row-major, at f32 accuracy.
 //
 // Products: mma.sync m16n8k8 on TF32 with the error-compensated 3xTF32
 // split (mma.cuh's split_tf32 and mma_tf32). Each f32 operand x becomes
@@ -13,8 +16,8 @@
 // in any layout, so no weight is transposed or copied.
 // wgmma_gemm.cuh (gemm_allgather.cu) pays that copy once per call instead:
 // its operands are split and transposed into K-major hi / lo scratch, then
-// TMA + wgmma run with no split in the loop (chip_smoke.py's ga_core line
-// times it against this core's gemm_core line).
+// TMA + wgmma run with no split in the loop (chip_smoke.py's ga_core line),
+// and wg_tile.cuh gathers the weight into registers as wgmma's A.
 //
 // Staging: A and B arrive through a ring of STAGES BK = 32 deep slices in
 // dynamic shared memory, by cp.async (16 bytes a copy, one commit group a

@@ -259,15 +259,70 @@ def grid_for(device, n, shared, wire_i8, probe=False, stats=False):
     return got
 
 
-def rank_ctas(grid, sched, f, shared=None):
+def tile_rows(left):
+    """The token tile the kernel's core takes for an m-tile with ``left``
+    rows from its start on: segments are cut into tiles of 128 rows, and a
+    tile with at most 64 rows left takes 64 (``m64n64k8``), so a 64-row
+    microblock is one 64-row tile (``tile_rows`` in the CUDA source)."""
+    return 128 if left > 64 else 64
+
+
+def segment_tiles(rows):
+    """The token tiles (their widths, in order) of a segment of ``rows``
+    rows."""
+    return [tile_rows(rows - m0) for m0 in range(0, rows, 128)]
+
+
+def _segments(sched, e, tile_fused):
+    """Rows of each segment of expert e's routed GEMMs as the kernel cuts
+    them: packed, each ``block_tokens``-row microblock of its arrivals;
+    tile-fused, each microblock of each source; otherwise each source's
+    microblocks together."""
+    B = sched.block_tokens
+    if sched.packed:
+        return [B] * (sched.expert_rows(e) // B)
+    if tile_fused:
+        return [B] * sum(r[e] for r in sched.blocks)
+    return [B * r[e] for r in sched.blocks]
+
+
+def computed_rows(sched, e, tile_fused):
+    """Token rows expert e's GEMM tiles cover: their widths summed over
+    :func:`_segments` (a tile costs its width however many of its rows
+    are tokens)."""
+    return sum(sum(segment_tiles(r)) for r in _segments(sched, e, tile_fused))
+
+
+def token_tiles(sched, f, d, *, tile_fused, shared=None):
+    """``{128: tiles, 64: tiles}``: the GEMM units of one launch by token
+    tile width, every rank's routed GEMM1 (``f / 64`` column slabs) and
+    GEMM2 (``d / 128``), and with ``shared=(Ts, fs)`` every second
+    stream's; the note the wrapper leaves on ``moe_dispatch.call``."""
+    out = {128: 0, 64: 0}
+
+    def add(rows, slabs):
+        for w in segment_tiles(rows):
+            out[w] += slabs
+    per_row = f // 64 + -(-d // 128)
+    for e in range(sched.n):
+        for rows in _segments(sched, e, tile_fused):
+            add(rows, per_row)
+    if shared is not None:
+        Ts, fs = shared
+        for _ in range(sched.n):
+            add(Ts, fs // 64 + -(-d // 128))
+    return out
+
+
+def rank_ctas(grid, sched, f, shared=None, tile_fused=False):
     """Each rank's ``(routed, second-stream)`` CTAs of a launch of
     ``grid`` CTAs: :func:`cta_split` by work. Rank e's routed stream runs
     the FFN (width ``f``) over the rows routed to its expert as the
     kernel computes them: every source's microblocks into e under the
-    schedule or :class:`PairTable` ``sched`` (``n * blocks[e] *
-    block_tokens`` under a schedule, :meth:`PairTable.expert_rows` under
-    a table; padding rows included: a GEMM tile costs the same however
-    many of its rows are tokens). With
+    schedule or :class:`PairTable` ``sched``, cut into token tiles
+    (:func:`computed_rows`: padding rows included, a GEMM tile costs its
+    width however many of its rows are tokens; ``tile_fused`` cuts each
+    microblock apart). With
     ``shared=(Ts, fs)`` its second stream runs the shared expert (width
     ``fs``) over its ``Ts`` rows (0 CTAs without). Every rank's second
     stream does the same work, so each takes the same CTAs: the whole
@@ -279,10 +334,10 @@ def rank_ctas(grid, sched, f, shared=None):
     n = sched.n
     if not isinstance(sched, PairTable):
         sched = pair_table(sched.counts, sched.block_tokens, sched.tight)
-    routed = [sched.expert_rows(e) * f for e in range(n)]
+    routed = [computed_rows(sched, e, tile_fused) * f for e in range(n)]
     if shared is None:
         return [(c, 0) for c in cta_split(grid, routed)]
-    second = shared[0] * shared[1]
+    second = sum(segment_tiles(shared[0])) * shared[1]
     each = max(1, min((grid - n) // n,
                       grid * second // (sum(routed) + n * second)))
     return [(c, each) for c in cta_split(grid - n * each, routed)]
@@ -381,7 +436,11 @@ def _launch(x, w1, w2, counts, block_tokens, tight, *, barrier, pipelined,
             "moe_kernel", STAT_ROLES, dev)
         grid, _ = grid_for(dev, n, shared is not None, wire_i8, probe,
                            stats is not None)
-        ctas = rank_ctas(grid, sched, f, None if shared is None else (Ts, fs))
+        second = None if shared is None else (Ts, fs)
+        ctas = rank_ctas(grid, sched, f, second, tile_fused)
+        tiles = token_tiles(sched, f, d, tile_fused=tile_fused, shared=second)
+        telemetry.note("moe_dispatch.tiles_128", tiles[128])
+        telemetry.note("moe_dispatch.tiles_64", tiles[64])
         stride = sched.b_max * B
         slab = n * stride
         p = _Params(n=n, T=T, Ts=Ts, d=d, f=f, fs=fs, B=B, b_max=sched.b_max,
@@ -542,7 +601,7 @@ def log_cap(sched, d):
     room to spare. Packed, a pair's run may take one round more than its
     microblocks, and a tile one round a source it holds."""
     rounds = sched.n * (sched.b_max + int(sched.packed))
-    tiles = -(-d // 128) * -(-sched.block_tokens // 64)
+    tiles = -(-d // 128) * len(segment_tiles(sched.block_tokens))
     return 2 * rounds * (1 + tiles) + 16
 
 
@@ -631,12 +690,13 @@ def moe_dispatch_logged(x, w1, w2, *, counts, block_tokens=64, tight=True,
 def combine_rounds(sched, me, d, tile_fused):
     """Rank ``me``'s combine rounds in order: non-fused ``(off, j)`` for
     its expert's ``blocks[me]`` microblocks to each source; tile-fused
-    ``(off, tile)`` a GEMM2 tile (64 x 128) of each microblock, tile =
-    (j * column tiles + column) * m-tiles + m-tile."""
+    ``(off, tile)`` a GEMM2 tile (:func:`segment_tiles` of a microblock x
+    128 columns) of each microblock, tile = (j * column tiles + column) *
+    m-tiles + m-tile."""
     n, B, mb = sched.n, sched.block_tokens, sched.blocks[me]
     if not tile_fused:
         return [(off, j) for off in range(n) for j in range(mb)]
-    ct, mt = -(-d // 128), -(-B // 64)
+    ct, mt = -(-d // 128), len(segment_tiles(B))
     return [(off, (j * ct + c) * mt + m) for off in range(n)
             for j in range(mb) for c in range(ct) for m in range(mt)]
 
@@ -699,11 +759,13 @@ def gemm_core_plain(a, b, *, swiglu=False):
 
 
 def gemm_core(a, b, *, swiglu=False):
-    """The tensor-core tile GEMM of ``csrc/tc_gemm.cuh`` alone, one CTA a
-    64 x 128 tile (``moe_dispatch_gemm`` of the moe_dispatch library):
+    """The moe kernel's tile core alone (``moe_dispatch_gemm`` of the
+    moe_dispatch library): ``csrc/wg_tile.cuh``'s 3xTF32 ``wgmma`` core,
+    one CTA an SM over tiles of 128 (or, for a last tile of at most 64
+    rows, 64) rows x 128 columns, where K and N are multiples of 4 and the
+    bases 16-byte aligned; else ``csrc/tc_gemm.cuh``'s 64 x 128 tile.
     ``workloads/scmoe.py``'s router and FFN2 on the main path, and
-    ``chip_smoke.py``'s ``gemm_core`` line; the kernels run the same tile
-    inside their cooperative launch. a (M, K) @ b (K, N)
+    ``chip_smoke.py``'s ``gemm_core`` line. a (M, K) @ b (K, N)
     float32; ``swiglu``: silu(a b[:, :N/2]) * (a b[:, N/2:]), N/2 a
     multiple of 64. CUDA tensors launch the kernel (or raise); CPU tensors
     compute :func:`gemm_core_plain`."""

@@ -249,14 +249,17 @@ def test_chip_smoke_gemm_core_on_the_cpu():
     """The smoke's gemm_core line at test size on the CPU, where the
     wrappers compute the plain version; the full shapes are the serving
     cell's expert GEMMs, kv_transfer's projection, the KV cell's, which
-    also times kv_shuttle.cu's wgmma core alone, and the LongCat cell's
-    router and FFN2."""
+    also times kv_shuttle.cu's wgmma core alone, the LongCat cell's
+    router and FFN2, prefill_skew's busiest expert at skew 5 and a packed
+    64-row unit of the LongCat cell."""
     recs = chip_smoke.phase_gemm_core(
         "cpu", chip_smoke.gemm_core_shapes(small=True), iters=1)
     assert [r["name"] for r in recs] == [
         "moe_gemm1_swiglu", "moe_gemm2", "skewed_gemm1_swiglu",
         "skewed_gemm2", "kv_projection", chip_smoke.KV_CORE,
-        "scmoe_router", "scmoe_ffn2_gemm1_swiglu", "scmoe_ffn2_gemm2"]
+        "scmoe_router", "scmoe_ffn2_gemm1_swiglu", "scmoe_ffn2_gemm2",
+        "prefill_skew5_gemm1_swiglu", "prefill_skew5_gemm2",
+        "scmoe_packed_gemm1_swiglu", "scmoe_packed_gemm2"]
     for rec in recs:
         assert rec["ms"] > 0 and rec["matmul_ms"] > 0 and rec["bound_ms"] > 0
     assert recs[5]["wgmma_ms"] > 0
@@ -269,7 +272,11 @@ def test_chip_smoke_gemm_core_on_the_cpu():
                                        (8192, 4096, 2048, False),
                                        (1024, 6144, 768, False),
                                        (1024, 6144, 24576, True),
-                                       (1024, 12288, 6144, False)]
+                                       (1024, 12288, 6144, False),
+                                       (13312, 7168, 4096, True),
+                                       (13312, 2048, 7168, False),
+                                       (64, 6144, 4096, True),
+                                       (64, 2048, 6144, False)]
 
 
 def test_chip_smoke_scmoe_phase_on_the_cpu():

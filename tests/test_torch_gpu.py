@@ -33,10 +33,14 @@ def cuda_device():
 
 
 # the main path's variants, and ones it does not launch: combine_tile 32
-# (flag chunks of half a 64-row GEMM tile) and BARRIER on the int8 wire
+# (flag chunks of half a 64-row GEMM tile), and BARRIER, DEFERRED and
+# pipelined SIGNAL on the int8 wire (its rows dequantized by the core's
+# converters in 128-row tiles)
 GPU_VARIANTS = dict(kern.VARIANTS, **{
     "tile_fused_ct32": dict(tile_fused=True, combine_tile=32),
-    "barrier+int8": dict(barrier=True, pipelined=False, wire_i8=True)})
+    "barrier+int8": dict(barrier=True, pipelined=False, wire_i8=True),
+    "deferred_signal+int8": dict(pipelined=False, wire_i8=True),
+    "pipelined_signal+int8": dict(pipelined=True, wire_i8=True)})
 
 
 @pytest.mark.gpu
@@ -45,10 +49,17 @@ GPU_VARIANTS = dict(kern.VARIANTS, **{
                                    (4, 192, 256, 128, 128, 1.0, 32, True),
                                    (2, 128, 64, 192, 64, 2.0, 16, False),
                                    (1, 64, 64, 64, 64, 1.0, 64, True),
-                                   (3, 320, 192, 64, 64, 2.0, 64, True)])
+                                   (3, 320, 192, 64, 64, 2.0, 64, True),
+                                   (2, 384, 128, 128, 128, 1.0, 128, True),
+                                   (4, 200, 64, 64, 128, 4.0, 64, False)])
 def test_kernel_matches_plain_version(cuda_device, variant, shape):
     """The CUDA kernel against its plain version on the card (1e-4 f32,
-    1e-3 int8 wire: a tie may round the other way)."""
+    1e-3 int8 wire: a tie may round the other way). The shapes take both
+    token tiles of the core: 128 rows where a segment has more than 64
+    (two or more microblocks of a source, B = 128, the second stream's
+    rows), 64 for a 64-row microblock and a segment's last 64 or fewer;
+    rows that are not a multiple of either, and (not ``tight``) microblocks
+    and tiles with no token row."""
     n, T, d, f, fs, skew, B, tight = shape
     arrs = numpy_inputs(n, T, d, f, fs, seed=n + T)
     ts = inputs_from_numpy(*arrs, device=cuda_device)
@@ -74,24 +85,28 @@ def test_kernel_matches_plain_version(cuda_device, variant, shape):
 @pytest.mark.parametrize("counts,shared", [([125, 1, 0, 2], False),
                                            ([0, 128, 0, 0], True),
                                            ([1, 0, 127, 0], True)])
+@pytest.mark.parametrize("tight", [True, False])
 def test_kernel_with_experts_of_zero_or_one_row(cuda_device, variant, counts,
-                                                shared):
+                                                shared, tight):
     """Ranks whose expert gets 0 or 1 rows: each keeps its minimum of one
     routed CTA (and one second-stream CTA), dispatches its own tokens and
-    assembles; the busy expert gets the rest of the grid."""
+    assembles; the busy expert gets the rest of the grid. Not ``tight``,
+    every expert takes the largest block count: units whose tiles hold no
+    token row."""
     n, T, d, f = 4, 128, 128, 128
     arrs = numpy_inputs(n, T, d, f, f if shared else 0, seed=sum(counts[:2]))
     ts = inputs_from_numpy(*arrs, device=cuda_device)
     sh = (ts[0], ts[3], ts[4]) if shared else None
-    kw = dict(counts=counts, block_tokens=64, tight=True,
+    kw = dict(counts=counts, block_tokens=64, tight=tight,
               **GPU_VARIANTS[variant])
     grid, _ = kern.grid_for(cuda_device, n, shared, kw.get("wire_i8", False))
-    ctas = kern.rank_ctas(grid, kern.make_schedule(counts), f,
-                          (T, f) if shared else None)
+    ctas = kern.rank_ctas(grid, kern.make_schedule(counts, tight=tight), f,
+                          (T, f) if shared else None,
+                          kw.get("tile_fused", False))
     assert min(r for r, _ in ctas) >= 1 and sum(map(sum, ctas)) == grid
     got = kern.moe_dispatch_combine(*ts[:3], shared=sh, **kw)
     want = kern.moe_dispatch_combine_ref(
-        *ts[:3], counts=counts, block_tokens=64, tight=True,
+        *ts[:3], counts=counts, block_tokens=64, tight=tight,
         wire_i8=kw.get("wire_i8", False), shared=sh)
     torch.cuda.synchronize()
     got = got if isinstance(got, tuple) else (got,)
@@ -130,12 +145,17 @@ def test_launch_after_launch_sees_fresh_flags(cuda_device):
                                           (200, 96, 40, False),
                                           (130, 67, 65, False),
                                           (64, 4096, 200, False),
-                                          (256, 7168, 4096, True)])
+                                          (256, 7168, 4096, True),
+                                          (130, 100, 200, False),
+                                          (257, 36, 384, True),
+                                          (1100, 2052, 260, False)])
 def test_gemm_core_matches_matmul(cuda_device, M, K, N, swiglu):
-    """The tile GEMM alone against torch.matmul (f32, no TF32) at ragged
-    rows, columns and depth, the unaligned path (K, N not multiples of 4)
-    and serving's GEMM1 shape: within 1e-4 (3xTF32 keeps f32 accuracy;
-    the sums run in another order)."""
+    """The GEMM alone against torch.matmul (f32, no TF32) at ragged rows
+    (M off 64: a last tile of 64 or 128 rows), columns and depth (K off
+    32: TMA's zero fill), the unaligned path (K, N not multiples of 4:
+    tc_gemm.cuh's tile), more tiles than SMs, and serving's GEMM1 shape:
+    within 1e-4 (3xTF32 keeps f32 accuracy; the sums run in another
+    order)."""
     rng = np.random.default_rng(M + K + N)
     a = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32))
     b = torch.from_numpy((rng.standard_normal((K, N)) / np.sqrt(K))

@@ -117,3 +117,61 @@ def test_rank_ctas_counts_the_rows_the_kernel_computes():
     for grow in range(0, 300, 7):
         more = kern.make_schedule([174 + grow, 57, 19, 6], block_tokens=64)
         assert kern.rank_ctas(264, more, 1024)[0][0] >= ctas[0][0]
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+@pytest.mark.parametrize("shared", [None, (256, 2048)])
+@pytest.mark.parametrize("tile_fused", [False, True])
+def test_rank_ctas_at_one_cta_an_sm(n, shared, tile_fused):
+    """The wgmma core's grid, 132 CTAs (one an SM): every rank keeps a
+    routed CTA, every second stream the same share, and the prefix table
+    covers the grid, under uniform, skewed and empty routing."""
+    for counts in ([64] * n, [64 * (n - e) ** 2 for e in range(n)],
+                   [512] + [0] * (n - 1)):
+        sched = kern.make_schedule(counts)
+        ctas = kern.rank_ctas(132, sched, 2048, shared, tile_fused)
+        assert len(ctas) == n and sum(map(sum, ctas)) == 132
+        assert min(r for r, _ in ctas) >= 1
+        assert len({s for _, s in ctas}) == 1
+        assert (ctas[0][1] >= 1) is (shared is not None)
+        starts = kern.stream_starts(ctas)
+        assert starts[0] == 0 and starts[-1] == 132
+        assert starts == sorted(starts) and len(starts) == 2 * n + 1
+
+
+def test_tile_rows_cut_a_segment_into_tiles_of_128_and_a_tail_of_64():
+    assert kern.tile_rows(1) == kern.tile_rows(64) == 64
+    assert kern.tile_rows(65) == kern.tile_rows(500) == 128
+    assert kern.segment_tiles(64) == [64]
+    assert kern.segment_tiles(128) == [128]
+    assert kern.segment_tiles(192) == [128, 64]
+    assert kern.segment_tiles(200) == [128, 128]
+    assert kern.segment_tiles(320) == [128, 128, 64]
+    assert kern.segment_tiles(0) == []
+
+
+def test_token_tiles_count_the_launch_units_by_width():
+    """The note on ``moe_dispatch.call``: prefill_skew's schedule (4 ranks
+    x (174, 57, 19, 6) rows; 3, 1, 1, 1 microblocks of 64 a source) under
+    pipelined SIGNAL takes a 128 and a 64 tile of each source's 3
+    microblocks into expert 0 and a 64 tile of every other pair; each tile
+    is f / 64 GEMM1 units and d / 128 GEMM2 units."""
+    sched = kern.pair_table([174, 57, 19, 6])
+    per = 1024 // 64 + 512 // 128
+    assert kern.token_tiles(sched, 1024, 512, tile_fused=False) \
+        == {128: 4 * per, 64: (4 + 4 * 3) * per}
+    # tile-fused: every microblock one 64-row tile
+    assert kern.token_tiles(sched, 1024, 512, tile_fused=True) \
+        == {128: 0, 64: 4 * 6 * per}
+    # the second stream's Ts rows: 300 = 128 + 128 + 44 (a 64 tile), a rank
+    assert kern.token_tiles(sched, 1024, 512, tile_fused=True,
+                            shared=(300, 2048)) \
+        == {128: 4 * 2 * (2048 // 64 + 4), 64: 4 * 6 * per + 4 * (32 + 4)}
+    # packed: an expert's arrivals in ceil(rows / 64) microblocks: 104
+    # rows into expert 0 take 2, 64 into expert 1 take 1
+    packed = kern.pair_table([[40, 63], [64, 1]], packed=True)
+    assert kern.token_tiles(packed, 128, 128, tile_fused=True) \
+        == {128: 0, 64: (2 + 1) * (2 + 1)}
+    assert kern.computed_rows(packed, 0, True) == 128
+    assert kern.computed_rows(kern.pair_table([174, 57, 19, 6]), 0, False) \
+        == 4 * 192
